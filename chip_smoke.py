@@ -16,6 +16,23 @@ Phases, each printing one line before the final one:
    the CPU.
 4. timing: CUDA-event times of the kernel, its plain version, the library
    convolution and the whole frame, beside the card's name and power limit.
+5. MDP kernel check: the value-iteration kernel against its plain version
+   at [10,64,128,1] (non-negative reward) and [3,16,32,1] (signed, with a
+   goal bump), V and the sweep counts; the SVF kernel at [10,64,128,8]
+   T=50 and [3,17,33,8] T=12, with zero_terminal_state off and on.
+6. MDP path: the production stage-3 objective at B=10 (batch_size) on one
+   collated batch of the synthetic dataset at 512x612, grid 256:
+   MaxEntIRL.forward with the MDP solve in eval mode, the frozen backbone
+   recording no autograd graph, then LossManager (MaxEntIRLLoss with its
+   reward-gradient penalty) and backward into the reward head. Checks that
+   both MDP kernels were launched, the shapes, finiteness, the policy's
+   normalisation, the SVF mass per element and a finite non-zero gradient.
+7. MDP card vs CPU: VI, the policy/Q tail, sharpening, SVF, the greedy
+   rollout, the loss and the reward-head gradient, each run on the CPU
+   from the card's own input to it.
+8. MDP timing: the VI and SVF kernels and their plain versions at the MDP
+   path's own inputs with their bounds, each stage, and the whole
+   objective.
 
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
@@ -46,6 +63,20 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # the whole frame (see the main-path phase for why it is looser)
 STAGE_RTOL = 1e-3
 FRAME_RTOL = 1e-2
+# MDP kernels vs their plain versions, and each MDP stage card vs CPU: V to
+# two convergence thresholds (a solve that stops one sweep later moves V by
+# up to the threshold), SVF to the bar of tests/test_svf_pallas.py, the
+# tail and the loss in f32 (max|d| / max(1, max|ref|)), the sharpened
+# policy absolutely, the reward-head gradient as max|d| over its largest
+# entry (a double backward through cuDNN, TF32 off, whose upsample and
+# pooling backwards add with atomics in an order that varies by run; a
+# single bias, a sum of cancelling terms, can differ by ~1e-3 of its own
+# largest entry)
+VI_ATOL, VI_RTOL = 2e-3, 1e-4
+SVF_ATOL, SVF_RTOL = 1e-6, 1e-5
+SHARPEN_ATOL = 1e-5
+MDP_TAIL_RTOL = MDP_LOSS_RTOL = 1e-5
+MDP_GRAD_RTOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -68,9 +99,11 @@ def example_inputs(h: int, w: int, B: int = 1):
     return rgbd, np.tile(p2p, (B, 1, 1, 1))
 
 
-def time_ms(torch, f, iters: int = 20, reps: int = 5) -> float:
-    """Median over ``reps`` of the mean CUDA-event time of ``iters`` calls."""
-    for _ in range(3):
+def time_ms(torch, f, iters: int = 20, reps: int = 5,
+            warmup: int = 3) -> float:
+    """Median over ``reps`` of the mean CUDA-event time of ``iters`` calls,
+    after ``warmup`` calls."""
+    for _ in range(warmup):
         f()
     torch.cuda.synchronize()
     out = []
@@ -109,6 +142,393 @@ def to_device(folded, dev):
 def max_rel(a, b) -> tuple[float, float]:
     d = float((a.float() - b.float()).abs().max())
     return d, d / max(1.0, float(b.float().abs().max()))
+
+
+def check_close(name, got, ref, atol, rtol) -> float:
+    """Fails unless |got - ref| <= atol + rtol * |ref| everywhere; returns
+    max |got - ref|."""
+    if got.shape != ref.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    err = (got.float() - ref.float()).abs()
+    if not bool((err <= atol + rtol * ref.float().abs()).all()):
+        fail(f"{name}: max|d| {float(err.max()):.3e} over {atol} + "
+             f"{rtol}*|ref|")
+    return float(err.max())
+
+
+def union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def bound_by(ops: float, nbytes: float) -> str:
+    return ("operations" if ops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES
+            else "bytes")
+
+
+def vi_bound(sweeps: int, n_cells: int) -> tuple[float, float]:
+    """(operations, bytes) of a value-iteration solve: per cell and sweep
+    24 tap products, 16 adds, 7 maxes, r + gamma*V (2) and the change
+    (sub, abs, max: 3); r read once and V written once."""
+    return 52.0 * sweeps * n_cells, 8.0 * n_cells
+
+
+def svf_bound(B: int, H: int, W: int, horizon: int,
+              zero_terminal_state: bool) -> tuple[float, float]:
+    """(operations, bytes) of an SVF propagation: per step the in-bounds
+    products and adds of the 8 shifts, the running sum (and the terminal
+    zeroing); the final sum; the [B,H,W,8] policy, s0/s1 and mu once."""
+    from creste_public_tpu_torch.ops.value_iteration import DYNAMICS
+
+    shifts = sum((H - abs(dy)) * (W - abs(dx)) for dy, dx in DYNAMICS)
+    per_step = 2.0 * shifts + H * W * (1 + int(zero_terminal_state))
+    ops = B * ((horizon - 1) * per_step + H * W)
+    return ops, 4.0 * (B * H * W * 8 + 2 * B + B * H * W)
+
+
+def mdp_kernel_checks(torch, dev) -> None:
+    """Phase 5: the VI and SVF kernels against their plain versions on the
+    card, at the production shapes and at small odd ones."""
+    from creste_public_tpu_torch.ops import svf
+    from creste_public_tpu_torch.ops import value_iteration as vi
+    from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
+    from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
+
+    g = torch.Generator().manual_seed(SEED)
+    for shape, signed in (((10, 64, 128, 1), False), ((3, 16, 32, 1), True)):
+        r = torch.rand(shape, generator=g)
+        if signed:  # signed reward with a goal bump
+            r = r - 0.6
+            r[:, shape[1] // 2, shape[2] // 2] = 1.0
+        r = r.to(dev)
+        got = value_iteration_cuda(r, 0.99, 1e-3)
+        sweeps = int(value_iteration_cuda.sweeps.item())
+        ref = vi.value_iteration_plain(r, 0.99, 1e-3)
+        d = check_close(f"VI kernel at {list(shape)}", got, ref, VI_ATOL,
+                        VI_RTOL)
+        if abs(sweeps - vi.value_iteration_plain.sweeps) > 1:
+            fail(f"VI kernel ran {sweeps} sweeps, its plain version "
+                 f"{vi.value_iteration_plain.sweeps}")
+        print(f"phase MDP kernel check VI {list(shape)}: ok, max|d| "
+              f"{d:.3e} (tol {VI_ATOL} + {VI_RTOL}*|ref|), sweeps kernel "
+              f"{sweeps} plain {vi.value_iteration_plain.sweeps}", flush=True)
+    for shape, horizon in (((10, 64, 128, 8), 50), ((3, 17, 33, 8), 12)):
+        B, H, W, _ = shape
+        policy = torch.softmax(torch.randn(shape, generator=g) * 3, -1)
+        s0 = torch.randint(0, H * W, (B,), generator=g)
+        s1 = torch.randint(0, H * W, (B,), generator=g)
+        policy, s0, s1 = policy.to(dev), s0.to(dev), s1.to(dev)
+        for zts in (False, True):
+            got = expected_svf_cuda(policy, s0, s1, horizon, zts)
+            ref = svf.expected_svf_plain(policy, s0, s1, horizon, zts)
+            d = check_close(f"SVF kernel at {list(shape)} T={horizon} "
+                            f"zero_terminal_state={zts}", got, ref, SVF_ATOL,
+                            SVF_RTOL)
+            print(f"phase MDP kernel check SVF {list(shape)} T={horizon} "
+                  f"zero_terminal_state={zts}: ok, max|d| {d:.3e} (tol "
+                  f"{SVF_ATOL} + {SVF_RTOL}*|ref|), mass "
+                  f"{float(got.sum()) / B:.4f} per element", flush=True)
+
+
+def to_tensors(torch, d: dict, dev) -> dict:
+    return {k: to_tensors(torch, v, dev) if isinstance(v, dict)
+            else torch.from_numpy(v).to(dev) for k, v in d.items()}
+
+
+def mdp_path(torch, dev, card: str) -> list[dict]:
+    """Phases 6-8: the stage-3 objective at B=10 on the card (forward with
+    the MDP solve, MaxEntIRLLoss, backward into the reward head), each of
+    its stages against the CPU from the card's own inputs, and timing.
+    Returns the kernels' JSON entries of the VI and SVF kernels."""
+    from creste_public_tpu_torch import weights
+    from creste_public_tpu_torch.config import presets
+    from creste_public_tpu_torch.data.synthetic import (
+        SyntheticCodaDataset,
+        collate,
+    )
+    from creste_public_tpu_torch.losses.manager import LossManager
+    from creste_public_tpu_torch.models.lfd import MaxEntIRL
+    from creste_public_tpu_torch.ops import svf
+    from creste_public_tpu_torch.ops import value_iteration as vi
+    from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
+    from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
+    from creste_public_tpu_torch.training.pipelines import (
+        merge_tensor_dict,
+        model_inputs,
+    )
+
+    # 6. the production stage-3 configuration at its batch size
+    cfg = presets.traversability_model_config().to_dict()
+    B, T = int(cfg["batch_size"]), int(cfg["action_horizon"])
+    temp = float(cfg["policy_kwargs"]["temperature"])
+    zts = bool(cfg["zero_terminal_state"])
+    image_size = cfg["vision_backbone"]["vision_backbone"]["effnet_cfgs"][
+        "image_size"]
+    Hm, Wm = cfg["map_size"]
+    grid = Wm * int(cfg["map_ds"])
+    map_range = cfg["vision_backbone"]["camera_projector"][
+        "point_cloud_range"][3]
+    t0 = time.perf_counter()
+    ds = SyntheticCodaDataset(image_size=tuple(image_size), grid=grid,
+                              map_range=map_range, horizon=T, length=B,
+                              seed=SEED)
+    batch_np = collate([ds[i] for i in range(B)])
+    data_s = time.perf_counter() - t0
+    batch = to_tensors(torch, batch_np, dev)
+    model = weights.init_weights(MaxEntIRL(cfg), SEED)
+    state = model.state_dict()
+    model.to(dev).eval()
+    # the frozen backbone: autograd records nothing for it, as under
+    # torch.no_grad() (its output reaches the loss only detached)
+    model.backbone.requires_grad_(False)
+    losses = LossManager(cfg)
+    gamma = model.traversability_head.discount
+
+    def objective():
+        model.zero_grad(set_to_none=True)
+        out = model(*model_inputs("traversability", batch))
+        ld, meta = losses(merge_tensor_dict(batch, out),
+                          {"reward_fn": model.reward})
+        total = LossManager.total(ld)
+        total.backward()
+        return out, ld, meta, total
+
+    torch.cuda.synchronize()
+    value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+    out, ld, meta, total = objective()
+    torch.cuda.synchronize()
+    vi_launches = value_iteration_cuda.launches
+    svf_launches = expected_svf_cuda.launches
+    card_sweeps = int(value_iteration_cuda.sweeps.item())
+    if vi_launches == 0 or svf_launches == 0:
+        fail(f"the MDP path launched the VI kernel {vi_launches} and the "
+             f"SVF kernel {svf_launches} times")
+    expected = {
+        "traversability_preds": (B, Hm, Wm, 1),
+        "value_estimate": (B, Hm, Wm, 1),
+        "policy": (B, Hm, Wm, 8),
+        "q_estimate": (B, Hm, Wm, 8),
+        "exp_svf": (B, Hm, Wm),
+        "state_preds": (B, T, 2),
+        "state_preds_grid": (B, Hm, Wm),
+    }
+    for k, shp in expected.items():
+        if tuple(out[k].shape) != shp:
+            fail(f"{k} has shape {tuple(out[k].shape)}, expected {shp}")
+    for k, v in out.items():
+        if not bool(torch.isfinite(v.float()).all()):
+            fail(f"{k} has non-finite values")
+    psum = float((out["policy"].sum(-1) - 1).abs().max())
+    if psum > 1e-5:
+        fail(f"the policy sums to 1 only within {psum:.3e}")
+    mass = out["exp_svf"].sum((1, 2))  # one unit per step at most, in f32
+    if not bool(((mass > 0) & (mass <= T * (1 + 1e-5))).all()):
+        fail(f"exp_svf mass per element outside (0, {T}]: {mass.tolist()}")
+    head_grads = {k: p.grad for k, p in
+                  model.traversability_head.named_parameters()}
+    if not bool(torch.isfinite(total)) or any(
+            g is None or not bool(torch.isfinite(g).all())
+            for g in head_grads.values()):
+        fail("the loss or the reward-head gradient is not finite")
+    gmax = max(float(g.abs().max()) for g in head_grads.values())
+    if gmax == 0:
+        fail("the reward-head gradient is zero")
+    print(f"phase MDP path: ok, B={B} T={T} image {list(image_size)}, VI "
+          f"launches {vi_launches} ({card_sweeps} sweeps), SVF launches "
+          f"{svf_launches}, {len(out)} outputs finite, loss "
+          f"{total.item():.6e}, max|grad| reward head {gmax:.4e}, exp_svf "
+          f"mass {float(mass.min()):.4f}..{float(mass.max()):.4f} "
+          f"(batch made in {data_s:.1f} s)", flush=True)
+
+    # 7. card vs CPU, each stage from the card's own input to it
+    def cpu(t):
+        return t.detach().cpu()
+
+    r = out["traversability_preds"].detach()
+    rows = []
+    v_cpu = vi.value_iteration_plain(cpu(r), gamma, 1e-3)
+    d = check_close("stage VI", cpu(out["value_estimate"]), v_cpu, VI_ATOL,
+                    VI_RTOL)
+    if abs(card_sweeps - vi.value_iteration_plain.sweeps) > 1:
+        fail(f"VI on the card ran {card_sweeps} sweeps, on the CPU "
+             f"{vi.value_iteration_plain.sweeps}")
+    rows.append(f"VI max|d| {d:.3e}, sweeps card {card_sweeps} CPU "
+                f"{vi.value_iteration_plain.sweeps}")
+    p_cpu, q_cpu = vi.policy_and_q(cpu(r), cpu(out["value_estimate"]), gamma)
+    for name, got, ref in (("policy", out["policy"], p_cpu),
+                           ("q_estimate", out["q_estimate"], q_cpu)):
+        _, rel = max_rel(cpu(got), ref)
+        if rel > MDP_TAIL_RTOL:
+            fail(f"stage tail {name}: {rel:.3e} > {MDP_TAIL_RTOL}")
+        rows.append(f"tail {name} {rel:.3e}")
+    sharp = svf.sharpen_policy(out["policy"], temp)
+    d = check_close("stage sharpen", cpu(sharp),
+                    svf.sharpen_policy(cpu(out["policy"]), temp),
+                    SHARPEN_ATOL, 0.0)
+    rows.append(f"sharpen max|d| {d:.3e}")
+    S = model.expert_grid(batch["traversability_label"], grid)
+    s0, s1 = model.svf_endpoints(S)
+    d = check_close("stage SVF", cpu(out["exp_svf"]),
+                    svf.expected_svf_plain(cpu(sharp), cpu(s0), cpu(s1), T,
+                                           zts), SVF_ATOL, SVF_RTOL)
+    rows.append(f"SVF max|d| {d:.3e}")
+    states, sgrid = svf.greedy_rollout(cpu(sharp), cpu(s0), T)
+    if not (torch.equal(cpu(out["state_preds"]), states)
+            and torch.equal(cpu(out["state_preds_grid"]), sgrid)):
+        fail("stage rollout: the card's states differ from the CPU's")
+    rows.append("rollout equal")
+    cpu_model = MaxEntIRL(cfg)
+    cpu_model.load_state_dict(state, strict=True)
+    cpu_model.eval()
+    iv = cpu(out["input_view"])
+    small = {"exp_svf": cpu(out["exp_svf"]), "input_view": iv,
+             "traversability_preds": cpu_model.reward(iv)}
+    ld_c, meta_c = LossManager(cfg)(
+        merge_tensor_dict(to_tensors(torch, batch_np, "cpu"), small),
+        {"reward_fn": cpu_model.reward})
+    LossManager.total(ld_c).backward()
+    pairs = [(k, ld[k][1], ld_c[k][1]) for k in ld_c] + [
+        (k, meta[k], meta_c[k]) for k in meta_c]
+    worst = 0.0
+    for k, got, ref in pairs:
+        _, rel = max_rel(cpu(got), ref.detach())
+        if rel > MDP_LOSS_RTOL:
+            fail(f"stage loss {k}: {rel:.3e} > {MDP_LOSS_RTOL}")
+        worst = max(worst, rel)
+    rows.append(f"loss and {len(meta_c)} meta <= {worst:.3e}")
+    d_max = g_max = worst = 0.0
+    for k, p in cpu_model.traversability_head.named_parameters():
+        d = float((cpu(head_grads[k]) - p.grad).abs().max())
+        ref = float(p.grad.abs().max())
+        d_max, g_max = max(d_max, d), max(g_max, ref)
+        worst = max(worst, d / max(ref, 1e-30))
+    if d_max > MDP_GRAD_RTOL * g_max:
+        fail(f"stage reward-head gradient: max|d| {d_max:.3e} > "
+             f"{MDP_GRAD_RTOL} * {g_max:.3e}")
+    rows.append(f"reward-head gradient max|d| {d_max / g_max:.3e} of its "
+                f"largest entry (worst single parameter {worst:.3e} of its "
+                f"own)")
+    print("phase MDP card vs CPU: ok; " + "; ".join(rows), flush=True)
+
+    # 8. timing, at the MDP path's own inputs
+    v = out["value_estimate"].detach()
+    policy = out["policy"].detach()
+    vi_ms = time_ms(torch, lambda: value_iteration_cuda(r, gamma, 1e-3),
+                    iters=3, reps=3)
+    vi_plain_ms = time_ms(torch, lambda: vi.value_iteration_plain(
+        r, gamma, 1e-3), iters=1, reps=3, warmup=1)
+    vi_err = float((value_iteration_cuda(r, gamma, 1e-3)
+                    - vi.value_iteration_plain(r, gamma, 1e-3)).abs().max())
+    n_cells = r.numel()
+    vi_ops, vi_bytes = vi_bound(card_sweeps, n_cells)
+    vi_bound_ms = max(vi_ops / PEAK_F32_FLOPS, vi_bytes / PEAK_BYTES) * 1e3
+    svf_ms = time_ms(torch, lambda: expected_svf_cuda(sharp, s0, s1, T, zts))
+    svf_plain_ms = time_ms(torch, lambda: svf.expected_svf_plain(
+        sharp, s0, s1, T, zts), iters=3, reps=3)
+    svf_err = float((expected_svf_cuda(sharp, s0, s1, T, zts)
+                     - svf.expected_svf_plain(sharp, s0, s1, T, zts)
+                     ).abs().max())
+    svf_ops, svf_bytes = svf_bound(B, Hm, Wm, T, zts)
+    svf_bound_ms = max(svf_ops / PEAK_F32_FLOPS,
+                       svf_bytes / PEAK_BYTES) * 1e3
+    print(f"phase timing MDP kernels: VI {vi_ms * 1e3:.1f} us for "
+          f"{card_sweeps} sweeps = {vi_ms * 1e3 / card_sweeps:.3f} us/sweep "
+          f"(plain {vi_plain_ms * 1e3:.1f} us; bound {vi_bound_ms * 1e3:.2f}"
+          f" us by {bound_by(vi_ops, vi_bytes)}: {vi_ops / 1e9:.3f} G ops, "
+          f"{vi_bytes / 1e6:.3f} MB); SVF {svf_ms * 1e3:.1f} us (plain "
+          f"{svf_plain_ms * 1e3:.1f} us; bound {svf_bound_ms * 1e3:.2f} us "
+          f"by {bound_by(svf_ops, svf_bytes)}: {svf_ops / 1e6:.1f} M ops, "
+          f"{svf_bytes / 1e6:.3f} MB) [{card}]",
+          flush=True)
+
+    image, p2p, expert = model_inputs("traversability", batch)
+
+    def head_loss_backward():
+        model.zero_grad(set_to_none=True)
+        iv_ = out["input_view"]
+        small_ = {"exp_svf": out["exp_svf"], "input_view": iv_,
+                  "traversability_preds": model.reward(iv_)}
+        ld_, _ = losses(merge_tensor_dict(batch, small_),
+                        {"reward_fn": model.reward})
+        LossManager.total(ld_).backward()
+
+    stages = {
+        f"backbone (B={B}, no autograd)": lambda: model.backbone(image, p2p),
+        "head (input view + reward net, autograd on)":
+            lambda: model.traversability_head(out),
+        "VI (kernel)": lambda: value_iteration_cuda(r, gamma, 1e-3),
+        "policy/Q tail": lambda: vi.policy_and_q(r, v, gamma),
+        "sharpen + SVF (kernel)": lambda: expected_svf_cuda(
+            svf.sharpen_policy(policy, temp), s0, s1, T, zts),
+        "greedy rollout": lambda: svf.greedy_rollout(sharp, s0, T),
+        "reward net + loss + backward (penalty's double backward)":
+            head_loss_backward,
+    }
+    stage_ms = {}
+    for name, f in stages.items():
+        stage_ms[name] = time_ms(torch, f, 2, 3, warmup=1)
+        print(f"  MDP stage time {name}: {stage_ms[name]:.3f} ms [{card}]",
+              flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(torch, objective, iters=2, reps=3, warmup=1)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            objective()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    busy_us = union_us([(e.time_range.start, e.time_range.end)
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA])
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"  profile 2 objectives: device busy {busy_us / 1e3:.2f} ms "
+          f"(kernel times summed {dev_us / 1e3:.2f} ms: some overlap) of "
+          f"{wall_us / 1e3:.2f} ms wall, idle share "
+          f"{max(0.0, 1 - busy_us / wall_us):.3f}; top kernels: "
+          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 2e3:.3f} "
+                      "ms/step" for e in top), flush=True)
+    print(f"phase timing MDP objective: {step_ms:.3f} ms per B={B} "
+          f"forward + loss + backward = {B * 1e3 / step_ms:.2f} samples/s "
+          f"(stages alone sum to {sum(stage_ms.values()):.3f} ms); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB [{card}]", flush=True)
+
+    return [{
+        "name": "value_iteration",
+        "route": "cuda",
+        "source": "creste_public_tpu_torch/csrc/value_iteration.cu",
+        "replaces": "creste_public_tpu/ops/vi_pallas.py:51",
+        "launches": vi_launches,
+        "max_abs_err": vi_err,
+        "ms": vi_ms,
+        "plain_ms": vi_plain_ms,
+        "bound_ms": vi_bound_ms,
+        "bound_by": bound_by(vi_ops, vi_bytes),
+        "library_ms": None,
+        "sweeps": card_sweeps,
+    }, {
+        "name": "expected_svf",
+        "route": "cuda",
+        "source": "creste_public_tpu_torch/csrc/svf.cu",
+        "replaces": "creste_public_tpu/ops/svf_pallas.py:52",
+        "launches": svf_launches,
+        "max_abs_err": svf_err,
+        "ms": svf_ms,
+        "plain_ms": svf_plain_ms,
+        "bound_ms": svf_bound_ms,
+        "bound_by": bound_by(svf_ops, svf_bytes),
+        "library_ms": None,
+    }]
 
 
 def main() -> None:
@@ -368,6 +788,10 @@ def main() -> None:
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB [{card}]", flush=True)
 
+    # 5-8. the MDP kernels, the stage-3 objective, card vs CPU, timing
+    mdp_kernel_checks(torch, dev)
+    mdp_kernels = mdp_path(torch, dev, card)
+
     print(json.dumps({"kernels": [{
         "name": "msfcn_conv_affine",
         "route": "cuda",
@@ -380,7 +804,7 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_flop >= t_byte else "bytes",
         "library_ms": lib_ms,
-    }]}))
+    }] + mdp_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,12 @@
-"""Value Iteration Network head, reward part (NHWC at the boundary).
+"""Value Iteration Network head: reward net + MDP solver (NHWC at the
+boundary).
 
 Counterpart of ``creste_public_tpu/models/blocks/vin.py``: the reward input
 is the channel concat of configured BEV prediction maps, max-pooled by
 ``ds`` and cropped to the front half of the grid; the reward is a
-MultiScaleFCN. Solving the MDP (``solve_mdp=True``) is not ported yet.
+MultiScaleFCN. With ``solve_mdp=True`` value iteration runs to convergence
+on the detached reward (``ops.value_iteration``: the CUDA kernel on the
+card), and its policy, Q and V come out detached.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from creste_public_tpu_torch.models.blocks.convnets import (
     MultiScaleFCN,
     resize_bilinear,
 )
+from creste_public_tpu_torch.ops.value_iteration import value_iteration
 
 
 def build_input_view(feat_map: dict[str, torch.Tensor],
@@ -40,12 +44,13 @@ def full_reward_map(r: torch.Tensor, Ho: int, Wo: int) -> torch.Tensor:
 
 
 class VIN(nn.Module):
-    def __init__(self, reward_cfg: Any):
+    def __init__(self, reward_cfg: Any, qvalue_cfg: Any | None = None):
         super().__init__()
         if reward_cfg["name"] != "MultiScaleFCN":
             raise NotImplementedError(reward_cfg["name"])
         self.reward_cfg = reward_cfg
         self.r = MultiScaleFCN(reward_cfg["net_kwargs"])
+        self.discount = float((qvalue_cfg or {}).get("discount", 0.95))
 
     def reward(self, input_view: torch.Tensor) -> torch.Tensor:
         """Reward map [B, h, w, 1] from an NHWC state-feature view."""
@@ -54,16 +59,21 @@ class VIN(nn.Module):
 
     def forward(self, feat_map: dict[str, torch.Tensor],
                 solve_mdp: bool = False) -> dict[str, torch.Tensor]:
-        if solve_mdp:
-            raise NotImplementedError("VIN with solve_mdp=True")
         keys = self.reward_cfg["input_keys"]
         Ho, Wo = feat_map[keys[0]].shape[1:3]
         input_view = build_input_view(feat_map, keys,
                                       int(self.reward_cfg["ds"]))
         r = self.reward(input_view)
         prefix = self.reward_cfg["output_prefix"][0]
-        return {
+        outputs = {
             prefix: r,
             f"{prefix}_full": full_reward_map(r, Ho, Wo),
             "input_view": input_view,
         }
+        if not solve_mdp:
+            return outputs
+        v, policy, q = value_iteration(r.detach(), self.discount,
+                                       threshold=1e-3)
+        outputs.update({"policy": policy, "q_estimate": q,
+                        "value_estimate": v})
+        return outputs

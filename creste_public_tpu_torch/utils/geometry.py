@@ -1,7 +1,7 @@
-"""Camera / LiDAR / BEV geometry of the deployment graph.
+"""Camera / LiDAR / BEV geometry of the deployment graph and the MDP solve.
 
-Counterpart of ``creste_public_tpu/utils/geometry.py:21-122``. Channels-last
-layout, as in the JAX package.
+Counterpart of ``creste_public_tpu/utils/geometry.py:21-122`` and
+``:164-193``. Channels-last layout, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -93,3 +93,23 @@ def create_trapezoidal_fov_mask(
                  spread_top + (spread_bot - spread_top) * frac),
     )
     return (dist >= near) & (dist <= far) & (np.abs(ang) <= spread)
+
+
+def earliest_pose_in_fov(expert_xy: torch.Tensor,
+                         fov_mask: torch.Tensor) -> torch.Tensor:
+    """First expert pose (in time) inside the boolean FOV mask [H, W], per
+    batch element of the integer grid coordinates ``expert_xy`` [B, T, 2]
+    (row, col); (H - 1, W // 2) where no pose is inside. Returns [B, 2]."""
+    B, T, _ = expert_xy.shape
+    H, W = fov_mask.shape
+    xs = expert_xy[..., 0].long().clamp(0, H - 1)
+    ys = expert_xy[..., 1].long().clamp(0, W - 1)
+    valid = fov_mask[xs, ys]
+    t_idx = torch.arange(T, device=xs.device).expand(B, T)
+    earliest = torch.where(valid, t_idx, T).amin(dim=1)
+    none_valid = earliest == T
+    earliest = torch.where(none_valid, 0, earliest)
+    sel = torch.stack([xs.gather(1, earliest[:, None])[:, 0],
+                       ys.gather(1, earliest[:, None])[:, 0]], dim=1)
+    fallback = torch.tensor([H - 1, W // 2], device=xs.device)
+    return torch.where(none_valid[:, None], fallback[None, :], sel)

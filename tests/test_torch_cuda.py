@@ -11,6 +11,10 @@ from creste_public_tpu_torch import weights
 from creste_public_tpu_torch.config import presets
 from creste_public_tpu_torch.models.blocks.convnets import MultiScaleFCN
 from creste_public_tpu_torch.ops import reward_kernel as rk
+from creste_public_tpu_torch.ops import svf
+from creste_public_tpu_torch.ops import value_iteration as vi
+from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
+from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
 
 
 @pytest.fixture
@@ -49,3 +53,70 @@ def test_reward_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="float32"):
         rk.conv_affine_cuda(torch.zeros(1, 4, 5, 4, device=cuda,
                                         dtype=torch.float16), ly)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,signed", [((10, 64, 128, 1), False),
+                                          ((3, 16, 32, 1), True)])
+def test_vi_kernel_matches_plain_on_card(cuda, shape, signed):
+    """The VI kernel against its plain version on the card: the same
+    separate f32 roundings, so V agrees to the bit and the sweep counts are
+    equal (chip_smoke.py holds them to 2e-3 + 1e-4|ref| and one sweep)."""
+    g = torch.Generator().manual_seed(0)
+    r = torch.rand(shape, generator=g)
+    if signed:
+        r = r - 0.6
+        r[:, shape[1] // 2, shape[2] // 2] = 1.0
+    r = r.to(cuda)
+    value_iteration_cuda.launches = 0
+    v = value_iteration_cuda(r)
+    sweeps = int(value_iteration_cuda.sweeps.item())
+    assert value_iteration_cuda.launches == 1
+    ref = vi.value_iteration_plain(r)
+    assert sweeps == vi.value_iteration_plain.sweeps
+    assert 0 < sweeps < 2000
+    torch.testing.assert_close(v, ref, rtol=0, atol=0)
+    v7 = value_iteration_cuda(r, max_iters=7)
+    assert int(value_iteration_cuda.sweeps.item()) == 7
+    torch.testing.assert_close(v7, vi.value_iteration_plain(r, max_iters=7),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,horizon", [((10, 64, 128, 8), 50),
+                                           ((3, 17, 33, 8), 12)])
+@pytest.mark.parametrize("zts", [False, True])
+def test_svf_kernel_matches_plain_on_card(cuda, shape, horizon, zts):
+    g = torch.Generator().manual_seed(1)
+    policy = torch.softmax(torch.randn(shape, generator=g) * 3, -1).to(cuda)
+    B, H, W, _ = shape
+    s0 = torch.randint(0, H * W, (B,), generator=g).to(cuda)
+    s1 = torch.randint(0, H * W, (B,), generator=g).to(cuda)
+    expected_svf_cuda.launches = 0
+    got = svf.expected_svf(policy, s0, s1, horizon, zts)
+    assert expected_svf_cuda.launches == 1
+    torch.testing.assert_close(
+        got, svf.expected_svf_plain(policy, s0, s1, horizon, zts),
+        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_mdp_kernels_reject_bad_input(cuda):
+    r = torch.zeros(2, 8, 8, 1, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        value_iteration_cuda(r.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        value_iteration_cuda(torch.zeros(2, 8, 8, 2, device=cuda)[..., :1])
+    with pytest.raises(ValueError, match=r"\[B,H,W,1\]"):
+        value_iteration_cuda(torch.zeros(2, 8, 8, device=cuda))
+    p = torch.full((2, 8, 8, 8), 1 / 8, device=cuda)
+    s = torch.zeros(2, dtype=torch.long, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        expected_svf_cuda(p.half(), s, s, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        expected_svf_cuda(p.transpose(1, 2), s, s, 3)
+    with pytest.raises(ValueError, match="device"):
+        expected_svf_cuda(p, s.cpu(), s, 3)
+    with pytest.raises(ValueError, match="map size"):
+        expected_svf_cuda(torch.full((1, 200, 200, 8), 1 / 8, device=cuda),
+                          s[:1], s[:1], 3)

@@ -16,6 +16,7 @@ from flax.traverse_util import flatten_dict
 
 from creste_public_tpu.config import presets as jpresets
 from creste_public_tpu.models.lfd import MaxEntIRL as JMaxEntIRL
+from creste_public_tpu_torch import weights
 from creste_public_tpu_torch.config import presets
 from creste_public_tpu_torch.models.lfd import MaxEntIRL
 from creste_public_tpu_torch.runtime import export
@@ -54,16 +55,19 @@ def test_source_imports(path):
             assert n.split(".")[0] not in FORBIDDEN, f"{path}: imports {n}"
 
 
-def _production_tree() -> dict:
+def _production_tree(**overrides) -> dict:
     """The production MaxEntIRL variable tree (shapes only). Parameter
     shapes do not depend on the image size, so the abstract init traces a
-    64x80 frame."""
+    64x80 frame; with ``solve_mdp`` it also traces the MDP solve."""
     cfg = jpresets.traversability_model_config(image_size=(64, 80)).to_dict()
     cfg["solve_mdp"] = False
+    cfg.update(overrides)
     rgbd = np.zeros((1, 1, 64, 80, 4), np.float32)
     p2p = np.tile(np.eye(4, dtype=np.float32), (1, 1, 1, 1))
+    expert = np.tile(np.eye(3, dtype=np.float32), (1, 50, 1, 1))
+    args = (rgbd, p2p, expert) if cfg["solve_mdp"] else (rgbd, p2p)
     tree = jax.eval_shape(lambda: JMaxEntIRL(cfg).init(
-        {"params": jax.random.PRNGKey(0)}, rgbd, p2p))
+        {"params": jax.random.PRNGKey(0)}, *args))
     return {k: np.zeros(v.shape, np.float32)
             for k, v in flatten_dict(dict(tree), sep="/").items()}
 
@@ -89,6 +93,25 @@ def test_weight_import_covers_production_tree():
         model.load_state_dict(from_jax_variables(missing), strict=True)
     with pytest.raises(ValueError, match="no rule"):
         from_jax_variables({"params/x/embedding": np.zeros(3)})
+
+
+def test_weight_import_covers_fc_policy_tree():
+    """With solve_mdp and the fc rollout, the tree gains params/fc/kernel
+    (2-D, (in, out)), which lands transposed on fc.weight."""
+    flat = _production_tree(solve_mdp=True, policy_method="fc")
+    assert flat["params/fc/kernel"].shape == (8, 8)
+    flat["params/fc/kernel"] = np.arange(64, dtype=np.float32).reshape(8, 8)
+    cfg = presets.traversability_model_config().to_dict()
+    cfg["policy_method"] = "fc"
+    model = MaxEntIRL(cfg)
+    sd = from_jax_variables(flat)
+    model.load_state_dict(sd, strict=True)
+    assert set(model.state_dict()) == set(sd)
+    np.testing.assert_array_equal(model.fc.weight.detach().numpy(),
+                                  flat["params/fc/kernel"].T)
+    # the seeded init covers fc like any dense layer
+    init = weights.init_weights(MaxEntIRL(cfg), 0)
+    assert float(init.fc.weight.detach().std()) > 0
 
 
 def test_entry_point_defaults_to_cuda(monkeypatch):

@@ -16,7 +16,9 @@ import torch
 from creste_public_tpu.config import presets as jpresets
 from creste_public_tpu.models.lfd import MaxEntIRL as JMaxEntIRL
 from creste_public_tpu.runtime.export import build_inference_fn as jbuild
+from creste_public_tpu_torch import weights
 from creste_public_tpu_torch.config import presets
+from creste_public_tpu_torch.data.synthetic import SyntheticCodaDataset, collate
 from creste_public_tpu_torch.models.lfd import MaxEntIRL
 from creste_public_tpu_torch.runtime.export import build_inference_fn
 from creste_public_tpu_torch.weights import from_jax_variables
@@ -99,10 +101,31 @@ def test_unfused_module_matches_flax_apply(tiny):
 
 
 def test_tiny_presets_match_config_shapes():
+    """The tiny stage-3 preset builds with solve_mdp=True and runs the
+    MDP path on the CPU with the shapes of its config."""
     cfg = presets.tiny_traversability_config().to_dict()
-    cfg["solve_mdp"] = True
+    assert cfg["solve_mdp"] and cfg["policy_method"] == "pp"
+    m = weights.init_weights(MaxEntIRL(cfg), 0).eval()
+    assert set(m.state_dict()) == set(
+        MaxEntIRL(dict(cfg, solve_mdp=False)).state_dict())
+    assert "fc.weight" in MaxEntIRL(dict(cfg, policy_method="fc")).state_dict()
+    h, w = cfg["vision_backbone"]["vision_backbone"]["effnet_cfgs"][
+        "image_size"]
+    ds = SyntheticCodaDataset(image_size=(h, w), grid=32, map_range=1.6,
+                              fdn_dim=16, horizon=cfg["action_horizon"])
+    b = {k: torch.from_numpy(v) for k, v in
+         collate([ds[0], ds[1]]).items() if not isinstance(v, dict)}
+    with torch.no_grad():
+        out = m(b["image"], b["p2p"], b["traversability_label"])
+    Hm, Wm = cfg["map_size"]
+    assert m.fov_mask.shape == (Hm, Wm)
+    assert out["traversability_preds"].shape == (2, Hm, Wm, 1)
+    assert out["policy"].shape == out["q_estimate"].shape == (2, Hm, Wm, 8)
+    assert out["exp_svf"].shape == out["state_preds_grid"].shape == (2, Hm,
+                                                                     Wm)
+    assert out["state_preds"].shape == (2, cfg["action_horizon"], 2)
     with pytest.raises(NotImplementedError):
-        MaxEntIRL(cfg)
+        MaxEntIRL(dict(cfg, compute_dtype="bfloat16"))
 
 
 def _rel(got, ref) -> float:

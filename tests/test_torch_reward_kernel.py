@@ -117,4 +117,4 @@ def test_kernel_build_needs_nvcc(monkeypatch):
         pytest.skip("a built kernel library is present")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build()
-    assert _build.sources() == ["msfcn_chain"]
+    assert _build.sources() == ["msfcn_chain", "svf", "value_iteration"]
