@@ -4,11 +4,11 @@ hand-written CUDA kernel.
 Counterpart of ``creste_public_tpu/ops/reward_pallas.py``. At inference each
 BatchNorm is a per-channel ``a * x + b``, so every layer of the head is one
 conv + affine (+ the trunk's relu before its BN, + relu after). On CUDA
-tensors each layer is one launch of ``csrc/msfcn_chain.cu`` (seven per
-head at the production config); the 2x2 maxpool, the bilinear x2 upsample
-and the concat between the chains stay PyTorch ops, as they were XLA ops
-outside the Pallas kernels. On CPU tensors the same function runs its plain
-PyTorch version. Inference only: no backward.
+tensors the whole head is four launches of ``csrc/msfcn_chain.cu``, its
+convolutions on tensor cores in 3xTF32, with the 2x2 maxpool, the bilinear
+upsample and the concat folded into them and no PyTorch op between them.
+On CPU tensors the same function runs its plain PyTorch version. Inference
+only: no backward.
 """
 from __future__ import annotations
 
@@ -28,29 +28,77 @@ from creste_public_tpu_torch.ops import _build
 Layer = dict  # {"kernel" [kh,kw,Ci,Co], "a" [Co], "b" [Co], "pre_relu", "post_relu"}
 
 
-def _fold(conv: torch.nn.Conv2d, bn, pre_relu: bool) -> Layer:
+# The head the kernel runs: per chain, per layer (kernel size, Ci, Co,
+# pre_relu); None = any (the first layer's kernel size is odd and <= 5, its
+# Ci the input view's, a multiple of 8 up to 64). Mirrors kC1..kC6 of
+# csrc/msfcn_chain.cu.
+HEAD = {
+    "prepool": [(None, None, 64, False), (3, 64, 32, False)],
+    "skip": [(3, 32, 32, False), (1, 32, 16, False)],
+    "trunk": [(3, 32, 32, True), (1, 32, 32, True)],
+    "postpool": [(1, 48, 1, False)],
+}
+_TENSOR_CORE_CHAINS = ("prepool", "skip", "trunk")
+LAUNCHES_PER_HEAD = 4
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: f32 rounded to nearest (ties away from zero)
+    at 10 mantissa bits, the low 13 bits zero; on any device."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_tf32_fragments(kernel: torch.Tensor) -> torch.Tensor:
+    """HWIO weights [kh, kw, Ci, Co] (Ci, Co multiples of 8) split as
+    hi = tf32(w), lo = tf32(w - hi) and packed as the mma.m16n8k8 B
+    fragments: [tap, Ci/8, Co/8, lane, (b0 hi, b1 hi, b0 lo, b1 lo)], lane
+    = 4 * n + k, b0 = w[k], b1 = w[k + 4] (k, n within the 8x8 block),
+    flat."""
+    kh, kw, ci, co = kernel.shape
+    w = kernel.float().reshape(kh * kw, ci // 8, 8, co // 8, 8)
+    hi = tf32_round(w)
+    lo = tf32_round(w - hi)
+
+    def frag(v):  # [tap, ks, k, nt, n] -> [tap, ks, nt, n, k]
+        v = v.permute(0, 1, 3, 4, 2)
+        return v[..., :4], v[..., 4:]
+
+    (h0, h1), (l0, l1) = frag(hi), frag(lo)
+    return torch.stack([h0, h1, l0, l1], dim=-1).reshape(-1).contiguous()
+
+
+def _fold(conv: torch.nn.Conv2d, bn, pre_relu: bool,
+          tensor_cores: bool) -> Layer:
     w = conv.weight.detach().float()
     a = bn.weight.detach().float() / torch.sqrt(
         bn.running_var.detach().float() + bn.eps)
     b = bn.bias.detach().float() - bn.running_mean.detach().float() * a
-    return {
+    layer = {
         "kernel": w.permute(2, 3, 1, 0).contiguous(),  # OIHW -> HWIO
         "a": a.contiguous(),
         "b": b.contiguous(),
         "pre_relu": pre_relu,
         "post_relu": True,
     }
+    if tensor_cores and w.shape[0] % 8 == 0 and w.shape[1] % 8 == 0:
+        layer["packed"] = pack_tf32_fragments(layer["kernel"])
+    return layer
 
 
 def fold_msfcn_params(msfcn: MultiScaleFCN) -> dict[str, list[Layer]]:
     """Fold a MultiScaleFCN into per-layer (kernel, a, b) with
     ``a = scale / sqrt(var + eps)`` and ``b = bias - mean * a``.
     prepool_i / skip_i / postpool_i are conv -> BN -> relu; trunk_i is
-    conv -> relu then trunk_bn_i -> relu, kept as ``pre_relu``."""
+    conv -> relu then trunk_bn_i -> relu, kept as ``pre_relu``. The layers
+    the kernel runs on tensor cores also get ``packed``, their weights split
+    for 3xTF32 in the kernel's fragment layout (``pack_tf32_fragments``),
+    on the module's device."""
 
     def stack(name, n):
         return [_fold(getattr(msfcn, f"{name}_{i}").Conv_0,
-                      getattr(msfcn, f"{name}_{i}").BatchNorm_0, False)
+                      getattr(msfcn, f"{name}_{i}").BatchNorm_0, False,
+                      name in _TENSOR_CORE_CHAINS)
                 for i in range(n)]
 
     if not msfcn.trunk_bn:
@@ -59,7 +107,7 @@ def fold_msfcn_params(msfcn: MultiScaleFCN) -> dict[str, list[Layer]]:
         "prepool": stack("prepool", msfcn.n_prepool),
         "skip": stack("skip", msfcn.n_skip),
         "trunk": [_fold(getattr(msfcn, f"trunk_{i}").Conv_0,
-                        getattr(msfcn, f"trunk_bn_{i}"), True)
+                        getattr(msfcn, f"trunk_bn_{i}"), True, True)
                   for i in range(msfcn.n_trunk)],
         "postpool": stack("postpool", msfcn.n_postpool),
     }
@@ -78,75 +126,9 @@ def conv_affine_plain(x: torch.Tensor, layer: Layer) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("msfcn_chain")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.msfcn_conv_affine.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                      i, p]
-    lib.msfcn_conv_affine.restype = ctypes.c_int
-    lib.msfcn_error_string.argtypes = [ctypes.c_int]
-    lib.msfcn_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def conv_affine_cuda(x: torch.Tensor, layer: Layer) -> torch.Tensor:
-    """One folded layer as one launch of the CUDA kernel.
-
-    Takes contiguous NHWC f32 CUDA tensors and an odd kernel size; raises on
-    anything else and on a launch error. Adds one to
-    ``conv_affine_cuda.launches`` for each launch."""
-    w, a, b = layer["kernel"], layer["a"], layer["b"]
-    for name, t in (("x", x), ("kernel", w), ("a", a), ("b", b)):
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"{name} must lie on x's CUDA device, got "
-                             f"{t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if x.dim() != 4 or w.dim() != 4:
-        raise ValueError(f"x must be [B,H,W,C] and kernel [kh,kw,Ci,Co], "
-                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
-    B, H, W, Ci = x.shape
-    kh, kw, wci, Co = w.shape
-    if wci != Ci or a.shape != (Co,) or b.shape != (Co,):
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, kernel "
-                         f"{tuple(w.shape)}, a {tuple(a.shape)}, "
-                         f"b {tuple(b.shape)}")
-    if kh % 2 == 0 or kw % 2 == 0:
-        raise ValueError(f"kernel size must be odd, got {kh}x{kw}")
-    if B * H * W * max(Co, Ci) >= 2**31:
-        raise ValueError(f"tensor too large for the kernel: {tuple(x.shape)}")
-    y = torch.empty((B, H, W, Co), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.msfcn_conv_affine(
-        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-        B, H, W, Ci, Co, kh, kw, int(layer["pre_relu"]),
-        int(layer["post_relu"]), stream)
-    if err:
-        raise RuntimeError(
-            f"msfcn_conv_affine launch failed: "
-            f"{lib.msfcn_error_string(err).decode()}")
-    conv_affine_cuda.launches += 1
-    return y
-
-
-conv_affine_cuda.launches = 0
-
-
-def conv_affine(x: torch.Tensor, layer: Layer) -> torch.Tensor:
-    """One folded layer: the plain version for a CPU tensor, the CUDA
-    kernel for a CUDA tensor."""
-    if x.device.type == "cpu":
-        return conv_affine_plain(x, layer)
-    return conv_affine_cuda(x, layer)
-
-
 def msfcn_chain(folded: dict[str, list[Layer]], x: torch.Tensor,
-           conv: Callable[[torch.Tensor, Layer], torch.Tensor]
-           ) -> torch.Tensor:
+                conv: Callable[[torch.Tensor, Layer], torch.Tensor]
+                ) -> torch.Tensor:
     """The folded head with ``conv`` computing each layer (NHWC)."""
     x = x.float().contiguous()
     H, W = x.shape[1:3]
@@ -167,16 +149,126 @@ def msfcn_chain(folded: dict[str, list[Layer]], x: torch.Tensor,
     return run(folded["postpool"], torch.cat([t, s_out], dim=-1))
 
 
-def msfcn_fused_apply(folded: dict[str, list[Layer]],
-                      x: torch.Tensor) -> torch.Tensor:
-    """Folded inference MultiScaleFCN: x [B, H, W, C] -> [B, H, W, 1] NHWC.
-    ``folded`` comes from ``fold_msfcn_params``. CUDA tensors go through the
-    kernel, CPU tensors through the plain version."""
-    return msfcn_chain(folded, x, conv_affine)
-
-
 def msfcn_plain(folded: dict[str, list[Layer]],
                 x: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of the whole folded head, on any device;
     the reference the kernel is held against."""
     return msfcn_chain(folded, x, conv_affine_plain)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("msfcn_chain")
+    i = ctypes.c_int
+    lib.msfcn_head.argtypes = [ctypes.c_void_p, i, i, i, i, i,
+                               ctypes.c_void_p]
+    lib.msfcn_head.restype = ctypes.c_int
+    lib.msfcn_error_string.argtypes = [ctypes.c_int]
+    lib.msfcn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _head_weights(folded: dict[str, list[Layer]],
+                  device: torch.device) -> tuple[int, list[torch.Tensor]]:
+    """Checks that ``folded`` is the head the kernel runs, with every tensor
+    on ``device``; returns k0 and the tensors in the kernel's order: the six
+    packed weights, the final 1x1's weights, a[7], b[7]."""
+    layers = []
+    for chain, want in HEAD.items():
+        got = folded.get(chain, [])
+        if len(got) != len(want):
+            raise ValueError(f"{chain} has {len(got)} layers; the kernel "
+                             f"runs {len(want)}")
+        layers += list(zip(got, want))
+    k0 = int(layers[0][0]["kernel"].shape[0])
+    for i, (ly, (k, ci, co, pre)) in enumerate(layers):
+        kh, kw, lci, lco = ly["kernel"].shape
+        if i == 0:
+            k, ci = k0, lci
+        if (kh, kw, lci, lco) != (k, k, ci, co) or ly["pre_relu"] != pre \
+                or not ly["post_relu"]:
+            raise ValueError(f"layer {i} is {kh}x{kw} {lci}->{lco} "
+                             f"pre_relu={ly['pre_relu']}; the kernel runs "
+                             f"{k}x{k} {ci}->{co} pre_relu={pre}")
+        if i < 6 and "packed" not in ly:
+            raise ValueError(f"layer {i} has no packed weights: fold it "
+                             "with fold_msfcn_params")
+    if k0 % 2 == 0 or k0 > 5:
+        raise ValueError(f"the first layer must be odd and <= 5, got {k0}")
+    tensors = ([ly["packed"] for ly, _ in layers[:6]]
+               + [layers[6][0]["kernel"]]
+               + [ly["a"] for ly, _ in layers] + [ly["b"] for ly, _ in layers])
+    for t in tensors:
+        if t.device != device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"the folded head's tensors must be contiguous "
+                             f"float32 on {device}, got {t.dtype} on "
+                             f"{t.device}")
+    return k0, tensors
+
+
+def msfcn_head_cuda(folded: dict[str, list[Layer]],
+                    x: torch.Tensor) -> torch.Tensor:
+    """The folded head as the four launches of ``csrc/msfcn_chain.cu``:
+    x [B, H, W, Ci] -> [B, H, W, 1], NHWC.
+
+    Takes a contiguous f32 CUDA tensor with Ci a multiple of 8 up to 64 and
+    H, W >= 2, and the head of ``HEAD`` folded on x's device; raises on
+    anything else and on a launch error. The first call checks ``folded``
+    and keeps its pointers in it (``folded["_cuda"]``), so the folded head
+    is not to be changed afterwards. Adds one to
+    ``msfcn_head_cuda.launches`` for each of the four launches."""
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"x must be float32, got {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous and 16-byte aligned")
+    if x.dim() != 4:
+        raise ValueError(f"x must be [B,H,W,C], got {tuple(x.shape)}")
+    B, H, W, Ci = x.shape
+    if Ci % 8 or not 8 <= Ci <= 64 or H < 2 or W < 2 or not 1 <= B <= 32767:
+        raise ValueError(f"unsupported input {tuple(x.shape)}: Ci a multiple "
+                         "of 8 up to 64, H and W >= 2, 1 <= B <= 32767")
+    if B * H * W * 64 >= 2**31:
+        raise ValueError(f"tensor too large for the kernel: {tuple(x.shape)}")
+    cached = folded.get("_cuda")
+    if cached is None or cached[0] != (x.device, Ci):
+        k0, tensors = _head_weights(folded, x.device)
+        if folded["prepool"][0]["kernel"].shape[2] != Ci:
+            raise ValueError(f"x has {Ci} channels, the head takes "
+                             f"{folded['prepool'][0]['kernel'].shape[2]}")
+        ptrs = (ctypes.c_uint64 * 27)(0, *(t.data_ptr() for t in tensors))
+        cached = ((x.device, Ci), k0, tensors, ptrs)
+        folded["_cuda"] = cached
+    _, k0, _, ptrs = cached
+    # one workspace: p0 [B,H,W,64], s_out [B,H,W,16], pooled and t
+    # [B,H/2,W/2,32]; every size a multiple of 4 floats (16 bytes)
+    n, m = B * H * W, B * (H // 2) * (W // 2)
+    work = torch.empty(80 * n + 64 * m, dtype=torch.float32, device=x.device)
+    out = torch.empty((B, H, W, 1), dtype=torch.float32, device=x.device)
+    base = work.data_ptr()
+    ptrs[0] = x.data_ptr()
+    ptrs[22:27] = [base, base + 4 * 64 * n, base + 4 * 80 * n,
+                   base + 4 * (80 * n + 32 * m), out.data_ptr()]
+    lib = _lib()
+    err = lib.msfcn_head(ptrs, B, H, W, Ci, k0,
+                         torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"msfcn_head launch failed: "
+                           f"{lib.msfcn_error_string(err).decode()}")
+    msfcn_head_cuda.launches += LAUNCHES_PER_HEAD
+    return out
+
+
+msfcn_head_cuda.launches = 0
+
+
+def msfcn_fused_apply(folded: dict[str, list[Layer]],
+                      x: torch.Tensor) -> torch.Tensor:
+    """Folded inference MultiScaleFCN: x [B, H, W, C] -> [B, H, W, 1] NHWC.
+    ``folded`` comes from ``fold_msfcn_params``. CUDA tensors go through the
+    kernel, CPU tensors through the plain version."""
+    if x.device.type == "cpu":
+        return msfcn_plain(folded, x)
+    return msfcn_head_cuda(folded, x.float().contiguous())

@@ -103,6 +103,120 @@ def test_sweep_cap_and_zero_sweeps():
     assert vi.value_iteration_plain.sweeps == 0
 
 
+def _schedule():
+    """(k, tile rows, tile columns) compiled into value_iteration.cu."""
+    src = CU.read_text()
+    return tuple(int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+                 for n in ("kSweepsPerBarrier", "kTileH", "kTileW"))
+
+
+def _blocked_solve(r, discount, threshold, max_iters, k, th, tw):
+    """numpy emulation of the CUDA kernel's schedule: per phase of k sweeps,
+    every th x tw tile is loaded with a halo of k cells, swept k times over
+    a region that shrinks by one ring per sweep, and its interior's change
+    and values are recorded per sweep; the stop is decided after the phase.
+    f32 with separate roundings, as the kernel. Returns (V, sweeps,
+    barriers)."""
+    f32 = np.float32
+    B, H, W = r.shape
+    g, limit = f32(discount), f32(threshold)
+    LH, LW = th + 2 * k, tw + 2 * k
+    taps = [[(ky * 3 + kx, f32(w)) for ky, kx, w in t]
+            for t in vi.ACTION_TAPS]
+    v_in = np.zeros_like(r)
+    it, stop, barriers = 0, (0 if max_iters == 0 else None), 0
+    while stop is None:
+        ks = min(k, max_iters - it)
+        deltas = np.zeros(ks, f32)
+        outs = [np.full_like(r, np.nan) for _ in range(ks)]
+        for b in range(B):
+            for Y0 in range(-k, H - k, th):
+                for X0 in range(-k, W - k, tw):
+                    ys, xs = np.arange(Y0, Y0 + LH), np.arange(X0, X0 + LW)
+                    inmap = ((ys >= 0) & (ys < H))[:, None] & (
+                        (xs >= 0) & (xs < W))[None, :]
+                    yc, xc = np.clip(ys, 0, H - 1), np.clip(xs, 0, W - 1)
+                    sr = np.where(inmap, r[b][np.ix_(yc, xc)], f32(0))
+                    sv = np.where(inmap, v_in[b][np.ix_(yc, xc)], f32(0))
+                    sp = np.full((LH, LW), np.nan, f32)
+                    for s in range(ks):
+                        reg = (slice(s, LH - s), slice(s, LW - s))
+                        sp[reg] = np.where(inmap[reg],
+                                           sr[reg] + g * sv[reg], f32(0))
+                        hh, ww = LH - 2 * (s + 1), LW - 2 * (s + 1)
+                        nb = [sp[s + ky:s + ky + hh, s + kx:s + kx + ww]
+                              for ky in range(3) for kx in range(3)]
+                        best = None
+                        for t in taps:
+                            q = ((t[0][1] * nb[t[0][0]]
+                                  + t[1][1] * nb[t[1][0]])
+                                 + t[2][1] * nb[t[2][0]])
+                            best = q if best is None else np.maximum(best, q)
+                        old = sv[s + 1:LH - s - 1, s + 1:LW - s - 1]
+                        i0 = k - (s + 1)  # the interior inside this region
+                        ih = min(th, H - (Y0 + k))
+                        iw = min(tw, W - (X0 + k))
+                        new_i = best[i0:i0 + ih, i0:i0 + iw]
+                        d = np.abs(new_i - old[i0:i0 + ih, i0:i0 + iw]).max()
+                        deltas[s] = np.maximum(deltas[s], d)
+                        outs[s][b, Y0 + k:Y0 + k + ih,
+                                X0 + k:X0 + k + iw] = new_i
+                        sv[s + 1:LH - s - 1, s + 1:LW - s - 1] = best
+        barriers += 1
+        for s in range(ks):
+            if not deltas[s] > limit:
+                stop = it + s + 1
+                break
+        if stop is None:
+            it += ks
+            v_in = outs[-1]
+            if it >= max_iters:
+                stop = it
+    if stop == 0:
+        return np.zeros_like(r), 0, barriers
+    return outs[stop - 1 - it], stop, barriers
+
+
+def _signed_goal_reward(shape, seed):
+    r = np.random.default_rng(seed).uniform(size=shape).astype(np.float32)
+    r -= np.float32(0.6)
+    r[:, shape[1] // 2, shape[2] // 2] = 1.0
+    return r
+
+
+@pytest.mark.parametrize("case", ["stop_in_block", "signed_goal",
+                                  "ragged", "cap_not_multiple", "cap_zero"])
+def test_blocked_schedule_equals_plain_to_the_bit(case):
+    """The kernel's temporal blocking (k sweeps per grid barrier, tiles with
+    a k-cell halo, read from value_iteration.cu) gives V bit for bit and
+    the same sweep count as value_iteration_plain, with ceil(sweeps / k)
+    barriers."""
+    k, th, tw = _schedule()
+    assert 1 <= k <= 32 and th >= 1 and tw >= 1
+    discount, max_iters = 0.9, 2000
+    if case == "stop_in_block":
+        r = _reward((2, th, 2 * tw, 1), seed=4)[..., 0]
+    elif case == "signed_goal":
+        r = _signed_goal_reward((2, th + 3, tw + 5), seed=5)
+    elif case == "ragged":  # maps not a multiple of the tile
+        r = _reward((2, 2 * th + 5, tw + 7, 1), seed=6)[..., 0]
+    elif case == "cap_not_multiple":
+        r, max_iters = _signed_goal_reward((1, th + 1, tw - 3), 7), 2 * k + 3
+    else:
+        r, max_iters = _reward((1, 9, 13, 1), seed=8)[..., 0], 0
+    v, sweeps, barriers = _blocked_solve(r, discount, 1e-3, max_iters, k,
+                                         th, tw)
+    ref = vi.value_iteration_plain(torch.from_numpy(r)[..., None], discount,
+                                   1e-3, max_iters)
+    assert sweeps == vi.value_iteration_plain.sweeps
+    np.testing.assert_array_equal(v, ref[..., 0].numpy())
+    assert barriers == -(-sweeps // k)
+    if case == "stop_in_block":
+        assert 0 < sweeps < max_iters and sweeps % k != 0
+    if case.startswith("cap"):
+        assert sweeps == max_iters
+
+
 def test_goal_attracts_value():
     r = np.full((1, 16, 32, 1), -0.01, np.float32)
     r[0, 8, 16, 0] = 1.0
