@@ -36,8 +36,8 @@ Phases, each printing one line before the final one:
    rollout, the loss and the reward-head gradient, each run on the CPU
    from the card's own input to it.
 8. MDP timing: the VI and SVF kernels and their plain versions at the MDP
-   path's own inputs with their bounds, the VI kernel at several schedules
-   (sweeps per grid barrier, tile), each stage, and the whole objective.
+   path's own inputs with their bounds, each stage, and the whole
+   objective.
 
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
@@ -140,26 +140,6 @@ def layer_bound(x_shape, layer) -> tuple[float, float]:
     return flops, nbytes
 
 
-def jitter_bn_shifts(torch, msfcn) -> None:
-    """Seeded BN scales and shifts for the reward head, so that most of its
-    relus (the final one included) pass values through."""
-    g = torch.Generator().manual_seed(SEED + 1)
-    with torch.no_grad():
-        for mod in msfcn.modules():
-            if hasattr(mod, "running_var"):
-                mod.bias.copy_(0.3 + 0.3 * torch.randn(mod.bias.shape,
-                                                       generator=g))
-                mod.weight.copy_(0.5 + torch.rand(mod.weight.shape,
-                                                  generator=g))
-        msfcn.postpool_0.BatchNorm_0.bias.add_(0.5)
-
-
-def to_device(folded, dev):
-    return {k: [{n: t.to(dev) if hasattr(t, "to") else t
-                 for n, t in ly.items()} for ly in v]
-            for k, v in folded.items() if not k.startswith("_")}
-
-
 def max_rel(a, b) -> tuple[float, float]:
     d = float((a.float() - b.float()).abs().max())
     return d, d / max(1.0, float(b.float().abs().max()))
@@ -216,16 +196,16 @@ def mdp_kernel_checks(torch, dev) -> None:
     """Phase 5: the VI and SVF kernels against their plain versions on the
     card, at the production shapes and at small odd ones; VI to the bit,
     with the same sweep count."""
-    from creste_public_tpu_torch.ops import svf
+    from creste_public_tpu_torch.ops import _build, svf
     from creste_public_tpu_torch.ops import value_iteration as vi
     from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
-    from creste_public_tpu_torch.ops.vi_kernel import (
-        default_schedule,
-        value_iteration_cuda,
-    )
+    from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
 
     g = torch.Generator().manual_seed(SEED)
-    k = default_schedule()[0]
+    # sweeps per grid barrier, a constant of the kernel's source
+    k = int(re.search(r"constexpr int kSweepsPerBarrier = (\d+);",
+                      (_build.CSRC / "value_iteration.cu").read_text()
+                      ).group(1))
     inside = 0
     for shape, signed, cap in (((10, 64, 128, 1), False, 2000),
                                ((3, 16, 32, 1), True, 2000),
@@ -460,18 +440,6 @@ def mdp_path(torch, dev, card: str) -> list[dict]:
     vi_ms = time_ms(torch, lambda: value_iteration_cuda(r, gamma, 1e-3),
                     iters=3, reps=3)
     vi_barriers = int(value_iteration_cuda.barriers.item())
-    sched = {}
-    for k, th, tw in ((8, 16, 48), (4, 16, 56), (16, 16, 32), (8, 8, 48),
-                      (8, 24, 48), (4, 8, 56), (12, 16, 40), (8, 16, 16)):
-        try:
-            t = time_ms(torch, lambda: value_iteration_cuda(
-                r, gamma, 1e-3, schedule=(k, th, tw)), iters=3, reps=3)
-            sched[(k, th, tw)] = f"{t * 1e3:.1f} us"
-        except RuntimeError as e:  # a schedule the card cannot launch
-            sched[(k, th, tw)] = f"refused ({e})"
-    print("  VI schedule sweep (k sweeps per barrier, tile rows x columns): "
-          + "; ".join(f"k={k} {th}x{tw} {t}" for (k, th, tw), t
-                      in sched.items()) + f" [{card}]", flush=True)
     vi_plain_ms = time_ms(torch, lambda: vi.value_iteration_plain(
         r, gamma, 1e-3), iters=1, reps=3, warmup=1)
     vi_err = float((value_iteration_cuda(r, gamma, 1e-3)
@@ -627,9 +595,9 @@ def main() -> None:
     cfg = presets.traversability_model_config().to_dict()
     cfg["solve_mdp"] = False
     head_cfg = cfg["traversability_head"]["net_kwargs"]["reward_cfg"]
-    msfcn = weights.init_weights(MultiScaleFCN(head_cfg["net_kwargs"]), SEED)
-    jitter_bn_shifts(torch, msfcn)
-    folded = to_device(rk.fold_msfcn_params(msfcn), dev)
+    msfcn = weights.jitter_reward_head_bns(weights.init_weights(
+        MultiScaleFCN(head_cfg["net_kwargs"]), SEED), SEED + 1)
+    folded = rk.fold_msfcn_params(msfcn).to(dev)
     g = torch.Generator().manual_seed(SEED)
     for shape in [(1, 64, 128, 40), (3, 32, 64, 40), (2, 37, 53, 40)]:
         x = torch.randn(shape, generator=g).to(dev)
@@ -656,8 +624,7 @@ def main() -> None:
     rgbd, p2p = example_inputs(h, w)
     model = weights.init_weights(MaxEntIRL(cfg), SEED)
     state = model.state_dict()
-    folded_main = to_device(
-        rk.fold_msfcn_params(model.traversability_head.r), dev)
+    folded_main = rk.fold_msfcn_params(model.traversability_head.r).to(dev)
     fn = build_inference_fn(cfg, state, device="cuda")
     rgbd_d = torch.from_numpy(rgbd).to(dev)
     p2p_d = torch.from_numpy(p2p).to(dev)

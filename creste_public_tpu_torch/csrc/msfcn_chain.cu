@@ -483,10 +483,11 @@ constexpr size_t kTrunkSmem = sizeof(float) * (kT3Floats + 4 * kT3WbufF4);
 // Runs the head's four launches on `stream`. ptrs (device pointers, in
 // order): x, the six packed weights, the final 1x1's 48 weights, a[7],
 // b[7], then the buffers p0, s_out, pooled, t and out. Ci % 8 == 0,
-// Ci <= 64, K0 odd <= 5, H, W >= 2 (the wrapper checks). Returns
-// cudaGetLastError() as an int.
+// Ci <= 64, K0 odd <= 5, H, W >= 2 (the wrapper checks). Adds one to
+// *launched for each kernel launched. Returns the first launch error (or
+// cudaSuccess) as an int.
 extern "C" int msfcn_head(const uint64_t* ptrs, int B, int H, int W, int Ci,
-                          int K0, void* stream) {
+                          int K0, int* launched, void* stream) {
   if (Ci % 8 || Ci > kMaxCi || K0 % 2 == 0 || K0 > kMaxK0 || H < 2 ||
       W < 2 || B < 1 || B > 65535 / kSplit1)
     return (int)cudaErrorInvalidValue;
@@ -551,16 +552,24 @@ extern "C" int msfcn_head(const uint64_t* ptrs, int B, int H, int W, int Ci,
     default:
       return (int)cudaErrorInvalidValue;
   }
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ++*launched;
   head_second<<<dim3((W + kTile2W - 1) / kTile2W,
                      (H + kTile2H - 1) / kTile2H, B),
                 kThreads, kSecondSmem, st>>>(A);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ++*launched;
   head_trunk<<<dim3((A.Wp + kTile3W - 1) / kTile3W,
                     (A.Hp + kTile3H - 1) / kTile3H, B),
                kThreads, kTrunkSmem, st>>>(A);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ++*launched;
   const int64_t n = (int64_t)B * H * W;
   head_post<<<(unsigned)((n + kPostThreads - 1) / kPostThreads), kPostThreads,
               0, st>>>(A);
-  return (int)cudaGetLastError();
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ++*launched;
+  return (int)cudaSuccess;
 }
 
 extern "C" const char* msfcn_error_string(int err) {

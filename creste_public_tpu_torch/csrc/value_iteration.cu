@@ -46,9 +46,9 @@
 // branches so that the cells' chains overlap.
 //
 // Schedule (k, tile): k = 8 and 16 x 48 (120 tiles at B=10, 64 x 128, one
-// per SM; 48 + 2k = 64 columns, two warps per row), the fastest of the
-// compiled schedules in chip_smoke.py's VI schedule sweep at the stage-3
-// reward on an NVIDIA H100 80GB HBM3 (700 W).
+// per SM; 48 + 2k = 64 columns, two warps per row), the fastest of eight
+// (k, tile) schedules measured at the stage-3 reward on an NVIDIA H100 80GB
+// HBM3 (700 W); the table is in PERF.md.
 //
 // What bounds it on an H100: per cell and sweep ~52 operations (24 tap
 // products, 16 adds, 7 maxes, r + gamma*V, the change) on 2 x 0.33 MB of
@@ -275,47 +275,14 @@ cudaError_t launch(const float* r, float* v, float* ring, int* delta_bits,
 
 }  // namespace
 
-// The compiled-in schedule: out[0] = k, out[1] = tile rows, out[2] = tile
-// columns.
-extern "C" void vi_default_schedule(int* out) {
-  out[0] = kSweepsPerBarrier;
-  out[1] = kTileH;
-  out[2] = kTileW;
-}
-
-// Launches the solve on `stream` with k sweeps per barrier and th x tw
-// tiles, one of the compiled schedules (0 for each: the default); returns
-// a cudaError_t as an int (cudaErrorInvalidValue for a schedule that is not
-// compiled). `ring` holds 2 * B * H * W floats.
+// Launches the solve on `stream`; returns a cudaError_t as an int. `ring`
+// holds 2 * B * H * W floats.
 extern "C" int vi_solve(const void* r, void* v, void* ring, void* delta_bits,
                         void* info, int B, int H, int W, float discount,
-                        float threshold, int max_iters, int k, int th, int tw,
-                        void* stream) {
-  if (k <= 0 && th <= 0 && tw <= 0) {
-    k = kSweepsPerBarrier;
-    th = kTileH;
-    tw = kTileW;
-  }
-  const float* rp = (const float*)r;
-  float* vp = (float*)v;
-  float* ringp = (float*)ring;
-  int* dp = (int*)delta_bits;
-  int* ip = (int*)info;
-  cudaStream_t st = (cudaStream_t)stream;
-#define VI_SCHEDULE(K, TH, TW)                                              \
-  if (k == K && th == TH && tw == TW)                                       \
-    return (int)launch<K, TH, TW>(rp, vp, ringp, dp, ip, B, H, W, discount, \
-                                  threshold, max_iters, st);
-  VI_SCHEDULE(kSweepsPerBarrier, kTileH, kTileW)
-  VI_SCHEDULE(4, 16, 56)
-  VI_SCHEDULE(16, 16, 32)
-  VI_SCHEDULE(8, 8, 48)
-  VI_SCHEDULE(8, 24, 48)
-  VI_SCHEDULE(4, 8, 56)
-  VI_SCHEDULE(12, 16, 40)
-  VI_SCHEDULE(8, 16, 16)
-#undef VI_SCHEDULE
-  return (int)cudaErrorInvalidValue;
+                        float threshold, int max_iters, void* stream) {
+  return (int)launch<kSweepsPerBarrier, kTileH, kTileW>(
+      (const float*)r, (float*)v, (float*)ring, (int*)delta_bits, (int*)info,
+      B, H, W, discount, threshold, max_iters, (cudaStream_t)stream);
 }
 
 extern "C" const char* vi_error_string(int err) {

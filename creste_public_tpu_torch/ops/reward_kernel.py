@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable
+from collections.abc import Callable, Iterator, Mapping
+from types import MappingProxyType
 
 import torch
 import torch.nn.functional as F
@@ -86,14 +87,53 @@ def _fold(conv: torch.nn.Conv2d, bn, pre_relu: bool,
     return layer
 
 
-def fold_msfcn_params(msfcn: MultiScaleFCN) -> dict[str, list[Layer]]:
+class FoldedHead(Mapping):
+    """A folded head, read-only: chain name -> tuple of layers, each a
+    read-only mapping of ``Layer``'s keys (and ``packed``). Because it
+    cannot be changed, it keeps, per device, the kernel's checked weight
+    pointers (``kernel_args``)."""
+
+    def __init__(self, chains: Mapping[str, list[Layer]]):
+        self._chains = {k: tuple(MappingProxyType(dict(ly)) for ly in v)
+                        for k, v in chains.items()}
+        self._kernel_args: dict[torch.device, tuple] = {}
+
+    def __getitem__(self, chain: str) -> tuple[Mapping, ...]:
+        return self._chains[chain]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._chains)
+
+    def __len__(self) -> int:
+        return len(self._chains)
+
+    def to(self, device) -> FoldedHead:
+        """A copy with every tensor on ``device``."""
+        return FoldedHead({
+            k: [{n: t.to(device) if isinstance(t, torch.Tensor) else t
+                 for n, t in ly.items()} for ly in v]
+            for k, v in self._chains.items()})
+
+    def kernel_args(self, device: torch.device) -> tuple[int, int, tuple]:
+        """(k0, Ci, the weight pointers in the kernel's order) on
+        ``device``, checked by ``_head_weights`` on the first call."""
+        args = self._kernel_args.get(device)
+        if args is None:
+            k0, tensors = _head_weights(self, device)
+            ci = int(self._chains["prepool"][0]["kernel"].shape[2])
+            args = (k0, ci, tuple(t.data_ptr() for t in tensors))
+            self._kernel_args[device] = args
+        return args
+
+
+def fold_msfcn_params(msfcn: MultiScaleFCN) -> FoldedHead:
     """Fold a MultiScaleFCN into per-layer (kernel, a, b) with
     ``a = scale / sqrt(var + eps)`` and ``b = bias - mean * a``.
     prepool_i / skip_i / postpool_i are conv -> BN -> relu; trunk_i is
     conv -> relu then trunk_bn_i -> relu, kept as ``pre_relu``. The layers
     the kernel runs on tensor cores also get ``packed``, their weights split
     for 3xTF32 in the kernel's fragment layout (``pack_tf32_fragments``),
-    on the module's device."""
+    on the module's device. Returns them as a read-only ``FoldedHead``."""
 
     def stack(name, n):
         return [_fold(getattr(msfcn, f"{name}_{i}").Conv_0,
@@ -103,14 +143,14 @@ def fold_msfcn_params(msfcn: MultiScaleFCN) -> dict[str, list[Layer]]:
 
     if not msfcn.trunk_bn:
         raise NotImplementedError("MultiScaleFCN trunk without BN")
-    return {
+    return FoldedHead({
         "prepool": stack("prepool", msfcn.n_prepool),
         "skip": stack("skip", msfcn.n_skip),
         "trunk": [_fold(getattr(msfcn, f"trunk_{i}").Conv_0,
                         getattr(msfcn, f"trunk_bn_{i}"), True, True)
                   for i in range(msfcn.n_trunk)],
         "postpool": stack("postpool", msfcn.n_postpool),
-    }
+    })
 
 
 def conv_affine_plain(x: torch.Tensor, layer: Layer) -> torch.Tensor:
@@ -126,7 +166,7 @@ def conv_affine_plain(x: torch.Tensor, layer: Layer) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def msfcn_chain(folded: dict[str, list[Layer]], x: torch.Tensor,
+def msfcn_chain(folded: Mapping[str, list[Layer]], x: torch.Tensor,
                 conv: Callable[[torch.Tensor, Layer], torch.Tensor]
                 ) -> torch.Tensor:
     """The folded head with ``conv`` computing each layer (NHWC)."""
@@ -149,7 +189,7 @@ def msfcn_chain(folded: dict[str, list[Layer]], x: torch.Tensor,
     return run(folded["postpool"], torch.cat([t, s_out], dim=-1))
 
 
-def msfcn_plain(folded: dict[str, list[Layer]],
+def msfcn_plain(folded: Mapping[str, list[Layer]],
                 x: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of the whole folded head, on any device;
     the reference the kernel is held against."""
@@ -161,14 +201,14 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("msfcn_chain")
     i = ctypes.c_int
     lib.msfcn_head.argtypes = [ctypes.c_void_p, i, i, i, i, i,
-                               ctypes.c_void_p]
+                               ctypes.POINTER(i), ctypes.c_void_p]
     lib.msfcn_head.restype = ctypes.c_int
     lib.msfcn_error_string.argtypes = [ctypes.c_int]
     lib.msfcn_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _head_weights(folded: dict[str, list[Layer]],
+def _head_weights(folded: Mapping[str, list[Layer]],
                   device: torch.device) -> tuple[int, list[torch.Tensor]]:
     """Checks that ``folded`` is the head the kernel runs, with every tensor
     on ``device``; returns k0 and the tensors in the kernel's order: the six
@@ -207,17 +247,18 @@ def _head_weights(folded: dict[str, list[Layer]],
     return k0, tensors
 
 
-def msfcn_head_cuda(folded: dict[str, list[Layer]],
-                    x: torch.Tensor) -> torch.Tensor:
+def msfcn_head_cuda(folded: FoldedHead, x: torch.Tensor) -> torch.Tensor:
     """The folded head as the four launches of ``csrc/msfcn_chain.cu``:
     x [B, H, W, Ci] -> [B, H, W, 1], NHWC.
 
     Takes a contiguous f32 CUDA tensor with Ci a multiple of 8 up to 64 and
-    H, W >= 2, and the head of ``HEAD`` folded on x's device; raises on
-    anything else and on a launch error. The first call checks ``folded``
-    and keeps its pointers in it (``folded["_cuda"]``), so the folded head
-    is not to be changed afterwards. Adds one to
-    ``msfcn_head_cuda.launches`` for each of the four launches."""
+    H, W >= 2, and the head of ``HEAD`` folded by ``fold_msfcn_params`` on
+    x's device; raises on anything else and on a launch error. Adds one to
+    ``msfcn_head_cuda.launches`` for each kernel it launched (four per
+    head)."""
+    if not isinstance(folded, FoldedHead):
+        raise TypeError("the head must be folded by fold_msfcn_params, got "
+                        f"{type(folded).__name__}")
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype != torch.float32:
@@ -232,40 +273,34 @@ def msfcn_head_cuda(folded: dict[str, list[Layer]],
                          "of 8 up to 64, H and W >= 2, 1 <= B <= 32767")
     if B * H * W * 64 >= 2**31:
         raise ValueError(f"tensor too large for the kernel: {tuple(x.shape)}")
-    cached = folded.get("_cuda")
-    if cached is None or cached[0] != (x.device, Ci):
-        k0, tensors = _head_weights(folded, x.device)
-        if folded["prepool"][0]["kernel"].shape[2] != Ci:
-            raise ValueError(f"x has {Ci} channels, the head takes "
-                             f"{folded['prepool'][0]['kernel'].shape[2]}")
-        ptrs = (ctypes.c_uint64 * 27)(0, *(t.data_ptr() for t in tensors))
-        cached = ((x.device, Ci), k0, tensors, ptrs)
-        folded["_cuda"] = cached
-    _, k0, _, ptrs = cached
+    k0, ci, wptrs = folded.kernel_args(x.device)
+    if ci != Ci:
+        raise ValueError(f"x has {Ci} channels, the head takes {ci}")
     # one workspace: p0 [B,H,W,64], s_out [B,H,W,16], pooled and t
     # [B,H/2,W/2,32]; every size a multiple of 4 floats (16 bytes)
     n, m = B * H * W, B * (H // 2) * (W // 2)
     work = torch.empty(80 * n + 64 * m, dtype=torch.float32, device=x.device)
     out = torch.empty((B, H, W, 1), dtype=torch.float32, device=x.device)
     base = work.data_ptr()
-    ptrs[0] = x.data_ptr()
-    ptrs[22:27] = [base, base + 4 * 64 * n, base + 4 * 80 * n,
-                   base + 4 * (80 * n + 32 * m), out.data_ptr()]
+    ptrs = (ctypes.c_uint64 * 27)(
+        x.data_ptr(), *wptrs, base,
+        base + 4 * 64 * n, base + 4 * 80 * n, base + 4 * (80 * n + 32 * m),
+        out.data_ptr())
+    launched = ctypes.c_int(0)
     lib = _lib()
-    err = lib.msfcn_head(ptrs, B, H, W, Ci, k0,
+    err = lib.msfcn_head(ptrs, B, H, W, Ci, k0, ctypes.byref(launched),
                          torch.cuda.current_stream(x.device).cuda_stream)
+    msfcn_head_cuda.launches += launched.value
     if err:
         raise RuntimeError(f"msfcn_head launch failed: "
                            f"{lib.msfcn_error_string(err).decode()}")
-    msfcn_head_cuda.launches += LAUNCHES_PER_HEAD
     return out
 
 
 msfcn_head_cuda.launches = 0
 
 
-def msfcn_fused_apply(folded: dict[str, list[Layer]],
-                      x: torch.Tensor) -> torch.Tensor:
+def msfcn_fused_apply(folded: FoldedHead, x: torch.Tensor) -> torch.Tensor:
     """Folded inference MultiScaleFCN: x [B, H, W, C] -> [B, H, W, 1] NHWC.
     ``folded`` comes from ``fold_msfcn_params``. CUDA tensors go through the
     kernel, CPU tensors through the plain version."""

@@ -21,34 +21,21 @@ from creste_public_tpu_torch.ops import _build
 def _lib() -> ctypes.CDLL:
     lib = _build.load("value_iteration")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vi_solve.argtypes = [p, p, p, p, p, i, i, i, f, f, i, i, i, i, p]
+    lib.vi_solve.argtypes = [p, p, p, p, p, i, i, i, f, f, i, p]
     lib.vi_solve.restype = ctypes.c_int
-    lib.vi_default_schedule.argtypes = [p]
-    lib.vi_default_schedule.restype = None
     lib.vi_error_string.argtypes = [ctypes.c_int]
     lib.vi_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def default_schedule() -> tuple[int, int, int]:
-    """The kernel's compiled-in (sweeps per barrier, tile rows, tile
-    columns)."""
-    out = (ctypes.c_int * 3)()
-    _lib().vi_default_schedule(out)
-    return tuple(out)
-
-
 @torch.no_grad()
 def value_iteration_cuda(r: torch.Tensor, discount: float = 0.99,
-                         threshold: float = 1e-3, max_iters: int = 2000, *,
-                         schedule: tuple[int, int, int] | None = None
+                         threshold: float = 1e-3, max_iters: int = 2000
                          ) -> torch.Tensor:
     """V [B, H, W, 1] of the reward r [B, H, W, 1] in one launch.
 
     Takes a contiguous f32 CUDA tensor; raises on anything else and on a
-    launch error. ``schedule`` = (k, tile rows, tile columns) overrides the
-    compiled-in one (for measuring it). The sweep count and the grid
-    barriers stay on the card as the int32 tensors
+    launch error. The sweep count and the grid barriers stay on the card as the int32 tensors
     ``value_iteration_cuda.sweeps`` and ``.barriers`` (read them with
     ``.item()``). Adds one to ``value_iteration_cuda.launches`` for each
     launch."""
@@ -62,8 +49,6 @@ def value_iteration_cuda(r: torch.Tensor, discount: float = 0.99,
         raise ValueError(f"r must be [B,H,W,1], got {tuple(r.shape)}")
     if max_iters < 0:
         raise ValueError(f"max_iters must be >= 0, got {max_iters}")
-    lib = _lib()
-    k, th, tw = schedule or default_schedule()
     if r.numel() == 0 or 2 * r.numel() >= 2**31:
         raise ValueError(f"r has an unsupported size: {tuple(r.shape)}")
     B, H, W, _ = r.shape
@@ -74,9 +59,10 @@ def value_iteration_cuda(r: torch.Tensor, discount: float = 0.99,
                              device=r.device)
     info = torch.zeros(2, dtype=torch.int32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
+    lib = _lib()
     err = lib.vi_solve(r.data_ptr(), v.data_ptr(), ring.data_ptr(),
                        delta_bits.data_ptr(), info.data_ptr(), B, H, W,
-                       discount, threshold, max_iters, k, th, tw, stream)
+                       discount, threshold, max_iters, stream)
     if err:
         raise RuntimeError(
             f"vi_solve launch failed: {lib.vi_error_string(err).decode()}")

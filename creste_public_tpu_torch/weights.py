@@ -87,3 +87,18 @@ def init_weights(module: nn.Module, seed: int) -> nn.Module:
             m.running_mean.copy_((0.3 * torch.randn(n, generator=g)).abs())
             m.running_var.copy_((1 + 0.3 * torch.randn(n, generator=g)).abs())
     return module
+
+
+@torch.no_grad()
+def jitter_reward_head_bns(msfcn: nn.Module, seed: int) -> nn.Module:
+    """Seeded BN scales (0.5 + U[0, 1)) and shifts (0.3 + 0.3 N) for a
+    MultiScaleFCN reward head, the final BN's shift 0.5 higher, so that
+    most of its relus, the final one included, pass values through (with
+    ``init_weights`` alone the final relu is dead)."""
+    g = torch.Generator().manual_seed(seed)
+    for m in msfcn.modules():
+        if isinstance(m, BatchNorm):
+            m.bias.copy_(0.3 + 0.3 * torch.randn(m.bias.shape, generator=g))
+            m.weight.copy_(0.5 + torch.rand(m.weight.shape, generator=g))
+    msfcn.postpool_0.BatchNorm_0.bias.add_(0.5)
+    return msfcn

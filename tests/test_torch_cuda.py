@@ -4,20 +4,20 @@ runs on its own:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 """
+import re
+
 import pytest
 import torch
 
 from creste_public_tpu_torch import weights
 from creste_public_tpu_torch.config import presets
 from creste_public_tpu_torch.models.blocks.convnets import MultiScaleFCN
+from creste_public_tpu_torch.ops import _build
 from creste_public_tpu_torch.ops import reward_kernel as rk
 from creste_public_tpu_torch.ops import svf
 from creste_public_tpu_torch.ops import value_iteration as vi
 from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
-from creste_public_tpu_torch.ops.vi_kernel import (
-    default_schedule,
-    value_iteration_cuda,
-)
+from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
 
 
 @pytest.fixture
@@ -31,14 +31,8 @@ def cuda():
 def _reward_head(cuda):
     cfg = presets.traversability_model_config()["traversability_head"][
         "net_kwargs"]["reward_cfg"]["net_kwargs"]
-    m = weights.init_weights(MultiScaleFCN(cfg), 0)
-    g = torch.Generator().manual_seed(1)
-    with torch.no_grad():  # BN shifts that keep the relus alive
-        for mod in m.modules():
-            if hasattr(mod, "running_var"):
-                mod.bias.copy_(0.3 + 0.3 * torch.randn(mod.bias.shape,
-                                                       generator=g))
-        m.postpool_0.BatchNorm_0.bias.add_(0.5)
+    m = weights.jitter_reward_head_bns(
+        weights.init_weights(MultiScaleFCN(cfg), 0), 1)
     return rk.fold_msfcn_params(m.to(cuda))
 
 
@@ -100,7 +94,9 @@ def test_vi_kernel_matches_plain_on_card(cuda, shape, signed):
     ref = vi.value_iteration_plain(r)
     assert sweeps == vi.value_iteration_plain.sweeps
     assert 0 < sweeps < 2000
-    k = default_schedule()[0]
+    k = int(re.search(r"constexpr int kSweepsPerBarrier = (\d+);",
+                      (_build.CSRC / "value_iteration.cu").read_text()
+                      ).group(1))
     assert barriers == -(-sweeps // k)
     torch.testing.assert_close(v, ref, rtol=0, atol=0)
     for cap in (7, 2 * k + 3, 0):

@@ -116,6 +116,26 @@ def test_cuda_wrapper_refuses_non_cuda_tensors():
     assert rk.msfcn_head_cuda.launches == 0
 
 
+def test_folded_head_is_read_only():
+    """The folded head cannot be changed after the wrapper has taken its
+    pointers; ``to`` copies it, and the wrapper takes nothing else."""
+    folded = rk.fold_msfcn_params(_head(_tiny_head_cfg(), 0))
+    with pytest.raises(TypeError):
+        folded["prepool"] = []
+    with pytest.raises(TypeError):
+        folded["prepool"][0]["a"] = torch.zeros(1)
+    with pytest.raises(TypeError):
+        folded["prepool"][0] = {}
+    moved = folded.to("cpu")
+    assert isinstance(moved, rk.FoldedHead) and list(moved) == list(folded)
+    for chain in folded:
+        for a, b in zip(folded[chain], moved[chain], strict=True):
+            assert a.keys() == b.keys()
+            assert all(torch.equal(a[k], b[k]) for k in ("kernel", "a", "b"))
+    with pytest.raises(TypeError, match="fold_msfcn_params"):
+        rk.msfcn_head_cuda(dict(folded), torch.zeros(1, 8, 16, 16))
+
+
 def _tiny_head_cfg():
     return presets.tiny_traversability_config()["traversability_head"][
         "net_kwargs"]["reward_cfg"]["net_kwargs"]
@@ -123,17 +143,8 @@ def _tiny_head_cfg():
 
 def _head(cfg, seed):
     """Seeded weights with BN shifts jittered so that every relu is alive."""
-    m = weights.init_weights(MultiScaleFCN(cfg), seed).eval()
-    g = torch.Generator().manual_seed(seed + 1)
-    with torch.no_grad():
-        for mod in m.modules():
-            if hasattr(mod, "running_var"):
-                mod.bias.copy_(0.3 + 0.3 * torch.randn(mod.bias.shape,
-                                                       generator=g))
-                mod.weight.copy_(0.5 + torch.rand(mod.weight.shape,
-                                                  generator=g))
-        m.postpool_0.BatchNorm_0.bias.add_(0.5)
-    return m
+    return weights.jitter_reward_head_bns(
+        weights.init_weights(MultiScaleFCN(cfg), seed), seed + 1).eval()
 
 
 def _cu_ints(*names):
