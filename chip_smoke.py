@@ -23,8 +23,11 @@ Phases, each printing one line before the final one:
    to the bit, with the same sweep count, at [10,64,128,1] (non-negative
    reward), [3,16,32,1] (signed, with a goal bump), [20,37,53,1], with
    max_iters=7, and at an input that stops inside a block of k sweeps;
-   the grid barriers per solve; the SVF kernel at [10,64,128,8] T=50 and
-   [3,17,33,8] T=12, with zero_terminal_state off and on.
+   the grid barriers per solve; the SVF kernel to the bit at [10,64,128,8]
+   T=50, [3,17,33,8] T=12, [20,37,53,8] T=50 (20 clusters), [4,5,40,8]
+   T=20 (H < 8) and [2,8,2048,8] T=12 (the largest band), with
+   zero_terminal_state off and on, with the blocks per cluster and the
+   blocks launched.
 6. MDP path: the production stage-3 objective at B=10 (batch_size) on one
    collated batch of the synthetic dataset at 512x612, grid 256:
    MaxEntIRL.forward with the MDP solve in eval mode, the frozen backbone
@@ -70,17 +73,17 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # the whole frame (see the main-path phase for why it is looser)
 STAGE_RTOL = 1e-3
 FRAME_RTOL = 1e-2
-# MDP kernels vs their plain versions, and each MDP stage card vs CPU: V to
-# two convergence thresholds (a solve that stops one sweep later moves V by
-# up to the threshold), SVF to the bar of tests/test_svf_pallas.py, the
-# tail and the loss in f32 (max|d| / max(1, max|ref|)), the sharpened
+# each MDP stage card vs CPU (the kernels against their plain versions are
+# held to the bit): V to two convergence thresholds (a solve that stops one
+# sweep later moves V by up to the threshold), SVF to the bit (the kernel
+# and the plain version round each product and sum alike), the tail and
+# the loss in f32 (max|d| / max(1, max|ref|)), the sharpened
 # policy absolutely, the reward-head gradient as max|d| over its largest
 # entry (a double backward through cuDNN, TF32 off, whose upsample and
 # pooling backwards add with atomics in an order that varies by run; a
 # single bias, a sum of cancelling terms, can differ by ~1e-3 of its own
 # largest entry)
 VI_ATOL, VI_RTOL = 2e-3, 1e-4
-SVF_ATOL, SVF_RTOL = 1e-6, 1e-5
 SHARPEN_ATOL = 1e-5
 MDP_TAIL_RTOL = MDP_LOSS_RTOL = 1e-5
 MDP_GRAD_RTOL = 1e-3
@@ -194,9 +197,9 @@ def svf_bound(B: int, H: int, W: int, horizon: int,
 
 def mdp_kernel_checks(torch, dev) -> None:
     """Phase 5: the VI and SVF kernels against their plain versions on the
-    card, at the production shapes and at small odd ones; VI to the bit,
-    with the same sweep count."""
-    from creste_public_tpu_torch.ops import _build, svf
+    card, to the bit, at the production shapes and at small odd ones; VI
+    with the same sweep count, SVF with one cluster per element."""
+    from creste_public_tpu_torch.ops import _build, svf, svf_kernel
     from creste_public_tpu_torch.ops import value_iteration as vi
     from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
     from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
@@ -236,7 +239,9 @@ def mdp_kernel_checks(torch, dev) -> None:
                   f"{barriers} grid barriers (k={k})", flush=True)
     if not inside:
         fail(f"no VI check stopped inside a block of k={k} sweeps")
-    for shape, horizon in (((10, 64, 128, 8), 50), ((3, 17, 33, 8), 12)):
+    for shape, horizon in (((10, 64, 128, 8), 50), ((3, 17, 33, 8), 12),
+                           ((20, 37, 53, 8), 50), ((4, 5, 40, 8), 20),
+                           ((2, 8, 2048, 8), 12)):
         B, H, W, _ = shape
         policy = torch.softmax(torch.randn(shape, generator=g) * 3, -1)
         s0 = torch.randint(0, H * W, (B,), generator=g)
@@ -246,12 +251,20 @@ def mdp_kernel_checks(torch, dev) -> None:
             got = expected_svf_cuda(policy, s0, s1, horizon, zts)
             ref = svf.expected_svf_plain(policy, s0, s1, horizon, zts)
             d = check_close(f"SVF kernel at {list(shape)} T={horizon} "
-                            f"zero_terminal_state={zts}", got, ref, SVF_ATOL,
-                            SVF_RTOL)
+                            f"zero_terminal_state={zts}", got, ref, 0.0, 0.0)
+            C = svf_kernel.cluster_shape(H)[0]
+            if (expected_svf_cuda.cluster, expected_svf_cuda.blocks) != (
+                    C, B * C):
+                fail(f"SVF kernel launched clusters of "
+                     f"{expected_svf_cuda.cluster} blocks, "
+                     f"{expected_svf_cuda.blocks} blocks, at {list(shape)}")
+            at_once = expected_svf_cuda.clusters_at_once
             print(f"phase MDP kernel check SVF {list(shape)} T={horizon} "
-                  f"zero_terminal_state={zts}: ok, max|d| {d:.3e} (tol "
-                  f"{SVF_ATOL} + {SVF_RTOL}*|ref|), mass "
-                  f"{float(got.sum()) / B:.4f} per element", flush=True)
+                  f"zero_terminal_state={zts}: ok, max|d| {d:.3e} "
+                  f"(bit-equal), clusters of {C} blocks, {B * C} blocks "
+                  f"launched, {at_once} clusters at once ({-(-B // at_once)}"
+                  f" wave(s)), mass {float(got.sum()) / B:.4f} per element",
+                  flush=True)
 
 
 def to_tensors(torch, d: dict, dev) -> dict:
@@ -394,7 +407,7 @@ def mdp_path(torch, dev, card: str) -> list[dict]:
     s0, s1 = model.svf_endpoints(S)
     d = check_close("stage SVF", cpu(out["exp_svf"]),
                     svf.expected_svf_plain(cpu(sharp), cpu(s0), cpu(s1), T,
-                                           zts), SVF_ATOL, SVF_RTOL)
+                                           zts), 0.0, 0.0)
     rows.append(f"SVF max|d| {d:.3e}")
     states, sgrid = svf.greedy_rollout(cpu(sharp), cpu(s0), T)
     if not (torch.equal(cpu(out["state_preds"]), states)
@@ -456,12 +469,24 @@ def mdp_path(torch, dev, card: str) -> list[dict]:
     svf_ops, svf_bytes = svf_bound(B, Hm, Wm, T, zts)
     svf_bound_ms = max(svf_ops / PEAK_F32_FLOPS,
                        svf_bytes / PEAK_BYTES) * 1e3
+    svf_cluster = expected_svf_cuda.cluster
+    svf_blocks = expected_svf_cuda.blocks
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            expected_svf_cuda(sharp, s0, s1, T, zts)
+        torch.cuda.synchronize()
+    svf_launch_us = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "svf_kernel" in e.key) / 20
     print(f"phase timing MDP kernels: VI {vi_ms * 1e3:.1f} us for "
           f"{card_sweeps} sweeps = {vi_ms * 1e3 / card_sweeps:.3f} us/sweep, "
           f"{vi_barriers} grid barriers "
           f"(plain {vi_plain_ms * 1e3:.1f} us; bound {vi_bound_ms * 1e3:.2f}"
           f" us by {bound_by(vi_ops, vi_bytes)}: {vi_ops / 1e9:.3f} G ops, "
-          f"{vi_bytes / 1e6:.3f} MB); SVF {svf_ms * 1e3:.1f} us (plain "
+          f"{vi_bytes / 1e6:.3f} MB); SVF {svf_ms * 1e3:.1f} us, "
+          f"{svf_launch_us:.1f} us per launch under the profiler, clusters "
+          f"of {svf_cluster} blocks, {svf_blocks} blocks (plain "
           f"{svf_plain_ms * 1e3:.1f} us; bound {svf_bound_ms * 1e3:.2f} us "
           f"by {bound_by(svf_ops, svf_bytes)}: {svf_ops / 1e6:.1f} M ops, "
           f"{svf_bytes / 1e6:.3f} MB) [{card}]",
@@ -550,6 +575,9 @@ def mdp_path(torch, dev, card: str) -> list[dict]:
         "bound_ms": svf_bound_ms,
         "bound_by": bound_by(svf_ops, svf_bytes),
         "library_ms": None,
+        "profiled_ms": svf_launch_us / 1e3,
+        "cluster": svf_cluster,
+        "blocks": svf_blocks,
     }]
 
 

@@ -1,5 +1,5 @@
-// Expected state-visitation frequency (SVF) over a horizon of T steps, one
-// thread block per batch element.
+// Expected state-visitation frequency (SVF) over a horizon of T steps, each
+// batch element's map split over a thread-block cluster.
 //
 // Replaces: creste_public_tpu/ops/svf_pallas.py:52 _svf_kernel (launched by
 // expected_svf_pallas), the TPU kernel that keeps the whole horizon of a
@@ -9,118 +9,190 @@
 // each of the T-1 steps does, in order,
 //   if zero_terminal_state: mu[s1] = 0
 //   total += mu
-//   mu'[y, x] = sum_{a=0..7} pol[a, y - dy_a, x - dx_a] * mu[y - dy_a, x - dx_a]
+//   mu'[y, x] = sum_{a=0..7} pol[y - dy_a, x - dx_a, a] * mu[y - dy_a, x - dx_a]
 // over in-bounds sources only (a zero border), with (dy_a, dx_a) the rows
-// of DYNAMICS; the result is total + mu. The gather form needs no atomics
-// and is deterministic. Products and sums are separate roundings in the
-// order of the plain PyTorch version (ops/svf.py), which adds an exact zero
-// where this kernel skips an out-of-bounds source, so the two agree to the
-// bit.
+// of DYNAMICS; the result is total + mu. Every product is rounded once and
+// the sum runs over a = 0..7 from 0 (__fmul_rn / __fadd_rn), the order of
+// the plain PyTorch version (ops/svf.py), so the two agree to the bit. An
+// out-of-bounds source adds fmul(0, 0) = +0 here and an exact +0 there; a
+// sum that starts at +0 never becomes -0, so adding +0 changes nothing.
 //
-// Layouts: pol [B, 8, H, W] f32 contiguous (the wrapper transposes the
-// [B, H, W, 8] policy, as expected_svf_pallas does); s0, s1 [B] int32
+// Layouts: pol [B, H, W, 8] f32 contiguous, read as it is; s0, s1 [B] int32
 // linear indices (row * W + col); out [B, H, W] f32.
 //
-// Design: mu (double buffered) and total live in dynamic shared memory,
-// 3 x 32 KB at 64 x 128, above the 48 KB default, so the launcher sets
-// cudaFuncAttributeMaxDynamicSharedMemorySize. One element's policy is
-// 8 x 32 KB, more than a block's 227 KB, so it is read from device memory
-// (L2-resident: 2.6 MB at B=10) at every step. __syncthreads() separates
-// the steps.
+// Design. The 49 steps of a call are dependent, so a step's latency, not
+// its ~1.3 M operations, sets the time. Each element gets a cluster of C
+// blocks (C <= 8, the portable cluster size); block r owns the band of R
+// rows from r * R, R = ceil(H / 8), C = ceil(H / R), so no band is empty
+// and at 64 x 128 each band is 8 x 128 cells on its own SM (80 SMs at
+// B = 10). A thread owns up to kCellsPerThread cells of its band, strided
+// by kThreads. The kernel works in pull form: a thread loads, once, the 8
+// policy values that flow INTO each of its cells (pol[src_a, a], 0 for a
+// source outside the map) and keeps them, mu and total in registers for
+// all steps. Per step a cell's mu is the only value that moves: the owner
+// writes it to a shared-memory exchange buffer of R + 2 rows of W + 2
+// (a halo row above and below, a zero border column each side); the band's
+// first row also goes to the halo row below of the band above, its last
+// row to the halo row above of the band below, by distributed-shared-memory
+// stores. One cluster barrier per step; then each thread gathers its 8
+// sources from the buffer. The buffer is double buffered by step parity,
+// so that single barrier is safe: a neighbour writes parity p again only
+// after the next barrier, which every block reaches after its reads of
+// parity p. The last remote store of a call comes before the last barrier,
+// which every block waits on before it exits. Halo rows at the map's edges
+// and the border columns are zeroed once and never written.
 //
-// What bounds it on an H100: ~18 operations per cell and step over 2.6 MB
-// of policy and 0.33 MB of output, both ~1 us at B=10, T=50. The kernel
-// runs B blocks on 132 SMs and each block walks its map serially through
-// T-1 steps, so it is bound by the latency of one block's L2 reads per
-// step, far above that. Splitting each map over a cluster is later work.
+// What bounds it on an H100: ~27 operations per cell and step over 2.6 MB
+// of policy and 0.33 MB of output, ~1 us at B=10, T=50. Its floor in time
+// is the 49 dependent steps, each a cluster barrier plus ~8 shared-memory
+// loads and an 8-long chain of adds per cell.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
+// blocks per cluster at most, threads per block, cells per thread at most:
+// a band holds at most kThreads * kCellsPerThread cells
+constexpr int kClusterBlocks = 8;
+constexpr int kThreads = 512;
+constexpr int kCellsPerThread = 4;
 
 __global__ void __launch_bounds__(kThreads)
 svf_kernel(const float* __restrict__ pol, const int* __restrict__ s0,
            const int* __restrict__ s1, float* __restrict__ out, int H, int W,
-           int horizon, int zero_terminal_state) {
+           int R, int horizon, int zero_terminal_state) {
   extern __shared__ float smem[];
-  const int hw = H * W;
-  float* mu = smem;
-  float* nxt = smem + hw;
-  float* total = smem + 2 * hw;
-  const int b = blockIdx.x;
-  const float* P = pol + (int64_t)b * 8 * hw;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int C = (int)cluster.num_blocks();
+  const int b = blockIdx.x / C;
+  const int PW = W + 2;         // a buffer row with its border columns
+  const int S = (R + 2) * PW;   // one parity: halo above, R rows, halo below
+  const int y0 = rank * R;
+  const int rows = max(0, min(R, H - y0));
+  const int cells = rows * W;
   // DYNAMICS of ops/value_iteration.py: (dy, dx) per action
   const int kDy[8] = {-1, -1, -1, 0, 0, 1, 1, 1};
   const int kDx[8] = {-1, 0, 1, -1, 1, -1, 0, 1};
 
-  for (int i = threadIdx.x; i < hw; i += blockDim.x) {
-    mu[i] = 0.f;
-    total[i] = 0.f;
+  // the neighbours' buffers: the band above and the band below
+  float* up = rank > 0 ? cluster.map_shared_rank(smem, rank - 1) : nullptr;
+  float* down =
+      rank + 1 < C ? cluster.map_shared_rank(smem, rank + 1) : nullptr;
+  for (int i = threadIdx.x; i < 2 * S; i += kThreads) smem[i] = 0.f;
+
+  const float* P = pol + (int64_t)b * H * W * 8;
+  const int start = s0[b], term = s1[b];
+  float pin[kCellsPerThread][8], mu[kCellsPerThread], total[kCellsPerThread];
+  int off[kCellsPerThread];  // the cell's slot in a parity's buffer
+  bool valid[kCellsPerThread], kill[kCellsPerThread];
+  bool to_up[kCellsPerThread], to_down[kCellsPerThread];
+#pragma unroll
+  for (int k = 0; k < kCellsPerThread; ++k) {
+    const int c = threadIdx.x + k * kThreads;
+    valid[k] = c < cells;
+    const int ly = valid[k] ? c / W : 0;
+    const int x = c - ly * W, y = y0 + ly, g = y * W + x;
+    off[k] = (ly + 1) * PW + x + 1;
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const int sy = y - kDy[a], sx = x - kDx[a];
+      pin[k][a] = valid[k] && sy >= 0 && sy < H && sx >= 0 && sx < W
+                      ? __ldg(P + ((int64_t)sy * W + sx) * 8 + a)
+                      : 0.f;
+    }
+    mu[k] = valid[k] && g == start ? 1.f : 0.f;
+    total[k] = 0.f;
+    kill[k] = valid[k] && zero_terminal_state && g == term;
+    // a band's first row feeds the band above, its last row the band below
+    to_up[k] = valid[k] && ly == 0 && y > 0;
+    to_down[k] = valid[k] && ly == rows - 1 && y < H - 1;
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int s = s0[b];
-    if (s >= 0 && s < hw) mu[s] = 1.f;
-  }
-  __syncthreads();
+  // every block of the cluster runs and has zeroed its buffers before any
+  // block stores into a neighbour's
+  cluster.sync();
 
   for (int step = 0; step + 1 < horizon; ++step) {
-    if (zero_terminal_state) {
-      if (threadIdx.x == 0) {
-        const int s = s1[b];
-        if (s >= 0 && s < hw) mu[s] = 0.f;
-      }
-      __syncthreads();
+    const int p = (step & 1) * S;
+    const float* cur = smem + p;
+#pragma unroll
+    for (int k = 0; k < kCellsPerThread; ++k) {
+      if (!valid[k]) continue;
+      if (kill[k]) mu[k] = 0.f;
+      total[k] = __fadd_rn(total[k], mu[k]);
+      smem[p + off[k]] = mu[k];
+      // into the halo row below of the band above (R rows) and the halo
+      // row above of the band below
+      if (to_up[k]) up[p + off[k] + R * PW] = mu[k];
+      if (to_down[k]) down[p + off[k] - R * PW] = mu[k];
     }
-    for (int i = threadIdx.x; i < hw; i += blockDim.x) {
-      total[i] = __fadd_rn(total[i], mu[i]);
-      const int y = i / W, x = i - (i / W) * W;
+    cluster.sync();
+#pragma unroll
+    for (int k = 0; k < kCellsPerThread; ++k) {
+      if (!valid[k]) continue;
       float acc = 0.f;
 #pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        const int sy = y - kDy[a], sx = x - kDx[a];
-        if (sy >= 0 && sy < H && sx >= 0 && sx < W) {
-          const int j = sy * W + sx;
-          acc = __fadd_rn(acc, __fmul_rn(__ldg(P + a * hw + j), mu[j]));
-        }
-      }
-      nxt[i] = acc;
+      for (int a = 0; a < 8; ++a)
+        acc = __fadd_rn(
+            acc, __fmul_rn(pin[k][a], cur[off[k] - kDy[a] * PW - kDx[a]]));
+      mu[k] = acc;
     }
-    __syncthreads();
-    float* t = mu;
-    mu = nxt;
-    nxt = t;
   }
-  float* o = out + (int64_t)b * hw;
-  for (int i = threadIdx.x; i < hw; i += blockDim.x)
-    o[i] = __fadd_rn(total[i], mu[i]);
+  float* o = out + (int64_t)b * H * W + (int64_t)y0 * W;
+#pragma unroll
+  for (int k = 0; k < kCellsPerThread; ++k)
+    if (valid[k]) o[threadIdx.x + k * kThreads] = __fadd_rn(total[k], mu[k]);
 }
 
 }  // namespace
 
-// Launches B blocks on `stream`; returns a cudaError_t as an int.
+// Launches one cluster per batch element on `stream`; returns a cudaError_t
+// as an int. `info` (host memory, 3 ints) receives the blocks per cluster,
+// the blocks launched and the clusters the card can hold at once.
 extern "C" int svf_propagate(const void* pol, const void* s0, const void* s1,
                              void* out, int B, int H, int W, int horizon,
-                             int zero_terminal_state, void* stream) {
-  const size_t smem = (size_t)3 * H * W * sizeof(float);
-  int dev = 0, most = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > (size_t)most) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(svf_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0) {
-    svf_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)pol, (const int*)s0, (const int*)s1, (float*)out, H, W,
-        horizon, zero_terminal_state);
+                             int zero_terminal_state, void* stream,
+                             int* info) {
+  // the fewest rows per band that split H over at most kClusterBlocks
+  // blocks, and the fewest blocks for that band
+  const int R = (H + kClusterBlocks - 1) / kClusterBlocks;
+  const int C = (H + R - 1) / R;
+  if (B < 1 || H < 1 || W < 1 ||
+      (int64_t)R * W > (int64_t)kThreads * kCellsPerThread)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * (R + 2) * (W + 2) * sizeof(float);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        svf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, svf_kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  info[0] = C;
+  info[1] = B * C;
+  info[2] = clusters;
+  err = cudaLaunchKernelEx(&cfg, svf_kernel, (const float*)pol,
+                           (const int*)s0, (const int*)s1, (float*)out, H, W,
+                           R, horizon, zero_terminal_state);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

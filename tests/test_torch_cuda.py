@@ -14,7 +14,7 @@ from creste_public_tpu_torch.config import presets
 from creste_public_tpu_torch.models.blocks.convnets import MultiScaleFCN
 from creste_public_tpu_torch.ops import _build
 from creste_public_tpu_torch.ops import reward_kernel as rk
-from creste_public_tpu_torch.ops import svf
+from creste_public_tpu_torch.ops import svf, svf_kernel
 from creste_public_tpu_torch.ops import value_iteration as vi
 from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
 from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
@@ -108,9 +108,17 @@ def test_vi_kernel_matches_plain_on_card(cuda, shape, signed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,horizon", [((10, 64, 128, 8), 50),
-                                           ((3, 17, 33, 8), 12)])
+                                           ((3, 17, 33, 8), 12),
+                                           ((20, 37, 53, 8), 50),
+                                           ((4, 5, 40, 8), 20),
+                                           ((2, 8, 2048, 8), 12)])
 @pytest.mark.parametrize("zts", [False, True])
 def test_svf_kernel_matches_plain_on_card(cuda, shape, horizon, zts):
+    """The SVF kernel against its plain version on the card, to the bit (the
+    same separate f32 roundings in the same order), in one launch of one
+    cluster of ``cluster_shape(H)`` blocks per element: the production
+    shape, a ragged map, a batch of 20 clusters, H < 8, and a band of the
+    most cells the kernel takes (above 48 KB of shared memory)."""
     g = torch.Generator().manual_seed(1)
     policy = torch.softmax(torch.randn(shape, generator=g) * 3, -1).to(cuda)
     B, H, W, _ = shape
@@ -119,9 +127,12 @@ def test_svf_kernel_matches_plain_on_card(cuda, shape, horizon, zts):
     expected_svf_cuda.launches = 0
     got = svf.expected_svf(policy, s0, s1, horizon, zts)
     assert expected_svf_cuda.launches == 1
+    C = svf_kernel.cluster_shape(H)[0]
+    assert (expected_svf_cuda.cluster, expected_svf_cuda.blocks) == (C, B * C)
+    assert expected_svf_cuda.clusters_at_once >= 1
     torch.testing.assert_close(
         got, svf.expected_svf_plain(policy, s0, s1, horizon, zts),
-        rtol=1e-5, atol=1e-6)
+        rtol=0, atol=0)
 
 
 @pytest.mark.gpu
@@ -141,6 +152,7 @@ def test_mdp_kernels_reject_bad_input(cuda):
         expected_svf_cuda(p.transpose(1, 2), s, s, 3)
     with pytest.raises(ValueError, match="device"):
         expected_svf_cuda(p, s.cpu(), s, 3)
+    # a band of ceil(16 / 8) rows x 1025 = 2050 cells, over the 2048 limit
     with pytest.raises(ValueError, match="map size"):
-        expected_svf_cuda(torch.full((1, 200, 200, 8), 1 / 8, device=cuda),
+        expected_svf_cuda(torch.full((1, 16, 1025, 8), 1 / 8, device=cuda),
                           s[:1], s[:1], 3)
