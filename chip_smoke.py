@@ -39,8 +39,9 @@ Phases, each printing one line before the final one:
    rollout, the loss and the reward-head gradient, each run on the CPU
    from the card's own input to it.
 8. MDP timing: the VI and SVF kernels and their plain versions at the MDP
-   path's own inputs with their bounds, each stage, and the whole
-   objective.
+   path's own inputs with their bounds (SVF also per launch under the
+   profiler, and queued behind a sleep at T and at T=1), each stage, and
+   the whole objective.
 
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
@@ -471,22 +472,50 @@ def mdp_path(torch, dev, card: str) -> list[dict]:
                        svf_bytes / PEAK_BYTES) * 1e3
     svf_cluster = expected_svf_cuda.cluster
     svf_blocks = expected_svf_cuda.blocks
+
+    # device time per launch under the profiler (over the launches it
+    # recorded: it can miss one at the end of a session)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(20):
             expected_svf_cuda(sharp, s0, s1, T, zts)
         torch.cuda.synchronize()
-    svf_launch_us = sum(e.self_device_time_total for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and "svf_kernel" in e.key) / 20
+    seen = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "svf_kernel" in e.key]
+    if not seen or seen[0].count < 10:
+        fail("the profiler recorded fewer than 10 of 20 SVF launches")
+    svf_us = seen[0].self_device_time_total / seen[0].count
+
+    def queued_us(horizon: int, n: int = 20) -> float:
+        """Device time per launch by CUDA events, the launches queued behind
+        a sleep kernel so that the wrapper's host time does not count."""
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(20_000_000)  # ~10 ms to queue n launches
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(n):
+                expected_svf_cuda(sharp, s0, s1, horizon, zts)
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b) * 1e3 / n)
+        return statistics.median(out)
+
+    # the launch alone (T=1: load, set-up, write) and the steps' share
+    svf_q_us, svf_t1_us = queued_us(T), queued_us(1)
     print(f"phase timing MDP kernels: VI {vi_ms * 1e3:.1f} us for "
           f"{card_sweeps} sweeps = {vi_ms * 1e3 / card_sweeps:.3f} us/sweep, "
           f"{vi_barriers} grid barriers "
           f"(plain {vi_plain_ms * 1e3:.1f} us; bound {vi_bound_ms * 1e3:.2f}"
           f" us by {bound_by(vi_ops, vi_bytes)}: {vi_ops / 1e9:.3f} G ops, "
           f"{vi_bytes / 1e6:.3f} MB); SVF {svf_ms * 1e3:.1f} us, "
-          f"{svf_launch_us:.1f} us per launch under the profiler, clusters "
-          f"of {svf_cluster} blocks, {svf_blocks} blocks (plain "
+          f"{svf_us:.1f} us per launch under the profiler; queued behind a "
+          f"sleep {svf_q_us:.1f} us, {svf_t1_us:.1f} us at T=1, so "
+          f"{(svf_q_us - svf_t1_us) / (T - 1):.3f} us per step; "
+          f"clusters of {svf_cluster} blocks, {svf_blocks} blocks (plain "
           f"{svf_plain_ms * 1e3:.1f} us; bound {svf_bound_ms * 1e3:.2f} us "
           f"by {bound_by(svf_ops, svf_bytes)}: {svf_ops / 1e6:.1f} M ops, "
           f"{svf_bytes / 1e6:.3f} MB) [{card}]",
@@ -575,7 +604,9 @@ def mdp_path(torch, dev, card: str) -> list[dict]:
         "bound_ms": svf_bound_ms,
         "bound_by": bound_by(svf_ops, svf_bytes),
         "library_ms": None,
-        "profiled_ms": svf_launch_us / 1e3,
+        "profiled_ms": svf_us / 1e3,
+        "queued_ms": svf_q_us / 1e3,
+        "queued_t1_ms": svf_t1_us / 1e3,
         "cluster": svf_cluster,
         "blocks": svf_blocks,
     }]

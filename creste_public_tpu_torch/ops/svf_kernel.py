@@ -2,9 +2,9 @@
 
 Counterpart of ``creste_public_tpu/ops/svf_pallas.py``: all T-1 steps of
 the horizon in one launch, each batch element's map split in bands of rows
-over a thread-block cluster whose blocks pass their edge rows to each other
-through distributed shared memory. ``ops/svf.py`` holds the plain version
-this kernel is checked against. Forward only, like the JAX kernel.
+over a thread-block cluster whose blocks store their edge rows into each
+other's shared memory. ``ops/svf.py`` holds the plain version this kernel
+is checked against. Forward only, like the JAX kernel.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from creste_public_tpu_torch.ops import _build
 # read them from the source): blocks per cluster at most, and the cells of
 # one band at most (its policy, mu and total stay in registers)
 CLUSTER_BLOCKS = 8
-MAX_BAND_CELLS = 512 * 4
+MAX_BAND_CELLS = 1024 * 2
 
 
 def cluster_shape(H: int) -> tuple[int, int]:
@@ -77,8 +77,8 @@ def expected_svf_cuda(policy: torch.Tensor, s0: torch.Tensor,
                          f"{MAX_BAND_CELLS} cells)")
     if horizon < 1:
         raise ValueError(f"horizon must be >= 1, got {horizon}")
-    s0i = s0.to(torch.int32).contiguous()
-    s1i = s1.to(torch.int32).contiguous()
+    s0i = s0.long().contiguous()
+    s1i = s1.long().contiguous()
     out = torch.empty((B, H, W), dtype=torch.float32, device=policy.device)
     lib = _lib()
     stream = torch.cuda.current_stream(policy.device).cuda_stream

@@ -160,7 +160,7 @@ def _cluster_svf(policy, s0, s1, horizon, zts):
     B, H, W, _ = policy.shape
     C, R = svf_kernel.cluster_shape(H)
     Hp = C * R
-    rows = [max(0, min(R, H - r * R)) for r in range(C)]
+    rows = [min(R, H - r * R) for r in range(C)]
     valid = (torch.arange(Hp) < H)[:, None].expand(Hp, W)
     padded = torch.nn.functional.pad(policy, (0, 0, 1, 1, 1, Hp - H + 1))
     pin = torch.stack([padded[:, 1 - dy:1 - dy + Hp, 1 - dx:1 - dx + W, a]
@@ -181,8 +181,6 @@ def _cluster_svf(policy, s0, s1, horizon, zts):
         mu = torch.where(kill, 0.0, mu)
         total = total + mu
         for r in range(C):
-            if not rows[r]:
-                continue
             cur[:, r, 1:rows[r] + 1, 1:W + 1] = mu[:, r, :rows[r]]
             if r * R > 0:  # the first row, into the band above
                 cur[:, r - 1, R + 1, 1:W + 1] = mu[:, r, 0]
@@ -200,7 +198,7 @@ def _cluster_svf(policy, s0, s1, horizon, zts):
     ((10, 64, 128), 50),  # the stage-3 objective: 8 bands of 8 x 128
     ((3, 37, 53), 50),    # H not a multiple of the cluster: a short band
     ((2, 5, 40), 20),     # H < 8: five bands of one row
-    ((2, 16, 1024), 12),  # a band of 2048 cells, 4 per thread
+    ((2, 16, 1024), 12),  # a band of 2048 cells, 2 per thread
 ])
 @pytest.mark.parametrize("zts", [False, True])
 def test_cluster_schedule_equals_plain_to_the_bit(shape, horizon, zts):
