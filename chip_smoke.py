@@ -42,6 +42,27 @@ Phases, each printing one line before the final one:
    path's own inputs with their bounds (SVF also per launch under the
    profiler, and queued behind a sleep at T and at T=1), each stage, and
    the whole objective.
+9. train loop: the stage-3 trainer through its entry point,
+   train_traversability.main(trainer=smoke) at the production preset
+   (B=10, 512x612, grid 256, T=50, seeded weights) on two training batches
+   and one validation batch of the synthetic dataset: finite loss,
+   grad_norm and metadata on every logged step, the train, train-epoch and
+   val lines of metrics.jsonl, one VI and one SVF launch per step and per
+   validation batch (and no reward-head kernel launch: train mode cannot
+   fold BN), and a step_2 checkpoint that restores into a fresh model.
+10. train step invariants: one step from the seeded state with fed
+    drop-connect masks: one VI and one SVF launch, every backbone
+    parameter bit-unchanged, every running statistic (backbone and head)
+    moved, every head parameter moved by at most the learning rate.
+11. train step card vs CPU: the train-mode backbone at B=2 with the same
+    masks, stage by stage (maps and staged statistics), then, from the
+    card's input view and expected SVF, the train-mode reward head, the
+    loss and its metadata, grad_norm, the reward-head gradient, the
+    post-step head parameters and running statistics.
+12. train timing: ms per B=10 training step (CUDA events, inputs on the
+    card) beside the eval objective, the loop's steady-state time per step
+    with its loader, peak device memory, and the idle share and top
+    kernels under the profiler over two steps.
 
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
@@ -88,6 +109,15 @@ VI_ATOL, VI_RTOL = 2e-3, 1e-4
 SHARPEN_ATOL = 1e-5
 MDP_TAIL_RTOL = MDP_LOSS_RTOL = 1e-5
 MDP_GRAD_RTOL = 1e-3
+# the training step's reward-head gradient card vs CPU, max|d| over its
+# largest entry: train-mode BN's backward subtracts the batch means of its
+# incoming gradient, which cancels, so the card reproduces its own gradient
+# only to ~3e-4 to 6e-4 of its largest entry and the CPU's to ~1.0e-3 to
+# 1.3e-3 (train_path prints both). A faulty step, BN's batch statistics
+# detached from the gradient, reads ~0.8 (train_path runs it as a control
+# and fails if it does not land above the bar); the bar sits between the
+# two with room on both sides
+TRAIN_GRAD_RTOL = 5e-3
 
 
 def fail(msg: str) -> None:
@@ -273,11 +303,11 @@ def to_tensors(torch, d: dict, dev) -> dict:
             else torch.from_numpy(v).to(dev) for k, v in d.items()}
 
 
-def mdp_path(torch, dev, card: str) -> list[dict]:
+def mdp_path(torch, dev, card: str) -> tuple[float, list[dict]]:
     """Phases 6-8: the stage-3 objective at B=10 on the card (forward with
     the MDP solve, MaxEntIRLLoss, backward into the reward head), each of
     its stages against the CPU from the card's own inputs, and timing.
-    Returns the kernels' JSON entries of the VI and SVF kernels."""
+    Returns the objective's ms and the VI and SVF kernels' JSON entries."""
     from creste_public_tpu_torch import weights
     from creste_public_tpu_torch.config import presets
     from creste_public_tpu_torch.data.synthetic import (
@@ -578,7 +608,7 @@ def mdp_path(torch, dev, card: str) -> list[dict]:
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB [{card}]", flush=True)
 
-    return [{
+    return step_ms, [{
         "name": "value_iteration",
         "route": "cuda",
         "source": "creste_public_tpu_torch/csrc/value_iteration.cu",
@@ -610,6 +640,503 @@ def mdp_path(torch, dev, card: str) -> list[dict]:
         "cluster": svf_cluster,
         "blocks": svf_blocks,
     }]
+
+
+# the stage-3 trainer through its entry point: the groups it composes and
+# the dataset sizes (two training batches of batch_size, one of val)
+TRAIN_MODEL = "traversability/terrainnet_maxentirlcf_msfcn_sam2dynsemelev"
+TRAIN_DATASET = "synthetic_traversability"
+VAL_LENGTH = 8
+LOOP_STEPS = 6  # steps of the timed loop (the first two are warm-up)
+
+
+class FedMasks:
+    """Drop-connect masks fed in call order, the same list on the card and
+    on the CPU."""
+
+    def __init__(self, torch, n: int, batch: int):
+        g = torch.Generator().manual_seed(SEED + 7)
+        self.masks = [(torch.rand(batch, 1, 1, 1, generator=g) > 0.2).float()
+                      for _ in range(n)]
+        self.masks[0][1] = 0.0
+        self.calls = 0
+
+    def __call__(self, batch: int, keep: float):
+        m = self.masks[self.calls % len(self.masks)]
+        self.calls += 1
+        return m[:batch]
+
+
+def param_tol(np_, g, lr: float, grad_rtol: float):
+    """Per-entry bound on a parameter after one Adam step whose gradient is
+    known to grad_rtol of its largest entry: about lr * 2 delta / |g| while
+    |g| > delta, at most 2 lr (a sign flip) otherwise."""
+    delta = grad_rtol * np_.abs(g).max()
+    return lr * np_.minimum(2.0, 4.0 * delta / np_.maximum(np_.abs(g),
+                                                           1e-30))
+
+
+def detached_stats_forward(torch, bn):
+    """A faulty train-mode forward for ``bn``: the batch's mean and
+    variance taken out of the gradient (a control of the gradient bar)."""
+    import torch.nn.functional as F
+
+    def forward(x):
+        xf = x.float()
+        dims = [0, *range(2, x.dim())]
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        return F.batch_norm(xf, mean.detach(), var.detach(), bn.weight,
+                            bn.bias, False, 0.0, bn.eps).to(x.dtype)
+    return forward
+
+
+def head_grads(torch, head, iv, exp_svf, batch: dict, losses,
+               fault: str | None = None) -> dict:
+    """The reward-head parameter gradient of the stage-3 loss with the
+    head in training mode on the given input view and expected SVF (the
+    penalty on the head's eval form), its staged statistics dropped.
+    ``fault`` computes it wrongly on purpose, as a control of the bar:
+    "detached_stats" (BN's batch statistics out of the gradient) or
+    "post_step_penalty" (the penalty on the post-step statistics)."""
+    from creste_public_tpu_torch.losses.manager import LossManager
+    from creste_public_tpu_torch.models.blocks.convnets import (
+        BatchNorm,
+        commit_batch_stats,
+        discard_batch_stats,
+        eval_form,
+    )
+    from creste_public_tpu_torch.training.pipelines import merge_tensor_dict
+
+    if fault == "detached_stats":
+        for m in head.modules():
+            if isinstance(m, BatchNorm):
+                m.forward = detached_stats_forward(torch, m)
+
+    def reward_fn(x):
+        if fault == "post_step_penalty":
+            commit_batch_stats(head)
+        with eval_form(head):
+            return head.reward(x)
+
+    head.train()
+    head.zero_grad(set_to_none=True)
+    td = merge_tensor_dict(batch, {"traversability_preds": head.reward(iv),
+                                   "input_view": iv, "exp_svf": exp_svf})
+    ld, _ = losses(td, {"reward_fn": reward_fn})
+    LossManager.total(ld).backward()
+    discard_batch_stats(head)
+    return {k: p.grad.detach().clone() for k, p in head.named_parameters()}
+
+
+def train_path(torch, dev, card: str, objective_ms: float) -> dict:
+    """Phases 9-12: the stage-3 trainer at the production preset through
+    its entry point (train_traversability.main), one step's invariants, the
+    step card vs CPU stage by stage, and the step's timing. Returns the
+    VI and SVF launches of the timed loop's training steps, counted with no
+    validation in the run."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    from creste_public_tpu_torch import train_traversability
+    from creste_public_tpu_torch.config.groups import compose_cli
+    from creste_public_tpu_torch.data.dataloader import (
+        EpochLoader,
+        build_dataset,
+    )
+    from creste_public_tpu_torch.losses.manager import LossManager
+    from creste_public_tpu_torch.models.blocks.convnets import (
+        BatchNorm,
+        discard_batch_stats,
+    )
+    from creste_public_tpu_torch.models.lfd import MaxEntIRL
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
+    from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
+    from creste_public_tpu_torch.training import checkpoint as ckpt
+    from creste_public_tpu_torch.training import optim, pipelines
+    from creste_public_tpu_torch.training.loop import (
+        run_training,
+        step_generator,
+        to_device,
+    )
+    from creste_public_tpu_torch.training.state import (
+        TrainState,
+        global_norm,
+        train_step,
+    )
+
+    def cpu(t):
+        return t.detach().cpu()
+
+    # 9. the entry point: trainer=smoke (2 steps), validation, checkpoints
+    base = [f"model={TRAIN_MODEL}", f"dataset={TRAIN_DATASET}"]
+    cfg = compose_cli("traversability", base)
+    B = int(cfg["model"]["batch_size"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    ckpt_dir = os.path.join(tmp, "smoke")
+    argv = ["trainer=smoke", *base, f"dataset.train.length={2 * B}",
+            f"dataset.val.length={VAL_LENGTH}", f"trainer.ckpt_dir={ckpt_dir}",
+            "trainer.verbose=false"]
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = 0
+    state = train_traversability.main(argv)
+    torch.cuda.synchronize()
+    loop_launches = (value_iteration_cuda.launches,
+                     expected_svf_cuda.launches, rk.msfcn_head_cuda.launches)
+    run_s = time.perf_counter() - t0
+    steps = state.step
+    rows = [json.loads(line) for line in open(os.path.join(
+        ckpt_dir, "metrics.jsonl"))]
+    train_rows = [r for r in rows if "split" not in r]
+    splits = [r.get("split") for r in rows]
+    if steps != 2 or [r["step"] for r in train_rows] != [1, 2] or splits != [
+            None, None, "train_epoch", "val"]:
+        fail(f"the entry point ran {steps} steps and logged {splits}")
+    for r in rows:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not np.isfinite(v)]
+        if bad:
+            fail(f"metrics.jsonl line {r} has non-finite {bad}")
+    if not all("grad_norm" in r and "loss" in r for r in train_rows):
+        fail("a training line lacks loss or grad_norm")
+    # one VI and one SVF launch per training step and per validation batch
+    n_val = -(-VAL_LENGTH // B)
+    if loop_launches != (steps + n_val, steps + n_val, 0):
+        fail(f"the entry point's run launched VI, SVF and the reward-head "
+             f"kernel {loop_launches} times for {steps} steps and {n_val} "
+             "validation batch(es)")
+    path = ckpt.latest_checkpoint(ckpt_dir)
+    if path is None or os.path.basename(path) != "step_2":
+        fail(f"the latest checkpoint is {path}")
+    _, _, fresh = pipelines.init_stage("traversability", cfg["model"],
+                                       seed=SEED + 1, device=dev)
+    ckpt.restore_checkpoint(path, fresh)
+    sd = state.model.state_dict()
+    if fresh.step != 2 or any(not torch.equal(v, sd[k]) for k, v in
+                              fresh.model.state_dict().items()):
+        fail("the step_2 checkpoint does not restore the trained model")
+    print(f"phase train loop: ok, train_traversability.main(trainer=smoke) "
+          f"at B={B} ran {steps} steps + {n_val} validation batch(es) in "
+          f"{run_s:.1f} s (data, init, checkpoints included); VI / SVF / "
+          f"reward-head kernel launches {loop_launches}; losses "
+          + ", ".join(f"{r['loss']:.6e}" for r in train_rows)
+          + "; grad_norm " + ", ".join(f"{r['grad_norm']:.4e}"
+                                       for r in train_rows)
+          + f"; val loss {rows[-1]['loss']:.6e}; {os.path.basename(path)} "
+          "restores into a fresh model", flush=True)
+    del fresh, state
+
+    # 10. one step's invariants from a known state: the seeded weights and
+    # a fresh optimizer, whose first Adam step moves each entry by at most
+    # lr (lr * g / (|g| + eps))
+    model, lm, state = pipelines.init_stage(
+        "traversability", cfg["model"], seed=SEED, steps_per_epoch=2,
+        device=dev)
+    step = pipelines.make_train_step("traversability", model, lm)
+    loader = EpochLoader(build_dataset(cfg["dataset"], "train"), B,
+                         num_workers=4)
+    batch_np = next(iter(loader.epoch(5)))
+    batch = to_device(batch_np, dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_before = state.optimizer.state_dict()
+    sched_before = state.scheduler.state_dict()
+    lr = state.optimizer.param_groups[0]["lr"]
+    captured = {}
+    hook = model.register_forward_hook(
+        lambda m, args, out: captured.update(out))
+    masks = FedMasks(torch, 64, B)
+    torch.cuda.synchronize()
+    value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = 0
+    metrics = step(state, batch, masks)
+    torch.cuda.synchronize()
+    hook.remove()
+    step_launches = (value_iteration_cuda.launches,
+                     expected_svf_cuda.launches, rk.msfcn_head_cuda.launches)
+    if step_launches != (1, 1, 0):
+        fail(f"one training step launched VI, SVF and the reward-head kernel "
+             f"{step_launches} times, not (1, 1, 0)")
+    if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+        fail(f"non-finite step metrics {metrics}")
+    after = model.state_dict()
+    moved = stats_moved = 0
+    for k, v in before.items():
+        if "running" in k:
+            stats_moved += not torch.equal(after[k], v)
+        elif k.startswith("backbone"):
+            if not torch.equal(after[k], v):
+                fail(f"the frozen backbone parameter {k} changed")
+        else:
+            d = float((after[k] - v).abs().max())
+            if d > lr * (1 + 1e-3):
+                fail(f"{k} moved {d:.3e} > lr {lr:.3e}")
+            moved += d > 0
+    n_stats = sum("running" in k for k in before)
+    bb_stats = [k for k in before if "running" in k
+                and k.startswith("backbone")]
+    if stats_moved != n_stats:
+        fail(f"{n_stats - stats_moved} running statistics did not move")
+    print(f"phase train step invariants: ok, B={B}, VI / SVF / reward-head "
+          f"kernel launches {step_launches}, {masks.calls} drop-connect "
+          f"masks drawn, every backbone parameter bit-unchanged, all "
+          f"{n_stats} running statistics moved ({len(bb_stats)} of the "
+          f"backbone), {moved} head tensors moved by <= lr "
+          f"{lr:.4e}; loss {float(metrics['loss']):.6e}", flush=True)
+
+    # 11. the step card vs CPU, each stage from the card's own inputs
+    cpu_cfg = cfg["model"].to_dict()
+    cpu_model = MaxEntIRL(cpu_cfg)
+    # the card's state as it is now: the staged statistics start from the
+    # running ones
+    cpu_model.load_state_dict({k: cpu(v) for k, v in after.items()},
+                              strict=True)
+    rows_out = []
+    # the train-mode backbone at B=2 with the same masks, stage by stage
+    b2 = {k: batch[k][:2] for k in ("image", "p2p")}
+    discard_batch_stats(model)
+    model.train()
+    with torch.no_grad():
+        masks.calls = 0
+        dc = model.backbone.depthcomp(b2["image"], b2["p2p"], masks)
+        cpu_model.train()
+        masks.calls = 0
+        dc_cpu = cpu_model.backbone.depthcomp(cpu(b2["image"]),
+                                              cpu(b2["p2p"]), masks)
+        c = {k: cpu(v) for k, v in dc.items()}
+        Hs, Ws = c["depth_preds_metric"].shape[1:]
+        feats = c["depth_preds_feats"]
+        splat = model.backbone.cam2map(
+            dc["depth_preds_metric"].reshape(2, 1, Hs, Ws),
+            dc["depth_preds_feats"].reshape(2, 1, Hs, Ws, feats.shape[-1]),
+            b2["p2p"])
+        splat_cpu = cpu_model.backbone.cam2map(
+            c["depth_preds_metric"].reshape(2, 1, Hs, Ws),
+            feats.reshape(2, 1, Hs, Ws, feats.shape[-1]), cpu(b2["p2p"]))
+        dec = model.backbone.bevclassifier(splat)
+        dec_cpu = cpu_model.backbone.bevclassifier(
+            {k: cpu(v) for k, v in splat.items()})
+    worst = 0.0
+    maps = ([(f"depthcomp {k}", dc[k], dc_cpu[k]) for k in dc_cpu
+             if k != "depth_preds_bins"]
+            + [(f"splat {k}", splat[k], splat_cpu[k]) for k in splat_cpu]
+            + [(f"decoder {k}", dec[k], dec_cpu[k]) for k in dec_cpu])
+    for name, got, ref in maps:
+        _, rel = max_rel(cpu(got), ref)
+        if rel > STAGE_RTOL:
+            fail(f"train-mode backbone stage {name}: {rel:.3e} > "
+                 f"{STAGE_RTOL}")
+        worst = max(worst, rel)
+    cpu_bns = dict(cpu_model.backbone.named_modules())
+    stat_worst = 0.0
+    for name, m in model.backbone.named_modules():
+        if isinstance(m, BatchNorm):
+            for got, ref in zip(m.staged, cpu_bns[name].staged):
+                _, rel = max_rel(cpu(got), ref)
+                if rel > STAGE_RTOL:
+                    fail(f"train-mode backbone staged statistics {name}: "
+                         f"{rel:.3e} > {STAGE_RTOL}")
+                stat_worst = max(stat_worst, rel)
+    discard_batch_stats(model)
+    discard_batch_stats(cpu_model)
+    rows_out.append(f"train-mode backbone at B=2 with the same masks: "
+                    f"{len(maps)} maps <= {worst:.3e}, staged statistics <= "
+                    f"{stat_worst:.3e}")
+    # the head, the loss, the gradient and the step from the card's input
+    # view and expected SVF, on the pre-step state (optimizer included)
+    cpu_model.load_state_dict({k: cpu(v) for k, v in before.items()},
+                              strict=True)
+    # the card against itself: the pre-step head's gradient twice on the
+    # card from the same inputs (cuDNN's backward and the upsample's add
+    # with atomics; see TRAIN_GRAD_RTOL)
+    card_head = copy.deepcopy(cpu_model.traversability_head).to(dev)
+    g1, g2 = (head_grads(torch, card_head, captured["input_view"],
+                         captured["exp_svf"], batch, LossManager(cpu_cfg))
+              for _ in range(2))
+    spread = max(float((g1[k] - g2[k]).abs().max()) for k in g1)
+    spread_norm = float(global_norm([g1[k] - g2[k] for k in g1])
+                        / global_norm(list(g1.values())))
+    del card_head
+    iv, svf_ = cpu(captured["input_view"]), cpu(captured["exp_svf"])
+    reward_card = cpu(captured["traversability_preds"])
+    cpu_opt, cpu_sched = optim.make_optimizer(
+        cpu_cfg["optimizer"], cpu_cfg["lr_scheduler"], 2,
+        optim.freeze(cpu_model, lambda p: p.startswith("backbone")))
+    cpu_opt.load_state_dict(opt_before)
+    cpu_sched.load_state_dict(sched_before)
+    cpu_state = TrainState(state.step - 1, cpu_model, cpu_opt, cpu_sched)
+    cpu_lm = LossManager(cpu_cfg)
+    cpu_batch = to_device(batch_np, torch.device("cpu"))
+    head_out = {}
+
+    def forced(b, drop_connect):
+        r = cpu_model.traversability_head.reward(iv)
+        head_out["r"] = r.detach()
+        td = pipelines.merge_tensor_dict(b, {
+            "traversability_preds": r, "input_view": iv, "exp_svf": svf_})
+        ld, meta = cpu_lm(td, {"reward_fn": cpu_model.reward})
+        return LossManager.total(ld), pipelines.loss_metrics(ld, meta)
+
+    cpu_metrics = train_step(cpu_state, forced, cpu_batch, None)
+    _, rel = max_rel(reward_card, head_out["r"])
+    if rel > STAGE_RTOL:
+        fail(f"train-mode reward head: {rel:.3e} > {STAGE_RTOL}")
+    rows_out.append(f"train-mode reward {rel:.3e}")
+    worst = 0.0
+    for k, ref in cpu_metrics.items():
+        _, rel = max_rel(cpu(metrics[k]), ref)
+        tol = MDP_GRAD_RTOL if k == "grad_norm" else MDP_LOSS_RTOL
+        if rel > tol:
+            fail(f"train step {k}: {rel:.3e} > {tol}")
+        if k != "grad_norm":
+            worst = max(worst, rel)
+    _, gn_rel = max_rel(cpu(metrics["grad_norm"]), cpu_metrics["grad_norm"])
+    rows_out.append(f"loss and {len(cpu_metrics) - 2} meta <= {worst:.3e}, "
+                    f"grad_norm {gn_rel:.3e}")
+    named = dict(model.named_parameters())
+    head_params = dict(cpu_model.traversability_head.named_parameters())
+    g_max = max(float(p.grad.abs().max()) for p in head_params.values())
+    grad_tol = TRAIN_GRAD_RTOL * g_max
+    d_max = p_worst = 0.0
+    after_cpu = cpu_model.state_dict()
+    for k, p in head_params.items():
+        key = f"traversability_head.{k}"
+        g = p.grad
+        d_max = max(d_max, float((cpu(named[key].grad) - g).abs().max()))
+        tol = (param_tol(np, g.numpy(), lr, grad_tol / g_max)
+               + 1e-6 * np.abs(after_cpu[key].numpy()) + 1e-9)
+        d = np.abs(cpu(after[key]).numpy() - after_cpu[key].numpy())
+        if not (d <= tol).all():
+            fail(f"post-step {key}: max|d| {float(d.max()):.3e} over the "
+                 "Adam bound")
+        p_worst = max(p_worst, float((d / tol).max()))
+    # controls: faulty gradients on the card, held to the CPU's sound one
+    controls = {}
+    head_before = {k[len("traversability_head."):]: v
+                   for k, v in before.items()
+                   if k.startswith("traversability_head.")}
+    for fault in ("detached_stats", "post_step_penalty"):
+        bad_head = copy.deepcopy(cpu_model.traversability_head).to(dev)
+        bad_head.load_state_dict(head_before)
+        gb = head_grads(torch, bad_head, captured["input_view"],
+                        captured["exp_svf"], batch, LossManager(cpu_cfg),
+                        fault)
+        controls[fault] = max(
+            float((cpu(gb[k]) - p.grad).abs().max())
+            for k, p in head_params.items()) / g_max
+        del bad_head
+    print(f"  reward-head gradient card vs CPU {d_max / g_max:.3e} of its "
+          f"largest entry, bar {TRAIN_GRAD_RTOL}; controls on the card: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in controls.items()),
+          flush=True)
+    if d_max > grad_tol:
+        fail(f"train-step reward-head gradient: max|d| {d_max:.3e} > "
+             f"{TRAIN_GRAD_RTOL} * {g_max:.3e} (the card's own spread "
+             f"{spread:.3e})")
+    # the penalty on post-step statistics moves the gradient less than the
+    # card's own spread, so only the CPU parity test can hold trap 1; its
+    # reading is printed, not gated
+    if controls["detached_stats"] <= TRAIN_GRAD_RTOL:
+        fail(f"the detached_stats control's gradient reads "
+             f"{controls['detached_stats']:.3e}, not above the bar "
+             f"{TRAIN_GRAD_RTOL}: the bar cannot tell it")
+    s_worst = 0.0
+    for k, ref in after_cpu.items():
+        if k.startswith("traversability_head") and "running" in k:
+            _, rel = max_rel(cpu(after[k]), ref)
+            if rel > STAGE_RTOL:
+                fail(f"post-step {k}: {rel:.3e} > {STAGE_RTOL}")
+            s_worst = max(s_worst, rel)
+    rows_out.append(f"reward-head gradient max|d| {d_max / g_max:.3e} of its "
+                    f"largest entry (the card against itself "
+                    f"{spread / g_max:.3e}, norm {spread_norm:.3e}; bound "
+                    f"{TRAIN_GRAD_RTOL}), post-step head parameters <= "
+                    f"{p_worst:.3f} of the Adam bound, post-step head "
+                    f"running statistics <= {s_worst:.3e}")
+    print("phase train step card vs CPU: ok; " + "; ".join(rows_out),
+          flush=True)
+    del cpu_model, cpu_state
+
+    # 12. timing: steps on inputs already on the card, the loop, the profile
+    gens = [step_generator(SEED, i) for i in range(64)]
+    it = iter(range(64))
+
+    def one_step():
+        return step(state, batch, gens[next(it)])
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(torch, one_step, iters=2, reps=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            one_step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    busy_us = union_us([(e.time_range.start, e.time_range.end)
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA])
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"  profile 2 training steps: device busy {busy_us / 1e3:.2f} ms "
+          f"(kernel times summed {dev_us / 1e3:.2f} ms) of "
+          f"{wall_us / 1e3:.2f} ms wall, idle share "
+          f"{max(0.0, 1 - busy_us / wall_us):.3f}; top kernels: "
+          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 2e3:.3f} "
+                      "ms/step" for e in top), flush=True)
+    # the loop's steady state, loader included: the time between the
+    # loop's requests for consecutive batches (the loop logs every step,
+    # which waits for the step)
+    fetched = []
+    loop_loader = EpochLoader(
+        build_dataset(compose_cli("traversability", base + [
+            f"dataset.train.length={LOOP_STEPS * B}"])["dataset"], "train"),
+        B, num_workers=4)
+
+    def timed_epoch(e):
+        for b in loop_loader.epoch(e):
+            fetched.append(time.perf_counter())
+            yield b
+
+    loop_cfg = {"device": dev.type, "max_steps": LOOP_STEPS,
+                "log_every_n_steps": 1, "save_top_k": 0, "verbose": False,
+                "steps_per_epoch": LOOP_STEPS,
+                "ckpt_dir": os.path.join(tmp, "loop")}
+    torch.cuda.synchronize()
+    value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = 0
+    run_training("traversability", cfg["model"], timed_epoch, None,
+                 loop_cfg)
+    torch.cuda.synchronize()
+    train_launches = (value_iteration_cuda.launches,
+                      expected_svf_cuda.launches, rk.msfcn_head_cuda.launches)
+    if train_launches != (LOOP_STEPS, LOOP_STEPS, 0):
+        fail(f"{LOOP_STEPS} training steps without validation launched VI, "
+             f"SVF and the reward-head kernel {train_launches} times")
+    # the whole window after the two warm-up steps, every gap printed
+    gaps = np.diff(fetched)[2:]
+    loop_ms = (fetched[-1] - fetched[2]) / (len(fetched) - 3) * 1e3
+    print(f"phase timing train step: {step_ms:.3f} ms per B={B} training "
+          f"step = {B * 1e3 / step_ms:.2f} samples/s (CUDA events, inputs "
+          f"on the card; the eval objective of this call {objective_ms:.3f} "
+          f"ms, so the training step costs {step_ms / objective_ms:.3f}x); "
+          "the "
+          f"loop's steady state {loop_ms:.1f} ms per step, loader included "
+          f"(the mean over {len(gaps)} steps after warm-up, gaps "
+          + ", ".join(f"{g * 1e3:.1f}" for g in gaps)
+          + f" ms; VI / SVF / reward-head kernel launches "
+          f"{train_launches}); peak device memory {peak:.2f} GiB [{card}]", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"train_steps": LOOP_STEPS, "vi": train_launches[0],
+            "svf": train_launches[1]}
 
 
 def main() -> None:
@@ -899,7 +1426,13 @@ def main() -> None:
 
     # 5-8. the MDP kernels, the stage-3 objective, card vs CPU, timing
     mdp_kernel_checks(torch, dev)
-    mdp_kernels = mdp_path(torch, dev, card)
+    objective_ms, mdp_kernels = mdp_path(torch, dev, card)
+
+    # 9-12. the stage-3 trainer through its entry point
+    train = train_path(torch, dev, card, objective_ms)
+    for k, name in zip(mdp_kernels, ("vi", "svf")):
+        k["train_steps"] = train["train_steps"]
+        k["train_launches"] = train[name]
 
     print(json.dumps({"kernels": [{
         "name": "msfcn_head",

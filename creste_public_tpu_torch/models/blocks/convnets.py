@@ -3,11 +3,14 @@
 Counterpart of ``creste_public_tpu/models/blocks/convnets.py``. Submodules
 carry the flax scope names (``Conv_0``, ``BatchNorm_0``, ``prepool_0``, ...)
 so that ``weights.from_jax_variables`` maps a flax tree by a short rule
-table. Inference only: every BatchNorm uses its running statistics.
+table. Every BatchNorm follows ``nn.Module.train()``/``.eval()``: batch
+statistics with a staged running-stat update in training, the running
+statistics in eval (see ``BatchNorm``).
 """
 from __future__ import annotations
 
-from typing import Any, Sequence
+import contextlib
+from typing import Any, Iterator, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -15,22 +18,86 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """The eval form of the JAX package's ``batch_norm``, over dim 1:
-    ``(x - mean) / sqrt(var + eps) * weight + bias``. eps 1e-5 is its
-    default; the EfficientNet blocks pass 1e-3."""
+    """The JAX package's ``batch_norm`` (flax ``nn.BatchNorm``) over dim 1.
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    eval: ``(x - running_mean) / sqrt(running_var + eps) * weight + bias``.
+    train: normalises with the batch's statistics over every dim but 1,
+    computed as flax computes them (``use_fast_variance``): f32
+    ``E[x]`` and the biased ``E[x^2] - E[x]^2`` clipped at 0, then
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``; the gradient flows
+    through the mean and the variance. The running statistics are not
+    written in the forward: ``momentum * old + (1 - momentum) * batch``
+    (flax's momentum, with the biased variance) is staged, and
+    ``commit_batch_stats`` writes it after the loss and its backward, so
+    that an eval-form call in between (the IRL penalty's reward net) still
+    sees the pre-step statistics, as flax's ``mutable=["batch_stats"]``
+    gives. A second train-mode call before the commit stages on top of the
+    first, as a second flax call in one ``apply`` does.
+
+    eps 1e-5 and momentum 0.9 are flax's defaults; the EfficientNet trunk
+    passes 1e-3 and 0.99.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.staged: tuple[torch.Tensor, torch.Tensor] | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x.float(), self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0,
-                            self.eps).to(x.dtype)
+        if not self.training:
+            return F.batch_norm(x.float(), self.running_mean,
+                                self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps).to(x.dtype)
+        xf = x.float()
+        dims = [0, *range(2, x.dim())]
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            old = self.staged or (self.running_mean, self.running_var)
+            m = self.momentum
+            self.staged = (m * old[0] + (1 - m) * mean,
+                           m * old[1] + (1 - m) * var)
+        return y.to(x.dtype)
+
+
+@torch.no_grad()
+def commit_batch_stats(module: nn.Module) -> None:
+    """Write every BatchNorm's staged running statistics (see
+    ``BatchNorm``) into its buffers."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm) and m.staged is not None:
+            m.running_mean.copy_(m.staged[0])
+            m.running_var.copy_(m.staged[1])
+            m.staged = None
+
+
+def discard_batch_stats(module: nn.Module) -> None:
+    """Drop every BatchNorm's staged running statistics."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.staged = None
+
+
+@contextlib.contextmanager
+def eval_form(module: nn.Module) -> Iterator[nn.Module]:
+    """``module`` in eval mode for the ``with`` block, each submodule's
+    mode restored after it."""
+    modes = [(m, m.training) for m in module.modules()]
+    module.eval()
+    try:
+        yield module
+    finally:
+        for m, training in modes:
+            m.training = training
 
 
 class ConvLayer(nn.Module):

@@ -5,12 +5,18 @@ load-bearing for weight fidelity: the blocks use static "same" padding
 computed for the nominal 224x224 chain, the stem uses the real image size
 (for 512x612 that gives the reference's ds4 map of 128x153). The pads are
 asymmetric, so they are applied with ``F.pad`` before a ``padding=0`` conv.
-EfficientNet BNs use eps 1e-3; decoder BNs the torch default 1e-5.
+EfficientNet BNs use eps 1e-3 and flax momentum 0.99; decoder BNs eps
+1e-5 and momentum 0.9.
+
+In training (``.train()``) the residual blocks apply drop-connect at rate
+``DROP_CONNECT_RATE * idx / n_blocks`` (effnet.py:45,170 of the JAX
+package). The masks come from what the caller passes as ``drop_connect``
+(see ``drop_connect_mask``).
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Callable, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +38,40 @@ B0_STAGES = [
     (1, 3, 1, 6, 192, 320),
 ]
 SE_RATIO = 0.25
+DROP_CONNECT_RATE = 0.2
 _EFF_EPS = 1e-3
+_EFF_MOMENTUM = 0.99
+
+# where a train-mode residual block takes its drop-connect mask from: a CPU
+# torch.Generator or a callable (batch, keep) -> [batch, 1, 1, 1] 0/1 mask;
+# None is allowed only where no mask is drawn (eval mode, or no residual
+# block)
+DropConnect = Union[torch.Generator, Callable[[int, float], torch.Tensor],
+                    None]
+
+
+def drop_connect_mask(source: DropConnect, batch: int, keep: float,
+                      device: torch.device) -> torch.Tensor:
+    """A [batch, 1, 1, 1] f32 mask of 0/1 on ``device``: ``bernoulli(keep)``
+    drawn on the CPU from the generator ``source`` (so that a seed gives
+    the same masks on the card and on the CPU), or what the callable
+    ``source(batch, keep)`` returns (the tests feed masks this way). A
+    ``None`` source raises: masks from torch's global generator could not
+    be replayed on resume."""
+    if source is None:
+        raise ValueError(
+            "a train-mode forward through residual blocks needs a "
+            "drop-connect source (a torch.Generator or a mask callable)")
+    if callable(source):
+        mask = source(batch, keep)
+    else:
+        mask = torch.bernoulli(torch.full((batch, 1, 1, 1), keep),
+                               generator=source)
+    mask = mask.to(torch.float32)
+    if mask.device.type == "cpu" and torch.device(device).type == "cuda":
+        # pinned, so that the copy does not wait for the queued kernels
+        return mask.pin_memory().to(device, non_blocking=True)
+    return mask.to(device)
 
 
 def static_same_pad(in_hw: tuple[int, int], k: int, s: int):
@@ -64,29 +103,34 @@ class PaddedConv2d(nn.Conv2d):
 
 
 class MBConvBlock(nn.Module):
-    """Mobile inverted bottleneck with squeeze-excitation (b0 semantics,
-    inference: no drop-connect)."""
+    """Mobile inverted bottleneck with squeeze-excitation (b0 semantics).
+    A residual block in training drops its branch per sample at
+    ``drop_rate``: ``x * mask / keep`` before the skip add (effnet.py:
+    109-113 of the JAX package)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int,
-                 expand: int, nominal_hw: tuple[int, int]):
+                 expand: int, nominal_hw: tuple[int, int],
+                 drop_rate: float = 0.0):
         super().__init__()
+        self.drop_rate = drop_rate
         c = in_ch * expand
         self.expand = expand != 1
         if self.expand:
             self.expand_conv = nn.Conv2d(in_ch, c, 1, bias=False)
-            self.bn0 = BatchNorm(c, _EFF_EPS)
+            self.bn0 = BatchNorm(c, _EFF_EPS, _EFF_MOMENTUM)
         self.depthwise_conv = PaddedConv2d(
             c, c, kernel, stride, static_same_pad(nominal_hw, kernel, stride),
             groups=c)
-        self.bn1 = BatchNorm(c, _EFF_EPS)
+        self.bn1 = BatchNorm(c, _EFF_EPS, _EFF_MOMENTUM)
         n_sq = max(1, int(in_ch * SE_RATIO))
         self.se_reduce = nn.Conv2d(c, n_sq, 1)
         self.se_expand = nn.Conv2d(n_sq, c, 1)
         self.project_conv = nn.Conv2d(c, out_ch, 1, bias=False)
-        self.bn2 = BatchNorm(out_ch, _EFF_EPS)
+        self.bn2 = BatchNorm(out_ch, _EFF_EPS, _EFF_MOMENTUM)
         self.residual = stride == 1 and in_ch == out_ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                drop_connect: DropConnect = None) -> torch.Tensor:
         inp = x
         if self.expand:
             x = F.silu(self.bn0(self.expand_conv(x)))
@@ -96,6 +140,10 @@ class MBConvBlock(nn.Module):
         x = torch.sigmoid(se) * x
         x = self.bn2(self.project_conv(x))
         if self.residual:
+            if self.training and self.drop_rate > 0:
+                keep = 1.0 - self.drop_rate
+                x = x * drop_connect_mask(drop_connect, x.shape[0], keep,
+                                          x.device) / keep
             x = x + inp
         return x
 
@@ -114,26 +162,28 @@ class EfficientNetB0Trunk(nn.Module):
         super().__init__()
         self.conv_stem = PaddedConv2d(
             in_channels, 32, 3, 2, static_same_pad(tuple(image_size), 3, 2))
-        self.bn0 = BatchNorm(32, _EFF_EPS)
+        self.bn0 = BatchNorm(32, _EFF_EPS, _EFF_MOMENTUM)
         nominal = (112, 112)
+        reps = [rep if stage_repeats is None else min(rep, stage_repeats)
+                for rep, *_ in B0_STAGES]
         self.n_blocks = 0
-        for (rep, k, s, e, cin, cout) in B0_STAGES:
-            if stage_repeats is not None:
-                rep = min(rep, stage_repeats)
+        for rep, (_, k, s, e, cin, cout) in zip(reps, B0_STAGES):
             for r in range(rep):
                 stride = s if r == 0 else 1
                 self.add_module(f"block_{self.n_blocks}", MBConvBlock(
-                    cin if r == 0 else cout, cout, k, stride, e, nominal))
+                    cin if r == 0 else cout, cout, k, stride, e, nominal,
+                    DROP_CONNECT_RATE * self.n_blocks / sum(reps)))
                 self.n_blocks += 1
                 nominal = (math.ceil(nominal[0] / stride),
                            math.ceil(nominal[1] / stride))
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, drop_connect: DropConnect = None
+                ) -> dict[str, torch.Tensor]:
         x = F.silu(self.bn0(self.conv_stem(x)))
         endpoints: dict[str, torch.Tensor] = {}
         prev = x
         for idx in range(self.n_blocks):
-            x = getattr(self, f"block_{idx}")(x)
+            x = getattr(self, f"block_{idx}")(x, drop_connect)
             if prev.shape[2] > x.shape[2]:
                 endpoints[f"reduction_{len(endpoints) + 1}"] = prev
             elif idx == self.n_blocks - 1:
@@ -182,8 +232,8 @@ class EffNet(nn.Module):
             self.add_module(f"up{self.n_up}", Up(C, C))
         self.conv = nn.Conv2d(C, out_channels, 1)
 
-    def forward(self, x: torch.Tensor):
-        endpoints = self.trunk(x)
+    def forward(self, x: torch.Tensor, drop_connect: DropConnect = None):
+        endpoints = self.trunk(x, drop_connect)
         endpoints["reduction_0"] = x
         y = endpoints["reduction_5"]
         for i in range(1, self.n_up + 1):

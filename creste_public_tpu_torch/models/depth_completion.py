@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from creste_public_tpu_torch.models.blocks.convnets import MultiLayerConv
-from creste_public_tpu_torch.models.blocks.effnet import EffNet
+from creste_public_tpu_torch.models.blocks.effnet import DropConnect, EffNet
 from creste_public_tpu_torch.utils import depth as du
 
 
@@ -34,8 +34,9 @@ class VisionEncoder(nn.Module):
             stage_repeats=eff.get("stage_repeats", None),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.effnet(x)[0]
+    def forward(self, x: torch.Tensor,
+                drop_connect: DropConnect = None) -> torch.Tensor:
+        return self.effnet(x, drop_connect)[0]
 
 
 class DepthCompletion(nn.Module):
@@ -49,9 +50,13 @@ class DepthCompletion(nn.Module):
         self.vision_backbone = VisionEncoder(cfg["vision_backbone"])
         self.depth_head = MultiLayerConv(cfg["depth_head"])
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, drop_connect: DropConnect = None
+                ) -> dict[str, torch.Tensor]:
+        """``drop_connect``: the EffNet trunk's mask source in training
+        (``effnet.drop_connect_mask``)."""
         disc = self.cfg["discretize"]
-        feats = self.vision_backbone(x.permute(0, 3, 1, 2).contiguous())
+        feats = self.vision_backbone(x.permute(0, 3, 1, 2).contiguous(),
+                                     drop_connect)
         logits = self.depth_head(feats).permute(0, 2, 3, 1)
         metric_mm = du.metric_depth_from_logits(
             logits, disc["mode"], float(disc["depth_min"]),

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from creste_public_tpu_torch.models.blocks.convnets import MultiLayerConv
+from creste_public_tpu_torch.models.blocks.effnet import DropConnect
 from creste_public_tpu_torch.models.depth_completion import DepthCompletion
 
 
@@ -29,13 +30,15 @@ class DistillationBackbone(nn.Module):
         self.depthcomp = DepthCompletion(cfg)
         self.dino_head = MultiLayerConv(dino_cfg)
 
-    def forward(self, rgbd: torch.Tensor,
-                p2p: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    def forward(self, rgbd: torch.Tensor, p2p: torch.Tensor | None = None,
+                drop_connect: DropConnect = None
+                ) -> dict[str, torch.Tensor]:
         """rgbd [B, V, H, W, 4] (RGB in [0, 1], depth in mm) -> depth_* keys
         of DepthCompletion over B*V frames plus ``dino_pe_feats``
         [B, V, Hs, Ws, D]."""
         B, V, H, W, C = rgbd.shape
-        outputs = dict(self.depthcomp(rgbd.reshape(B * V, H, W, C)))
+        outputs = dict(self.depthcomp(rgbd.reshape(B * V, H, W, C),
+                                      drop_connect))
         feats = outputs["depth_preds_feats"]
         _, Hs, Ws, _ = feats.shape
         dino = self.dino_head(feats.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

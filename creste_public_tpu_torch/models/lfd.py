@@ -17,6 +17,8 @@ from typing import Any
 import torch
 from torch import nn
 
+from creste_public_tpu_torch.models.blocks.convnets import eval_form
+from creste_public_tpu_torch.models.blocks.effnet import DropConnect
 from creste_public_tpu_torch.models.blocks.vin import VIN
 from creste_public_tpu_torch.models.terrainnet import TerrainNet
 from creste_public_tpu_torch.ops.svf import (
@@ -67,8 +69,13 @@ class MaxEntIRL(nn.Module):
                              persistent=False)
 
     def reward(self, input_view: torch.Tensor) -> torch.Tensor:
-        """The VIN reward net, for the IRL gradient penalty."""
-        return self.traversability_head.reward(input_view)
+        """The VIN reward net in its eval form (BatchNorm on the running
+        statistics) whatever the module's mode: the IRL gradient penalty's
+        ``reward_fn`` (``reward(iv, False)`` in the JAX package). In a
+        training step it runs before the step commits the batch
+        statistics, so it sees the pre-step ones."""
+        with eval_form(self.traversability_head) as head:
+            return head.reward(input_view)
 
     def expert_grid(self, expert: torch.Tensor, bev_width: int
                     ) -> torch.Tensor:
@@ -89,13 +96,16 @@ class MaxEntIRL(nn.Module):
         return s0_xy[:, 0] * Wm + s0_xy[:, 1], S[:, -1, 0] * Wm + S[:, -1, 1]
 
     def forward(self, rgbd: torch.Tensor, p2p: torch.Tensor,
-                expert: torch.Tensor | None = None
+                expert: torch.Tensor | None = None,
+                drop_connect: DropConnect = None
                 ) -> dict[str, torch.Tensor]:
         """rgbd [B, N, H, W, 4], p2p [B, N, 4, 4] and, when solving the
         MDP, the expert SE(2) poses [B, T, 3, 3] on the full BEV grid ->
         the merged NHWC dict: traversability_preds [B, 64, 128, 1] at
-        production, plus the policy/value/Q maps and the rollout."""
-        outputs = dict(self.backbone(rgbd, p2p))
+        production, plus the policy/value/Q maps and the rollout.
+        ``drop_connect`` is the EffNet trunk's mask source in training
+        (``effnet.drop_connect_mask``)."""
+        outputs = dict(self.backbone(rgbd, p2p, drop_connect))
         if not self.solve_mdp:
             outputs.update(self.traversability_head(outputs))
             return outputs

@@ -12,6 +12,7 @@ from typing import Any
 import torch
 from torch import nn
 
+from creste_public_tpu_torch.models.blocks.effnet import DropConnect
 from creste_public_tpu_torch.models.blocks.resnet import (
     InpaintingResNet18MultiHead,
 )
@@ -46,12 +47,13 @@ class TerrainNet(nn.Module):
                 tuple(kw["output_prefix"]),
                 kw.get("input_key", "bev_features"))
 
-    def forward(self, rgbd: torch.Tensor,
-                p2p: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, rgbd: torch.Tensor, p2p: torch.Tensor,
+                drop_connect: DropConnect = None
+                ) -> dict[str, torch.Tensor]:
         """rgbd [B, N, H, W, 4], p2p [B, N, 4, 4] -> the merged NHWC dict
         (depth_*, dino_pe_feats, bev_*, inpainting_*, elevation_*)."""
         B, N = rgbd.shape[:2]
-        outputs = dict(self.depthcomp(rgbd, p2p))
+        outputs = dict(self.depthcomp(rgbd, p2p, drop_connect))
         feats = outputs[self.splat_key]
         Hs, Ws, Z = feats.shape[-3:]
         depth = outputs["depth_preds_metric"].reshape(B, N, Hs, Ws)

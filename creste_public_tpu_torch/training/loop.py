@@ -1,0 +1,248 @@
+"""Training loop: epochs, validation, checkpoints, metrics log, profiling.
+
+Counterpart of ``creste_public_tpu/training/loop.py`` on one device. The
+loop moves each host batch to the device, runs the stage's training step
+with a drop-connect generator derived from ``(seed, step)``, logs every
+``log_every_n_steps`` steps and once per epoch to ``ckpt_dir/
+metrics.jsonl`` (the JAX loop's keys), validates in eval mode every
+``check_val_every_n_epoch`` epochs, keeps the top-k checkpoints by
+``monitor_metric``, saves every ``ckpt_every_n_steps`` steps and at the
+end, and traces ``profile_steps`` steps from ``profile_start`` with
+``torch.profiler`` when ``profile_dir`` is set.
+
+Resume (``resume=true``) is position-faithful, as in the JAX loop: the
+epoch and the batches to skip in it follow from the restored step (the
+loaders shuffle with a per-epoch seed), and the per-step generator depends
+only on ``(seed, step)``, so a resumed run replays the batch order and the
+drop-connect masks of an uninterrupted one.
+
+The JAX loop's ``_pad_to_multiple`` pads the last batch to a multiple of
+the mesh's devices; on one device every batch size divides, so the port has
+none. Data parallelism, the stage-2 epoch-scheduled backbone freeze,
+multi-task loaders and validation images are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import math
+import os
+import shutil
+import time
+import warnings
+from collections import defaultdict
+from typing import Any, Callable, Iterable
+
+import numpy as np
+import torch
+
+from creste_public_tpu_torch.losses.manager import LossManager
+from creste_public_tpu_torch.training import checkpoint as ckpt
+from creste_public_tpu_torch.training import pipelines
+from creste_public_tpu_torch.training.state import TrainState
+from creste_public_tpu_torch.utils.device import resolve_device
+from creste_public_tpu_torch.utils.logging import MetricLogger
+
+
+class TopKCheckpoints:
+    """Keeps the ``top_k`` checkpoints best by ``monitor`` (ModelCheckpoint
+    equivalent, train_ssc.py:314-321 of the reference)."""
+
+    def __init__(self, ckpt_dir: str, monitor: str, mode: str = "min",
+                 top_k: int = 5):
+        self.ckpt_dir = ckpt_dir
+        self.monitor = monitor
+        self.sign = 1.0 if mode == "min" else -1.0
+        self.top_k = top_k
+        self.saved: list[tuple[float, str]] = []
+
+    def maybe_save(self, state: TrainState, step: int, metrics: dict) -> None:
+        value = float(metrics.get(self.monitor, math.nan))
+        if math.isnan(value):
+            value = math.inf
+        score = self.sign * value
+        if self.top_k > 0 and len(self.saved) >= self.top_k:
+            if score >= max(self.saved)[0]:
+                return
+        path = ckpt.save_checkpoint(self.ckpt_dir, step, state)
+        self.saved.append((score, path))
+        self.saved.sort()
+        while self.top_k > 0 and len(self.saved) > self.top_k:
+            _, stale = self.saved.pop()
+            shutil.rmtree(stale, ignore_errors=True)
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of the drop-connect masks of step ``step``."""
+    state = np.random.SeedSequence((int(seed), int(step))).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """A host batch (numpy arrays, nested dicts) as tensors on ``device``."""
+    return {k: to_device(v, device) if isinstance(v, dict)
+            else torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def make_eval_step(stage: str, model, loss_manager: LossManager,
+                   task: str | None = None) -> Callable[[dict], dict]:
+    """eval_fn(batch) -> {name: float}: the model in eval mode, the losses
+    with the penalty's eval-form ``reward_fn``, ``loss`` the sum of the
+    weighted losses, then the scalar metadata."""
+
+    def eval_fn(batch: dict) -> dict[str, float]:
+        model.eval()
+        with torch.no_grad():
+            outputs = model(*pipelines.model_inputs(stage, batch))
+        td = pipelines.merge_tensor_dict(batch, outputs, task)
+        loss_dict, meta = loss_manager(td, {"reward_fn": model.reward})
+        metrics = {k: w * v for k, (w, v) in loss_dict.items()}
+        metrics["loss"] = sum(metrics.values())
+        metrics.update({k: v for k, v in meta.items() if v.ndim == 0})
+        return {k: float(v.detach()) for k, v in metrics.items()}
+
+    return eval_fn
+
+
+def run_validation(eval_fn: Callable[[dict], dict], batches: Iterable[dict],
+                   device: torch.device) -> dict[str, float]:
+    """The mean over ``batches`` of each metric of ``eval_fn``."""
+    agg = defaultdict(list)
+    for batch in batches:
+        for k, v in eval_fn(to_device(batch, device)).items():
+            agg[k].append(v)
+    return {k: float(np.mean(v)) for k, v in agg.items()}
+
+
+def run_training(
+    stage: str,
+    cfg: Any,
+    train_data: Iterable | Callable[[int], Iterable],
+    val_data: Callable[[], Iterable] | None = None,
+    trainer_cfg: Any | None = None,
+    task: str | None = None,
+    load_weights: Callable[[TrainState], TrainState] | None = None,
+    frozen_pred: Callable[[str], bool] | None = None,
+) -> TrainState:
+    """Train a stage on ``trainer_cfg["device"]`` (default ``"cuda"``;
+    raises without a card unless ``"cpu"`` is asked for). ``train_data``
+    is an iterable of host batches or an epoch -> iterable factory.
+    Returns the final TrainState."""
+    tcfg = trainer_cfg or {}
+    dev = resolve_device(tcfg.get("device", "cuda"))
+    n_devices = tcfg.get("devices", None)
+    if n_devices is not None and int(n_devices) > 1:
+        raise NotImplementedError("data-parallel training is not ported yet")
+    if int(tcfg.get("freeze_backbone_epochs", 0)) > 0:
+        raise NotImplementedError(
+            "the epoch-scheduled backbone freeze is not ported yet")
+    if tcfg.get("log_val_images", False):
+        raise NotImplementedError("validation images are not ported yet")
+    max_epochs = int(tcfg.get("max_epochs", 1))
+    max_steps = int(tcfg.get("max_steps", -1))
+    log_every = int(tcfg.get("log_every_n_steps", 10))
+    ckpt_dir = tcfg.get("ckpt_dir", "ckpts")
+    val_every = int(tcfg.get("check_val_every_n_epoch", 1))
+    seed = int(tcfg.get("seed", 0))
+
+    factory = train_data if callable(train_data) else (lambda e: train_data)
+    steps_per_epoch = tcfg.get("steps_per_epoch", None)
+    if steps_per_epoch is None:
+        # the LR decays per epoch by step counts, so a wrong default
+        # silently changes the decay's cadence (the CLI always sets this)
+        warnings.warn(
+            "trainer.steps_per_epoch not set; defaulting to 100 — the "
+            "ExponentialLR decay cadence will be wrong unless the real "
+            "loader length is 100 steps/epoch",
+            stacklevel=2,
+        )
+        steps_per_epoch = 100
+    steps_per_epoch = int(steps_per_epoch)
+
+    model, lm, state = pipelines.init_stage(
+        stage, cfg, seed=seed, steps_per_epoch=steps_per_epoch,
+        frozen_pred=frozen_pred, device=dev)
+    if load_weights is not None:
+        state = load_weights(state)
+    step_fn = pipelines.make_train_step(stage, model, lm, task=task)
+    eval_fn = make_eval_step(stage, model, lm, task=task)
+
+    if tcfg.get("resume", False):
+        latest = ckpt.latest_checkpoint(ckpt_dir)
+        if latest is not None:
+            state = ckpt.restore_checkpoint(latest, state)
+            print(f"resumed from {latest} (step {state.step})")
+    start_step = state.step
+
+    topk = TopKCheckpoints(
+        ckpt_dir, tcfg.get("monitor_metric", "loss"),
+        tcfg.get("monitor_mode", "min"), int(tcfg.get("save_top_k", 5)))
+    logger = MetricLogger(os.path.join(ckpt_dir, "metrics.jsonl"),
+                          stdout=bool(tcfg.get("verbose", True)))
+    ckpt_every = int(tcfg.get("ckpt_every_n_steps", 0))
+    profile_dir = tcfg.get("profile_dir", None)
+    profile_start = int(tcfg.get("profile_start", 5))
+    profile_steps = int(tcfg.get("profile_steps", 5))
+    prof = None
+
+    t0 = time.time()
+    for epoch in range(start_step // steps_per_epoch, max_epochs):
+        epoch_metrics = defaultdict(list)
+        batches = iter(factory(epoch))
+        if epoch == start_step // steps_per_epoch:
+            # the batches of the resumed epoch already trained
+            for _ in range(start_step % steps_per_epoch):
+                next(batches, None)
+        for batch in batches:
+            if profile_dir and state.step == profile_start and prof is None:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    *([torch.profiler.ProfilerActivity.CUDA]
+                      if dev.type == "cuda" else [])])
+                prof.start()
+            metrics = step_fn(state, to_device(batch, dev),
+                              step_generator(seed, state.step))
+            if ckpt_every and state.step % ckpt_every == 0:
+                ckpt.save_checkpoint(ckpt_dir, state.step, state)
+            if prof is not None and (
+                    state.step >= profile_start + profile_steps):
+                _stop_profile(prof, profile_dir, dev)
+                prof = None
+                logger.log({"step": state.step, "profile_trace": profile_dir})
+            if state.step % log_every == 0:
+                host = {k: float(v) for k, v in metrics.items()}
+                host.update(step=state.step, epoch=epoch,
+                            wall_s=round(time.time() - t0, 1))
+                logger.log(host)
+            # kept on the device: the epoch summary reads them once
+            for k, v in metrics.items():
+                epoch_metrics[k].append(v)
+            if 0 < max_steps <= state.step:
+                break
+
+        summary = {k: float(torch.stack(v).float().mean())
+                   for k, v in epoch_metrics.items()}
+        summary.update(step=state.step, epoch=epoch, split="train_epoch")
+        logger.log(summary)
+
+        if val_data is not None and (epoch + 1) % val_every == 0:
+            val_metrics = run_validation(eval_fn, list(val_data()), dev)
+            val_metrics.update(step=state.step, epoch=epoch, split="val")
+            logger.log(val_metrics)
+            topk.maybe_save(state, state.step, val_metrics)
+        else:
+            topk.maybe_save(state, state.step, summary)
+        if 0 < max_steps <= state.step:
+            break
+
+    if prof is not None:
+        _stop_profile(prof, profile_dir, dev)
+    ckpt.save_checkpoint(ckpt_dir, state.step, state)
+    return state
+
+
+def _stop_profile(prof, profile_dir: str, dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))

@@ -1,0 +1,78 @@
+"""Cross-stage checkpoint surgery for stage 3: load a previous stage's
+checkpoint into the MaxEntIRL model.
+
+Counterpart of the stage-3 part of
+``creste_public_tpu/training/surgery.py``. A stage-2 TerrainNet IS
+MaxEntIRL's ``backbone`` submodule, so a TerrainNet checkpoint of the port
+grafts in whole under ``backbone.``; a checkpoint of the same stage is
+restored whole, except the subtrees a ``ft_decoders_*`` load setting
+re-initialises. Checkpoints are the port's torch files
+(``training/checkpoint.py``). Freeze policies belong to the optimizer
+(``optim.LOAD_SETTING_FROZEN``), not here.
+"""
+from __future__ import annotations
+
+import os
+from typing import Callable
+
+from creste_public_tpu_torch.training.checkpoint import (
+    STATE_FILE,
+    latest_checkpoint,
+    load_state_file,
+)
+from creste_public_tpu_torch.training.state import TrainState
+
+# stage being trained -> the submodule a previous stage's whole model
+# grafts into
+STAGE_SUBMODULE = {"traversability": "backbone"}
+
+# subtrees a load setting does not restore: the decoder heads fine-tune
+# from their fresh init (terrainnet.py:184-189, :213-218 of the reference)
+LOAD_SETTING_SKIP_RESTORE: dict[str, Callable[[str], bool]] = {
+    "ft_decoders_all": lambda p: "bevclassifier" in p and "head_" in p,
+    "ft_decoders_partial": lambda p: (
+        "bevclassifier" in p and "head_" in p
+        and ("up2" in p or "proj" in p)
+    ),
+}
+
+
+def load_raw_checkpoint(path: str) -> dict:
+    """The model state dict of a step directory, a ``state.pt``, or the
+    latest step of a checkpoint directory."""
+    if os.path.isdir(path) and not os.path.isfile(
+            os.path.join(path, STATE_FILE)):
+        latest = latest_checkpoint(path)
+        if latest is None:
+            raise FileNotFoundError(f"No checkpoints under {path}")
+        path = latest
+    return load_state_file(path)["model"]
+
+
+def _top(keys) -> set[str]:
+    return {k.split(".", 1)[0] for k in keys}
+
+
+def make_stage_loader(stage: str, weights_path: str,
+                      load_setting: str = "strict"
+                      ) -> Callable[[TrainState], TrainState]:
+    """Returns load(state) -> state with the checkpoint at ``weights_path``
+    loaded into ``state.model`` in place."""
+    if stage not in STAGE_SUBMODULE:
+        raise NotImplementedError(f"stage {stage!r} is not ported yet")
+    sub = STAGE_SUBMODULE[stage]
+
+    def load(state: TrainState) -> TrainState:
+        raw = load_raw_checkpoint(weights_path)
+        target = state.model.state_dict()
+        if _top(raw) == _top(target):  # a same-stage checkpoint
+            skip = LOAD_SETTING_SKIP_RESTORE.get(load_setting)
+            if skip is not None:
+                raw = {k: target[k] if skip(k) else v
+                       for k, v in raw.items()}
+            state.model.load_state_dict(raw, strict=True)
+        else:
+            getattr(state.model, sub).load_state_dict(raw, strict=True)
+        return state
+
+    return load

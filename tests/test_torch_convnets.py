@@ -85,7 +85,7 @@ def test_batch_norm_eval_form():
     """Eval BN == (x - mean) / sqrt(var + eps) * scale + bias, with the
     EfficientNet eps 1e-3 as well as the default 1e-5."""
     for eps in (1e-5, 1e-3):
-        bn = tc.BatchNorm(3, eps)
+        bn = tc.BatchNorm(3, eps).eval()
         with torch.no_grad():
             bn.weight.copy_(torch.tensor([1.5, -0.5, 2.0]))
             bn.bias.copy_(torch.tensor([0.1, 0.2, -0.3]))

@@ -156,3 +156,73 @@ def test_mdp_kernels_reject_bad_input(cuda):
     with pytest.raises(ValueError, match="map size"):
         expected_svf_cuda(torch.full((1, 16, 1025, 8), 1 / 8, device=cuda),
                           s[:1], s[:1], 3)
+
+
+def _masks(n_blocks: int, batch: int) -> list[torch.Tensor]:
+    """Fixed drop-connect masks, zeros included, one per residual block."""
+    g = torch.Generator().manual_seed(3)
+    masks = [(torch.rand(batch, 1, 1, 1, generator=g) > 0.3).float()
+             for _ in range(n_blocks)]
+    masks[0][-1] = 0.0
+    return masks
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda):
+    """One stage-3 training step at the tiny preset (residual trunk blocks,
+    so drop-connect fires, with the same fed masks on both sides) on the
+    card against the same step on the CPU: one VI and one SVF launch per
+    step, the backbone's parameters bit unchanged, its running statistics
+    and the loss and metrics as chip_smoke.py holds the card against the
+    CPU (the statistics 1e-3 of their largest entry, STAGE_RTOL; the loss
+    and metrics 1e-2 relative, FRAME_RTOL, since the splat's drift passes
+    through the sharpened policy)."""
+    from creste_public_tpu_torch.config.groups import GROUPS
+    from creste_public_tpu_torch.data.dataloader import (
+        EpochLoader,
+        build_dataset,
+    )
+    from creste_public_tpu_torch.training import pipelines
+    from creste_public_tpu_torch.training.loop import to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = presets.tiny_traversability_config().to_dict()
+    cfg["vision_backbone"]["vision_backbone"]["effnet_cfgs"][
+        "stage_repeats"] = 2
+    loader = EpochLoader(build_dataset(GROUPS["dataset"]["synthetic_tiny"],
+                                       "train"), 2, num_workers=1)
+    batches = list(loader.epoch(0))
+    masks = _masks(5, 2)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        model, lm, state = pipelines.init_stage(
+            "traversability", cfg, steps_per_epoch=2, device=dev)
+        step = pipelines.make_train_step("traversability", model, lm)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        fed = iter(masks * len(batches))
+        launches = []
+        metrics = []
+        for b in batches:
+            value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+            metrics.append(step(state, to_device(b, dev),
+                                lambda batch, keep: next(fed)))
+            launches.append((value_iteration_cuda.launches,
+                             expected_svf_cuda.launches))
+        runs[dev.type] = (before, model.state_dict(), metrics, launches)
+    before, after, metrics, launches = runs["cuda"]
+    c_before, c_after, c_metrics, c_launches = runs["cpu"]
+    assert launches == [(1, 1)] * len(batches)
+    assert c_launches == [(0, 0)] * len(batches)
+    for k, v in before.items():
+        assert torch.equal(v.cpu(), c_before[k]), k
+        if k.startswith("backbone") and "running" not in k:
+            assert torch.equal(after[k], v), k
+        if k.startswith("backbone") and "running" in k:
+            assert not torch.equal(after[k], v), k
+            d = float((after[k].cpu() - c_after[k]).abs().max())
+            assert d <= 1e-3 * float(c_after[k].abs().max()), k
+    for m, cm in zip(metrics, c_metrics):
+        assert m.keys() == cm.keys()
+        for k in cm:
+            torch.testing.assert_close(m[k].cpu(), cm[k], rtol=1e-2,
+                                       atol=1e-6)

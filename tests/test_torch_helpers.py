@@ -43,14 +43,17 @@ def jitter_bn(flat: dict[str, np.ndarray], seed: int = 1
     return out
 
 
-def seeded_variables(module, *args, seed: int = 0) -> dict[str, np.ndarray]:
+def seeded_variables(module, *args, seed: int = 0,
+                     init=None) -> dict[str, np.ndarray]:
     """A flat variable tree for a flax ``module`` with the shapes of its
-    ``init(*args)``, filled from a seeded numpy generator instead of a flax
-    init (an abstract init takes seconds where a concrete one takes a
-    minute): kernels N(0, 1/fan_in), biases 0, BN scale 1, mean 0, var 1."""
+    ``init(*args)`` (or of ``init(rngs, *args)``), filled from a seeded
+    numpy generator instead of a flax init (an abstract init takes seconds
+    where a concrete one takes a minute): kernels N(0, 1/fan_in), biases 0,
+    BN scale 1, mean 0, var 1."""
     import jax
 
-    tree = jax.eval_shape(lambda: module.init(
+    init = init or module.init
+    tree = jax.eval_shape(lambda: init(
         {"params": jax.random.PRNGKey(0)}, *args))
     rng = np.random.default_rng(seed)
     out = {}
