@@ -42,9 +42,30 @@ Phases, each printing one line before the final one:
    path's own inputs with their bounds (SVF also per launch under the
    profiler, and queued behind a sleep at T and at T=1), each stage, and
    the whole objective.
+13. ssc loop (run before phases 9-12): the stage-2 trainer through its
+    entry point, train_ssc.main(trainer=smoke) at the production preset
+    (B=8, 512x612, grid 256, seeded weights) on two training batches and
+    one validation batch of synthetic_ssc (cut from 32 and 8 samples):
+    finite losses, the JAX CLI's metrics keys, no kernel launch (stage 2
+    has no TPU kernel on its path), a step_2 checkpoint that restores.
+14. ssc step card vs CPU at B=2, full resolution, fed drop-connect masks
+    and SupCon priorities: each stage (backbone outputs, splat, each
+    decoder head) on the CPU from the card's input to it, the six losses
+    and their metrics on the card's outputs, and the gradients of the
+    decoder's head_0, the splat's z-MLP and the EfficientNet stem from the
+    same stage input and cotangent, each held to a bar set from the card's
+    own spread (measured first) and capped at SSC_GRAD_CAP, with controls
+    (BN's batch statistics detached) that must read above the stem's and
+    head_0's bars; then every decoder and backbone parameter's gradient in
+    f64 on both sides, per tensor.
+15. ssc timing: ms per B=8 stage-2 training step (CUDA events, inputs on
+    the card), the loop's steady state with its loader, peak memory, and
+    the idle share and top kernels under the profiler over two steps.
 9. train loop: the stage-3 trainer through its entry point,
-   train_traversability.main(trainer=smoke) at the production preset
-   (B=10, 512x612, grid 256, T=50, seeded weights) on two training batches
+   train_traversability.main(trainer=smoke model.weights_path=<the stage-2
+   checkpoints of phase 13>) at the production preset (B=10, 512x612, grid
+   256, T=50, the stage-2 model grafted in as the frozen backbone, checked
+   tensor by tensor) on two training batches
    and one validation batch of the synthetic dataset: finite loss,
    grad_norm and metadata on every logged step, the train, train-epoch and
    val lines of metrics.jsonl, one VI and one SVF launch per step and per
@@ -75,6 +96,7 @@ Any failed phase raises and exits non-zero. Without CUDA it exits 1.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -691,6 +713,20 @@ def detached_stats_forward(torch, bn):
     return forward
 
 
+def f64_forward(torch, bn):
+    """The port's train-mode BatchNorm without its cast to f32, for the
+    f64 runs of the stage-2 gradient check."""
+
+    def forward(x):
+        dims = [0, *range(2, x.dim())]
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+    return forward
+
+
 def head_grads(torch, head, iv, exp_svf, batch: dict, losses,
                fault: str | None = None) -> dict:
     """The reward-head parameter gradient of the stage-3 loss with the
@@ -729,9 +765,481 @@ def head_grads(torch, head, iv, exp_svf, batch: dict, losses,
     return {k: p.grad.detach().clone() for k, p in head.named_parameters()}
 
 
-def train_path(torch, dev, card: str, objective_ms: float) -> dict:
+# the stage-2 trainer through its entry point: the groups it composes and
+# the dataset sizes (two training batches of batch_size, one of val)
+SSC_MODEL = "ssc_sam/terrainnet_supcon_sam2dynelev_jointdinopretrain"
+SSC_DATASET = "synthetic_ssc"
+SSC_VAL_LENGTH = 8
+# the keys of a training line of the JAX package's stage-2 CLI
+# (tests/test_torch_ssc_cli.py holds the port's CLI to them on the CPU)
+SSC_TRAIN_KEYS = frozenset({
+    "CrossEntropy/joint/acc", "CrossEntropy/joint/cls_loss",
+    "CrossEntropyDepth/depth/acc", "CrossEntropyDepth/depth/cls_loss",
+    "MSELoss/loss", "SmoothL1/val", "SmoothL1Depth/depth/reg_loss",
+    "SupPixelConLoss/joint/3d_sam_label/supcon/img_loss",
+    "SupPixelConLoss/joint/3d_sam_label/supcon/sem_loss", "epoch",
+    "grad_norm", "loss", "step", "wall_s"})
+# the stage-2 losses and metrics card vs CPU on the card's outputs: f32
+# sums in another order (SupCon's 2048x2048 logits among them)
+SSC_LOSS_RTOL = 1e-4
+# f32 gradient bars, |d| / |ref| over a group of tensors (the decoder's
+# head_0, the splat's z-MLP, the EfficientNet stem), each from the same
+# stage input and cotangent on both sides: the larger of a floor, 10x the
+# card's spread against itself and 3x its spread under a 1e-6 relative
+# change of the stage's input, and never above SSC_GRAD_CAP (a bar above it
+# could not tell a fault; each group's control, its BatchNorms' batch
+# statistics out of the gradient, must land above its bar). In f32 these
+# train-mode gradients cross ReLU kinks that rounding flips
+# (tests/test_torch_ssc_step.py: up to 8e-2 of a tensor at the tiny
+# preset), so the decoder and the backbone also run in f64 on both sides
+# (the splat keeps f32 constants), every parameter held per tensor to
+# SSC_F64_RTOL of the larger of its largest entry and 1e-2 of its stage's
+# (a bias that a train-mode BatchNorm subtracts out has an exact gradient
+# of 0); that bar is 100x below the f32 readings above, and the H100 read
+# 6.3e-13 for the decoder and 5.5e-7 for the backbone
+SSC_GRAD_FLOOR = 5e-3
+SSC_GRAD_CAP = 5e-2
+SSC_F64_RTOL = 1e-5
+SSC_LOOP_STEPS = 6  # steps of the timed loop (the first two are warm-up)
+SSC_STEM = "depthcomp.depthcomp.vision_backbone.effnet.trunk.conv_stem.weight"
+
+
+def grad_rel(got: dict, want: dict, keys) -> float:
+    """|got - want| / |want| over the tensors ``keys`` together."""
+    num = sum(float(((got[k] - want[k]) ** 2).sum()) for k in keys)
+    return (num / sum(float((want[k] ** 2).sum()) for k in keys)) ** 0.5
+
+
+def tensor_gaps(got: dict, want: dict, keys) -> dict[str, float]:
+    """max|d| of each tensor of ``keys`` over the larger of its reference's
+    largest entry and 1e-2 of the largest of them all."""
+    scale = max(float(want[k].abs().max()) for k in keys)
+    return {k: float((got[k] - want[k]).abs().max())
+            / max(float(want[k].abs().max()), 1e-2 * scale) for k in keys}
+
+
+def ssc_path(torch, dev, card: str) -> str:
+    """Phases 13-15: the stage-2 trainer at the production preset through
+    its entry point (train_ssc.main), one step card vs CPU stage by stage,
+    and the step's timing. Returns the directory of the stage-2
+    checkpoints, which the stage-3 loop grafts from."""
+    import os
+    import tempfile
+
+    from creste_public_tpu_torch import train_ssc
+    from creste_public_tpu_torch.config.groups import compose_cli
+    from creste_public_tpu_torch.data.dataloader import (
+        EpochLoader,
+        build_dataset,
+    )
+    from creste_public_tpu_torch.losses.manager import LossManager
+    from creste_public_tpu_torch.models.blocks.convnets import (
+        BatchNorm,
+        discard_batch_stats,
+    )
+    from creste_public_tpu_torch.models.terrainnet import TerrainNet
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
+    from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
+    from creste_public_tpu_torch.training import checkpoint as ckpt
+    from creste_public_tpu_torch.training import pipelines
+    from creste_public_tpu_torch.training.loop import (
+        run_training,
+        step_generator,
+        to_device,
+    )
+
+    def cpu(t):
+        return t.detach().cpu()
+
+    def kernel_launches():
+        return (value_iteration_cuda.launches, expected_svf_cuda.launches,
+                rk.msfcn_head_cuda.launches)
+
+    # 13. the entry point: trainer=smoke (2 steps), validation, checkpoints
+    base = [f"model={SSC_MODEL}", f"dataset={SSC_DATASET}"]
+    cfg = compose_cli("ssc_sam", base)
+    B = int(cfg["model"]["batch_size"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ssc_")
+    ckpt_dir = os.path.join(tmp, "smoke")
+    argv = ["trainer=smoke", *base, f"dataset.train.length={2 * B}",
+            f"dataset.val.length={SSC_VAL_LENGTH}",
+            f"trainer.ckpt_dir={ckpt_dir}", "trainer.verbose=false"]
+    torch.cuda.synchronize()
+    value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = 0
+    t0 = time.perf_counter()
+    state = train_ssc.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = kernel_launches()
+    rows = [json.loads(line) for line in open(os.path.join(
+        ckpt_dir, "metrics.jsonl"))]
+    train_rows = [r for r in rows if "split" not in r]
+    splits = [r.get("split") for r in rows]
+    if state.step != 2 or [r["step"] for r in train_rows] != [1, 2] or \
+            splits != [None, None, "train_epoch", "val"]:
+        fail(f"train_ssc ran {state.step} steps and logged {splits}")
+    for r in train_rows:
+        if set(r) != SSC_TRAIN_KEYS:
+            fail(f"a stage-2 training line has the keys {sorted(r)}, not "
+                 "the JAX CLI's")
+    for r in rows:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not np.isfinite(v)]
+        if bad:
+            fail(f"stage-2 metrics.jsonl line {r} has non-finite {bad}")
+    if launches != (0, 0, 0):
+        fail(f"stage 2 launched the VI, SVF and reward-head kernels "
+             f"{launches} times: its path has no kernel")
+    path = ckpt.latest_checkpoint(ckpt_dir)
+    if path is None or os.path.basename(path) != "step_2":
+        fail(f"the latest stage-2 checkpoint is {path}")
+    _, _, fresh = pipelines.init_stage("ssc", cfg["model"], seed=SEED + 1,
+                                       device=dev)
+    ckpt.restore_checkpoint(path, fresh)
+    sd = state.model.state_dict()
+    if fresh.step != 2 or any(not torch.equal(v, sd[k]) for k, v in
+                              fresh.model.state_dict().items()):
+        fail("the stage-2 step_2 checkpoint does not restore the model")
+    print(f"phase ssc loop: ok, train_ssc.main(trainer=smoke) at B={B} ran "
+          f"{state.step} steps + 1 validation batch in {run_s:.1f} s (data, "
+          f"init, checkpoints included); kernel launches {launches} (none on "
+          "this path); the JAX CLI's keys; losses "
+          + ", ".join(f"{r['loss']:.6e}" for r in train_rows)
+          + "; grad_norm " + ", ".join(f"{r['grad_norm']:.4e}"
+                                       for r in train_rows)
+          + f"; val loss {rows[-1]['loss']:.6e}; step_2 restores into a "
+          "fresh model", flush=True)
+    del fresh, state
+
+    # 14. one step card vs CPU at B=2, each stage from the same input, with
+    # fed drop-connect masks and SupCon priorities
+    model, lm, state = pipelines.init_stage(
+        "ssc", cfg["model"], seed=SEED, steps_per_epoch=2, device=dev)
+    loader = EpochLoader(build_dataset(cfg["dataset"], "train"), B,
+                         num_workers=4)
+    batch_np = next(iter(loader.epoch(5)))
+    keys2 = ("image", "p2p", "mv_mask", "depth_label", "fimg_label",
+             "fov_mask", "3d_sam_label", "3d_sam_dynamic_label",
+             "elevation_label")
+    b2c = {k: torch.as_tensor(batch_np[k][:2]) for k in keys2}
+    b2 = {k: v.to(dev) for k, v in b2c.items()}
+    cpu_cfg = cfg["model"].to_dict()
+    cpu_model = TerrainNet(cpu_cfg)
+    cpu_model.load_state_dict({k: cpu(v) for k, v in
+                               model.state_dict().items()}, strict=True)
+    cpu_lm = LossManager(cpu_cfg)
+    pri = torch.rand(b2c["3d_sam_label"].numel(),
+                     generator=torch.Generator().manual_seed(SEED + 9))
+    masks = FedMasks(torch, 64, 2)
+    model.train()
+    cpu_model.train()
+    rows_out = []
+
+    def backbone_run(m, image, p2p):
+        masks.calls = 0
+        out = m.depthcomp(image, p2p, drop_connect=masks)
+        discard_batch_stats(m)
+        return out
+
+    # the CPU: every stage from the card's input to it, the losses on the
+    # card's outputs, and the cotangents each stage's gradient needs
+    dc = backbone_run(model, b2["image"], b2["p2p"])
+    dc_cpu = backbone_run(cpu_model, b2c["image"], b2c["p2p"])
+    Hs, Ws = dc["depth_preds_metric"].shape[1:]
+    Z = dc["depth_preds_feats"].shape[-1]
+
+    def splat_in(d):
+        depth = cpu(d["depth_preds_metric"]).reshape(2, 1, Hs, Ws)
+        feats = cpu(d["depth_preds_feats"]).reshape(2, 1, Hs, Ws, Z)
+        return depth.requires_grad_(True), feats.requires_grad_(True)
+
+    with torch.no_grad():
+        sp = model.cam2map(*(t.to(dev) for t in splat_in(dc)), b2["p2p"])
+        dec = model.bevclassifier(sp)
+    depth_c, feats_c = splat_in(dc)
+    sp_cpu = cpu_model.cam2map(depth_c, feats_c, b2c["p2p"])
+    discard_batch_stats(cpu_model)
+    bev_c = cpu(sp["bev_features"]).requires_grad_(True)
+    dec_cpu = cpu_model.bevclassifier({"bev_features": bev_c})
+    discard_batch_stats(cpu_model)
+    heads = [k for k in dec_cpu if k.endswith("_preds")]
+    maps = ([(f"backbone {k}", dc[k], dc_cpu[k]) for k in
+             ("depth_preds_logits", "depth_preds_metric",
+              "depth_preds_feats", "dino_pe_feats")]
+            + [(f"splat {k}", sp[k], sp_cpu[k])
+               for k in ("bev_features", "bev_densities")]
+            + [(f"decoder {k}", dec[k], dec_cpu[k]) for k in heads])
+    worst = 0.0
+    for name, got, ref in maps:
+        _, rel = max_rel(cpu(got), ref.detach())
+        if rel > STAGE_RTOL:
+            fail(f"stage-2 train-mode stage {name}: {rel:.3e} > "
+                 f"{STAGE_RTOL}")
+        worst = max(worst, rel)
+    rows_out.append(f"{len(maps)} train-mode maps <= {worst:.3e}")
+    # the six losses on the card's outputs
+    outs = dict(dc, **sp, **dec)
+    loss_in = [*heads, "depth_preds_logits", "depth_preds_metric",
+               "dino_pe_feats"]
+    leaves = {k: cpu(outs[k]).requires_grad_(True) for k in loss_in}
+    td_cpu = pipelines.merge_tensor_dict(
+        b2c, dict({k: cpu(v) for k, v in outs.items()}, **leaves), "joint")
+    ld_cpu, meta_cpu = cpu_lm(td_cpu, {"rng": pri})
+    with torch.no_grad():
+        ld, meta = lm(pipelines.merge_tensor_dict(b2, outs, "joint"),
+                      {"rng": pri})
+    got_m = pipelines.loss_metrics(ld, meta)
+    want_m = pipelines.loss_metrics(ld_cpu, meta_cpu)
+    if got_m.keys() != want_m.keys() or len(ld) != 7:
+        fail(f"stage-2 losses {sorted(got_m)} against {sorted(want_m)}")
+    worst = 0.0
+    for k, ref in want_m.items():
+        _, rel = max_rel(cpu(got_m[k]), ref.detach())
+        if rel > SSC_LOSS_RTOL:
+            fail(f"stage-2 loss {k}: {rel:.3e} > {SSC_LOSS_RTOL}")
+        worst = max(worst, rel)
+    rows_out.append(f"{len(ld)} losses and {len(meta)} metrics <= "
+                    f"{worst:.3e}")
+    cot = dict(zip(loss_in, torch.autograd.grad(
+        LossManager.total(ld_cpu), list(leaves.values()))))
+
+    def stage_grads(m, stage, inputs, cots, keys):
+        """The gradients of ``keys`` from one stage's backward of ``cots``;
+        ``inputs`` are that stage's inputs on m's device."""
+        m.zero_grad(set_to_none=True)
+        if stage == "decoder":
+            out = m.bevclassifier({"bev_features": inputs[0]})
+        elif stage == "splat":
+            out = m.cam2map(inputs[0], inputs[1], inputs[2])
+        else:
+            out = backbone_run(m, inputs[0], inputs[1])
+        discard_batch_stats(m)
+        d = inputs[0].device
+        torch.autograd.backward([out[k] for k in cots],
+                                [c.to(d) for c in cots.values()])
+        named = dict(m.named_parameters())
+        return {k: cpu(named[k].grad) for k in keys}
+
+    named_keys = [k for k, _ in model.named_parameters()]
+    head_keys = [k for k in named_keys
+                 if k.startswith("bevclassifier.head_0.")]
+    zproj_keys = [k for k in named_keys if k.startswith("cam2map.z_proj.")]
+    bb_keys = [k for k in named_keys if k.startswith("depthcomp.")]
+    # decoder: the card's BEV input, the CPU's cotangent
+    dec_cots = {k: cot[k] for k in heads}
+    g_dec_cpu = stage_grads(cpu_model, "decoder", [bev_c], dec_cots,
+                            head_keys)
+    cot_bev = bev_c.grad.clone()
+    def nudged(t):
+        """``t`` changed by 1e-6 of itself, a fresh leaf."""
+        noise = torch.randn(t.shape, generator=torch.Generator().manual_seed(
+            SEED + 3)).to(t.device)
+        return (t.detach() * (1 + 1e-6 * noise)).requires_grad_(
+            t.requires_grad)
+
+    bev_d = sp["bev_features"].detach().requires_grad_(True)
+    g_dec = [stage_grads(model, "decoder", [x], dec_cots, head_keys)
+             for x in (bev_d, bev_d, nudged(bev_d))]
+    # splat: the card's depth and features, the CPU's cotangent at the BEV
+    g_sp_cpu = stage_grads(cpu_model, "splat", [depth_c, feats_c,
+                                                b2c["p2p"]],
+                           {"bev_features": cot_bev}, zproj_keys)
+    cot_depth = depth_c.grad.reshape(2, Hs, Ws).clone()
+    cot_feats = feats_c.grad.reshape(2, Hs, Ws, Z).clone()
+    sp_in = [t.detach().to(dev).requires_grad_(True)
+             for t in (depth_c, feats_c)]
+    g_sp = [stage_grads(model, "splat", [*x, b2["p2p"]],
+                        {"bev_features": cot_bev}, zproj_keys)
+            for x in (sp_in, sp_in, [nudged(t) for t in sp_in])]
+    # backbone: the image, the cotangents at its four outputs
+    bb_cots = {"depth_preds_logits": cot["depth_preds_logits"],
+               "depth_preds_metric": cot["depth_preds_metric"] + cot_depth,
+               "depth_preds_feats": cot_feats,
+               "dino_pe_feats": cot["dino_pe_feats"]}
+    g_bb_cpu = stage_grads(cpu_model, "backbone", [b2c["image"],
+                                                   b2c["p2p"]],
+                           bb_cots, bb_keys)
+    g_bb = [stage_grads(model, "backbone", [x, b2["p2p"]], bb_cots,
+                        bb_keys)
+            for x in (b2["image"], b2["image"], nudged(b2["image"]))]
+    # the controls: BN's batch statistics taken out of the backbone's and
+    # the decoder's gradients
+    def detached(m, on: bool):
+        for bn in m.modules():
+            if isinstance(bn, BatchNorm):
+                if on:
+                    bn.forward = detached_stats_forward(torch, bn)
+                else:
+                    del bn.forward
+
+    detached(model.depthcomp, True)
+    g_ctl = stage_grads(model, "backbone", [b2["image"], b2["p2p"]],
+                        bb_cots, bb_keys)
+    detached(model.depthcomp, False)
+    detached(model.bevclassifier, True)
+    g_dec_ctl = stage_grads(model, "decoder", [bev_d], dec_cots, head_keys)
+    detached(model.bevclassifier, False)
+    checks = {}
+    for name, g_cards, ref, keys in (
+            ("decoder head_0", g_dec, g_dec_cpu, head_keys),
+            ("splat z_proj", g_sp, g_sp_cpu, zproj_keys),
+            ("EfficientNet stem", g_bb, g_bb_cpu, [SSC_STEM])):
+        same = grad_rel(g_cards[1], g_cards[0], keys)
+        nudge = grad_rel(g_cards[2], g_cards[0], keys)
+        worst = max(tensor_gaps(g_cards[0], ref, keys).items(),
+                    key=lambda kv: kv[1])
+        checks[name] = (grad_rel(g_cards[0], ref, keys), same, nudge,
+                        max(SSC_GRAD_FLOOR, 10 * same, 3 * nudge),
+                        grad_rel(g_cards[2], ref, keys), worst)
+    controls = {"decoder head_0": grad_rel(g_dec_ctl, g_dec_cpu, head_keys),
+                "EfficientNet stem": grad_rel(g_ctl, g_bb_cpu, [SSC_STEM])}
+    print("  stage-2 f32 gradients card vs CPU, |d| / |ref| over the "
+          "tensors: " + "; ".join(
+              f"{k} {d:.3e} (the card against itself {s_:.3e}, under a 1e-6 "
+              f"change of the stage's input {n:.3e}, the changed input "
+              f"against the CPU {nc:.3e}; bar {b:.3e}; the largest tensor "
+              f"gap {w[1]:.3e} in {w[0]})"
+              for k, (d, s_, n, b, nc, w) in checks.items())
+          + "; controls, BN's batch statistics detached: " + ", ".join(
+              f"{k} {c:.3e}" for k, c in controls.items()), flush=True)
+    for k, (d, _, n, bar, _, _) in checks.items():
+        if bar > SSC_GRAD_CAP:
+            fail(f"stage-2 gradient of the {k}: the card's own spread "
+                 f"({n:.3e} under a 1e-6 change) puts its bar at "
+                 f"{bar:.3e}, above {SSC_GRAD_CAP}")
+        if d > bar:
+            fail(f"stage-2 gradient of the {k}: {d:.3e} > {bar:.3e}")
+    for k, c in controls.items():
+        if c <= checks[k][3]:
+            fail(f"the stage-2 control of the {k} reads {c:.3e}, not above "
+                 f"its bar {checks[k][3]:.3e}")
+    rows_out.append("decoder head_0, splat z_proj and EfficientNet stem "
+                    "f32 gradients within their bars (each <= "
+                    f"{SSC_GRAD_CAP}); both controls above theirs")
+    del g_bb, g_ctl
+
+    # every parameter's gradient of the decoder and the backbone in f64,
+    # card vs CPU
+    def f64_model(d):
+        m = TerrainNet(cpu_cfg)
+        m.load_state_dict(cpu_model.state_dict(), strict=True)
+        m.double().to(d).train()
+        for bn in m.modules():
+            if isinstance(bn, BatchNorm):
+                bn.forward = f64_forward(torch, bn)
+        return m
+
+    def leaf64(t, d):
+        return t.detach().to(d, torch.float64).requires_grad_(True)
+
+    def cots64(c):
+        return {k: v.double() for k, v in c.items()}
+
+    stage_keys = {"decoder": [k for k in named_keys
+                              if k.startswith("bevclassifier.")],
+                  "backbone": bb_keys}
+    g64 = {}
+    for d in (torch.device("cpu"), dev):
+        m64 = f64_model(d)
+        p2p = b2c["p2p"].to(d, torch.float64)
+        g64[d.type] = {
+            **stage_grads(m64, "decoder", [leaf64(bev_c, d)],
+                          cots64(dec_cots), stage_keys["decoder"]),
+            **stage_grads(m64, "backbone",
+                          [b2c["image"].to(d, torch.float64), p2p],
+                          cots64(bb_cots), stage_keys["backbone"])}
+        del m64
+    worst64 = {stage: max(tensor_gaps(g64[dev.type], g64["cpu"],
+                                      keys).items(), key=lambda kv: kv[1])
+               for stage, keys in stage_keys.items()}
+    print("  stage-2 f64 gradients card vs CPU, every parameter, largest "
+          "tensor gap: " + "; ".join(f"{st} {w[1]:.3e} ({w[0]})"
+                                     for st, w in worst64.items()),
+          flush=True)
+    for st, (k, d) in worst64.items():
+        if d > SSC_F64_RTOL:
+            fail(f"stage-2 f64 gradient of {k}: {d:.3e} > {SSC_F64_RTOL}")
+    worst = max(w[1] for w in worst64.values())
+    rows_out.append(f"{sum(map(len, stage_keys.values()))} parameter "
+                    f"gradients in f64 <= {worst:.3e}")
+    print("phase ssc step card vs CPU: ok, B=2 at full resolution; "
+          + "; ".join(rows_out), flush=True)
+    del cpu_model, g_bb_cpu, g64
+
+    # 15. timing: steps on inputs already on the card, the loop, the profile
+    step = pipelines.make_train_step("ssc", model, lm, task="joint")
+    batch = to_device({k: batch_np[k] for k in keys2}, dev)
+    gens = [step_generator(SEED, i) for i in range(64)]
+    it = iter(range(64))
+
+    def one_step():
+        return step(state, batch, gens[next(it)])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(torch, one_step, iters=2, reps=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            one_step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    busy_us = union_us([(e.time_range.start, e.time_range.end)
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA])
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"  profile 2 stage-2 steps: device busy {busy_us / 1e3:.2f} ms "
+          f"(kernel times summed {dev_us / 1e3:.2f} ms) of "
+          f"{wall_us / 1e3:.2f} ms wall, idle share "
+          f"{max(0.0, 1 - busy_us / wall_us):.3f}; top kernels: "
+          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 2e3:.3f} "
+                      "ms/step" for e in top), flush=True)
+    fetched = []
+    loop_loader = EpochLoader(
+        build_dataset(compose_cli("ssc_sam", base + [
+            f"dataset.train.length={SSC_LOOP_STEPS * B}"])["dataset"],
+            "train"), B, num_workers=4)
+
+    def timed_epoch(e):
+        for b in loop_loader.epoch(e):
+            fetched.append(time.perf_counter())
+            yield b
+
+    loop_cfg = {"device": dev.type, "max_steps": SSC_LOOP_STEPS,
+                "log_every_n_steps": 1, "save_top_k": 0, "verbose": False,
+                "steps_per_epoch": SSC_LOOP_STEPS,
+                "ckpt_dir": os.path.join(tmp, "loop")}
+    torch.cuda.synchronize()
+    run_training("ssc", cfg["model"], timed_epoch, None, loop_cfg,
+                 task="joint")
+    torch.cuda.synchronize()
+    gaps_s = np.diff(fetched)[2:]
+    loop_ms = (fetched[-1] - fetched[2]) / (len(fetched) - 3) * 1e3
+    print(f"phase timing ssc step: {step_ms:.3f} ms per B={B} stage-2 "
+          f"training step = {B * 1e3 / step_ms:.2f} samples/s (CUDA events, "
+          "inputs on the card, f32, TF32 off); the loop's steady state "
+          f"{loop_ms:.1f} ms per step, loader included (the mean over "
+          f"{len(gaps_s)} steps after warm-up, gaps "
+          + ", ".join(f"{g * 1e3:.1f}" for g in gaps_s)
+          + f" ms); peak device memory {peak:.2f} GiB [{card}]", flush=True)
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return ckpt_dir
+
+
+def train_path(torch, dev, card: str, objective_ms: float,
+               ssc_dir: str) -> dict:
     """Phases 9-12: the stage-3 trainer at the production preset through
-    its entry point (train_traversability.main), one step's invariants, the
+    its entry point (train_traversability.main) from the stage-2
+    checkpoints in ``ssc_dir`` (the 2->3 graft), one step's invariants, the
     step card vs CPU stage by stage, and the step's timing. Returns the
     VI and SVF launches of the timed loop's training steps, counted with no
     validation in the run."""
@@ -779,7 +1287,7 @@ def train_path(torch, dev, card: str, objective_ms: float) -> dict:
     ckpt_dir = os.path.join(tmp, "smoke")
     argv = ["trainer=smoke", *base, f"dataset.train.length={2 * B}",
             f"dataset.val.length={VAL_LENGTH}", f"trainer.ckpt_dir={ckpt_dir}",
-            "trainer.verbose=false"]
+            "trainer.verbose=false", f"model.weights_path={ssc_dir}"]
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     value_iteration_cuda.launches = expected_svf_cuda.launches = 0
@@ -813,6 +1321,14 @@ def train_path(torch, dev, card: str, objective_ms: float) -> dict:
     path = ckpt.latest_checkpoint(ckpt_dir)
     if path is None or os.path.basename(path) != "step_2":
         fail(f"the latest checkpoint is {path}")
+    # the graft: the frozen backbone is the stage-2 model, parameter by
+    # parameter (its running statistics moved with the steps)
+    stage2 = ckpt.load_state_file(ckpt.latest_checkpoint(ssc_dir))["model"]
+    sd = state.model.state_dict()
+    grafted = [k for k, v in stage2.items() if "running" not in k]
+    if any(not torch.equal(sd[f"backbone.{k}"].cpu(), stage2[k].cpu())
+           for k in grafted):
+        fail("the stage-3 backbone is not the stage-2 checkpoint's model")
     _, _, fresh = pipelines.init_stage("traversability", cfg["model"],
                                        seed=SEED + 1, device=dev)
     ckpt.restore_checkpoint(path, fresh)
@@ -828,7 +1344,8 @@ def train_path(torch, dev, card: str, objective_ms: float) -> dict:
           + "; grad_norm " + ", ".join(f"{r['grad_norm']:.4e}"
                                        for r in train_rows)
           + f"; val loss {rows[-1]['loss']:.6e}; {os.path.basename(path)} "
-          "restores into a fresh model", flush=True)
+          f"restores into a fresh model; the backbone is the stage-2 "
+          f"checkpoint's ({len(grafted)} tensors grafted)", flush=True)
     del fresh, state
 
     # 10. one step's invariants from a known state: the seeded weights and
@@ -1428,8 +1945,13 @@ def main() -> None:
     mdp_kernel_checks(torch, dev)
     objective_ms, mdp_kernels = mdp_path(torch, dev, card)
 
-    # 9-12. the stage-3 trainer through its entry point
-    train = train_path(torch, dev, card, objective_ms)
+    # 13-15. the stage-2 trainer through its entry point, whose checkpoint
+    # the stage-3 trainer (9-12) then grafts from
+    import shutil
+
+    ssc_dir = ssc_path(torch, dev, card)
+    train = train_path(torch, dev, card, objective_ms, ssc_dir)
+    shutil.rmtree(os.path.dirname(ssc_dir), ignore_errors=True)
     for k, name in zip(mdp_kernels, ("vi", "svf")):
         k["train_steps"] = train["train_steps"]
         k["train_launches"] = train[name]

@@ -1,13 +1,16 @@
-"""The config groups the stage-3 command composes, as plain dicts, and the
-hydra-style composition over them.
+"""The config groups the stage-2 and stage-3 commands compose, as plain
+dicts, and the hydra-style composition over them.
 
 Copies of the JAX package's ``configs/`` YAML files (the port and the
-card's machine have no YAML): the root ``traversability.yaml``,
+card's machine have no YAML): the roots ``ssc_sam.yaml`` and
+``traversability.yaml``,
+``model/ssc_sam/{terrainnet_supcon_sam2dynelev_jointdinopretrain,tiny}``,
 ``model/traversability/{terrainnet_maxentirlcf_msfcn_sam2dynsemelev,tiny}``,
 ``trainer/{smoke,standard,standard_single}`` and
-``dataset/{synthetic_traversability,synthetic_tiny}``. The two model files
-are the presets (``presets.traversability_model_config`` at its published
-shapes, and at the tiny shapes with the full trunk and ``batch_size`` 2).
+``dataset/{synthetic_ssc,synthetic_traversability,synthetic_tiny}``. The
+model files are the presets (``presets.terrainnet_model_config`` and
+``presets.traversability_model_config`` at their published shapes, and at
+the tiny shapes with the full trunk and ``batch_size`` 2).
 ``compose_cli`` is ``config.compose_cli`` of the JAX package over these
 dicts.
 """
@@ -24,11 +27,13 @@ from creste_public_tpu_torch.config.config import (
 )
 
 
-def _tiny_traversability() -> dict:
-    cfg = presets.traversability_model_config(
-        grid=32, map_range=1.6, map_ds=2, action_horizon=10,
-        inpainting_sam_dim=8, num_obj_class=6, z_embed_dim=8,
-        bev_feat_dim=16, **presets.tiny_kwargs()).to_dict()
+_TINY_BEV = dict(grid=32, map_range=1.6, inpainting_sam_dim=8,
+                 num_obj_class=6, z_embed_dim=8, bev_feat_dim=16,
+                 **presets.tiny_kwargs())
+
+
+def _tiny(make_config, **kw) -> dict:
+    cfg = make_config(**_TINY_BEV, **kw).to_dict()
     cfg["batch_size"] = 2
     return cfg
 
@@ -49,6 +54,17 @@ def _synthetic(train_length: int, val_length: int, **shape) -> dict:
 
 
 ROOTS = {
+    "ssc_sam": {
+        "defaults": [
+            {"dataset": "synthetic_ssc"},
+            {"model": "ssc_sam/"
+                      "terrainnet_supcon_sam2dynelev_jointdinopretrain"},
+            {"trainer": "standard"},
+            "_self_",
+        ],
+        "stage": "ssc",
+        "task": "joint",
+    },
     "traversability": {
         "defaults": [
             {"dataset": "synthetic_traversability"},
@@ -64,6 +80,9 @@ ROOTS = {
 
 GROUPS = {
     "dataset": {
+        "synthetic_ssc": _synthetic(
+            32, 8, image_size=[512, 612], ds=4, fdn_dim=128, grid=256,
+            map_range=12.8),
         "synthetic_traversability": _synthetic(
             32, 8, image_size=[512, 612], ds=4, fdn_dim=128, grid=256,
             map_range=12.8, horizon=50),
@@ -72,9 +91,13 @@ GROUPS = {
             map_range=1.6, horizon=10),
     },
     "model": {
+        "ssc_sam/terrainnet_supcon_sam2dynelev_jointdinopretrain":
+            presets.terrainnet_model_config().to_dict(),
+        "ssc_sam/tiny": _tiny(presets.terrainnet_model_config),
         "traversability/terrainnet_maxentirlcf_msfcn_sam2dynsemelev":
             presets.traversability_model_config().to_dict(),
-        "traversability/tiny": _tiny_traversability(),
+        "traversability/tiny": _tiny(presets.traversability_model_config,
+                                     map_ds=2, action_horizon=10),
     },
     "trainer": {
         "smoke": _trainer(max_epochs=1, max_steps=2, log_every_n_steps=1,

@@ -1,26 +1,89 @@
-"""Config-driven loss registry (LossManager) with the stage-3 MaxEnt-IRL loss.
+"""Config-driven loss registry (LossManager) with the stage-2 losses and
+the stage-3 MaxEnt-IRL loss.
 
-Counterpart of ``creste_public_tpu/losses/manager.py`` (``Loss``,
-``MaxEntIRLLoss``, ``LossManager``). Losses read predictions, labels and
-masks from the merged dict keyed ``inputs/...`` / ``outputs/...`` and return
-``{name: (weight, value)}`` plus a metadata dict. All maps are NHWC. The
-other losses of the JAX registry are not ported yet: asking for one raises
+Counterpart of ``creste_public_tpu/losses/manager.py`` (``Loss``, the
+depth, regression, distillation, BEV cross-entropy and SAM-contrastive
+losses of stage 2, ``MaxEntIRLLoss``, ``LossManager``). Losses read
+predictions, labels and masks from the merged dict keyed ``inputs/...`` /
+``outputs/...`` and return ``{name: (weight, value)}`` plus a metadata
+dict, under the JAX package's keys. All maps are NHWC. The other losses of
+the JAX registry are not ported yet: asking for one raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
+from creste_public_tpu_torch.losses.supcon import (
+    capped_class_sample,
+    multi_pos_con_loss,
+    remap_labels_per_batch,
+)
 from creste_public_tpu_torch.ops.rasterize import rasterize_trajectory
-from creste_public_tpu_torch.utils.imageops import resize_and_crop
+from creste_public_tpu_torch.utils import depth as du
+from creste_public_tpu_torch.utils.imageops import (
+    resize_and_crop,
+    resize_nearest,
+)
 
 # losses of the JAX package's registry that the port does not have yet
-_NOT_PORTED = ("CrossEntropyDepth", "SmoothL1Depth", "SmoothL1", "MSELoss",
-               "PEFreeMSELoss", "CrossEntropy", "FocalLoss", "SupPixelConLoss",
-               "BCActionLoss", "TREXLoss", "BalancedContrastiveLoss",
-               "VicregLoss")
+_NOT_PORTED = ("PEFreeMSELoss", "FocalLoss", "BCActionLoss", "TREXLoss",
+               "BalancedContrastiveLoss", "VicregLoss")
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    m = mask.to(x.dtype)
+    return (x * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
+              beta: float) -> torch.Tensor:
+    d = (pred - target).abs()
+    return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
+
+
+def load_class_weights(path: str, epsilon_w: float = 1e-5) -> torch.Tensor:
+    freq = np.loadtxt(path)
+    return torch.from_numpy(
+        (1.0 / np.log(freq + epsilon_w)).astype(np.float32))
+
+
+def _gradient(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.gradient`` along ``dim`` at unit spacing: central differences
+    inside, one-sided ones at the two edges."""
+    n = x.shape[dim]
+    inner = (x.narrow(dim, 2, n - 2) - x.narrow(dim, 0, n - 2)) * 0.5
+    return torch.cat([x.narrow(dim, 1, 1) - x.narrow(dim, 0, 1), inner,
+                      x.narrow(dim, n - 1, 1) - x.narrow(dim, n - 2, 1)],
+                     dim=dim)
+
+
+def _gt_mode(gt: torch.Tensor, class_dim: int,
+             epsilon_w: float = 1e-5) -> torch.Tensor:
+    """[B, H, W, C] label tensor -> [B, H, W] class ids."""
+    if class_dim < 0:
+        prob = gt / (gt.sum(-1, keepdim=True) + epsilon_w)
+        return prob.argmax(-1)
+    return gt[..., class_dim].long()
+
+
+def _depth_bins(config: Any, pred: torch.Tensor, gt: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The [B, S, H, W] mm depth label as [B*S, h, w] at the prediction's
+    size (nearest), its target bins and the bin count."""
+    B, S, H, W = gt.shape
+    gt = gt.reshape(B * S, H, W)
+    if tuple(pred.shape[1:3]) != tuple(gt.shape[1:3]):
+        gt = resize_nearest(gt, tuple(pred.shape[1:3]))
+    disc = config["discretize"]
+    nb = int(disc["num_bins"])
+    gt_bin = du.bin_depths(gt, disc["mode"], float(disc["depth_min"]),
+                           float(disc["depth_max"]), nb, target=True)
+    return gt, gt_bin, nb
 
 
 class Loss:
@@ -48,6 +111,162 @@ class Loss:
 
     def loss(self, td: dict, aux: dict):
         raise NotImplementedError
+
+
+class CrossEntropyDepth(Loss):
+    """Depth as classification over bins (reference loss_utils.py:477-527)."""
+
+    def loss(self, td, aux):
+        pred = td[self.config["pred_key"]]  # [BS, H, W, D]
+        _, gt_bin, nb = _depth_bins(self.config, pred,
+                                    td[self.config["lab_key"]])
+        valid = gt_bin != nb
+        logq = F.log_softmax(pred, dim=-1)
+        ce = -logq.gather(-1, torch.clamp(gt_bin, 0, nb - 1).long()
+                          [..., None])[..., 0]
+        loss = masked_mean(ce, valid)
+        acc = masked_mean((pred.argmax(-1) == gt_bin).float(), valid)
+        return {"depth/cls_loss": loss}, {"depth/acc": acc}
+
+
+class SmoothL1Depth(Loss):
+    """Metric-depth regression (reference loss_utils.py:530-573)."""
+
+    def loss(self, td, aux):
+        pred = td[self.config["pred_key"]]  # [BS, H, W] metres
+        gt, gt_bin, nb = _depth_bins(self.config, pred,
+                                     td[self.config["lab_key"]])
+        loss = masked_mean(
+            smooth_l1(pred, gt / 1000.0, float(self.config["beta"])),
+            gt_bin != nb)
+        return {"depth/reg_loss": loss}, {}
+
+
+class SmoothL1(Loss):
+    """SmoothL1 with the relative-channel mode: channel 1 of the label
+    becomes channel 1 minus channel 0 (reference loss_utils.py:576-603)."""
+
+    def loss(self, td, aux):
+        pred = td[self.config["pred_key"]]  # [B, H, W, C]
+        gt = td[self.config["lab_key"]]
+        if not self.config.get("absolute", False):
+            gt = torch.cat([gt[..., :1], gt[..., 1:2] - gt[..., :1],
+                            gt[..., 2:]], dim=-1)
+        if self.config.get("take_grad", False):
+            pred = torch.cat([_gradient(pred, 1), _gradient(pred, 2)], -1)
+            gt = torch.cat([_gradient(gt, 1), _gradient(gt, 2)], -1)
+        valid = torch.isfinite(gt)
+        gt_safe = torch.where(valid, gt, torch.zeros_like(gt))
+        loss = masked_mean(
+            smooth_l1(pred, gt_safe, float(self.config["beta"])), valid)
+        return {"val": loss}, {}
+
+
+class MSELoss(Loss):
+    """Dense feature-distillation MSE over the finite labels (reference
+    loss_utils.py:606-647). The BEV-overlap variant (``overlap_only``)
+    needs the multiview BEV coordinates and is not ported yet."""
+
+    def loss(self, td, aux):
+        if self.config.get("overlap_only", False):
+            raise NotImplementedError("MSELoss with overlap_only")
+        pred = td[self.config["pred_key"]]
+        gt = td[self.config["lab_key"]]
+        valid = ~torch.isinf(gt)
+        gt_safe = torch.where(valid, gt, torch.zeros_like(gt))
+        return {"loss": masked_mean((pred - gt_safe) ** 2, valid)}, {}
+
+
+class CrossEntropy(Loss):
+    """BEV semantic cross-entropy with optional class weights and the FOV
+    mask (reference loss_utils.py:379-474)."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.class_weights = (load_class_weights(config["class_weights"])
+                              if "class_weights" in config else None)
+
+    def loss(self, td, aux):
+        pred = td[self.config["pred_key"]]  # [B, H, W, C]
+        gt = td[self.config["lab_key"]]  # [B, H, W, F]
+        fov = td[self.config.get("mask_key", "inputs/fov_mask")]
+        gt_mode = _gt_mode(gt, int(self.config.get("class_dim", -1)))
+        C = pred.shape[-1]
+        ignore = self.config.get("ignore_index", None)
+
+        valid = fov.bool()
+        if ignore is not None:
+            valid = valid & (gt_mode != ignore)
+        safe = torch.clamp(gt_mode, 0, C - 1)
+        logq = F.log_softmax(pred, dim=-1)
+        ce = -logq.gather(-1, safe[..., None])[..., 0]
+        if self.class_weights is not None:
+            w = self.class_weights.to(pred.device)[safe]
+            loss = (ce * w * valid).sum() / torch.clamp(
+                (w * valid).sum(), min=1e-6)
+        else:
+            loss = masked_mean(ce, valid)
+        # class 0 is taken as ignore for the metric
+        acc = masked_mean((pred.argmax(-1) == gt_mode).float(),
+                          valid & (gt_mode != 0))
+        task = self.config.get("task", "3d_ssc")
+        return {f"{task}/cls_loss": loss}, {f"{task}/acc": acc}
+
+
+class SupPixelConLoss(Loss):
+    """SAM-instance pixel contrastive loss on the anchor view (reference
+    loss_utils.py:203-286). ``aux["rng"]`` is the sampling's priority
+    source (``supcon.priorities``)."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.class_weights = (load_class_weights(config["class_weights"])
+                              if "class_weights" in config else None)
+        self.max_samples = int(config.get("max_samples", 2048))
+
+    def loss(self, td, aux):
+        if aux.get("axis_name", None) is not None:
+            raise NotImplementedError("SupCon across devices")
+        preds = td[self.config["pred_key"]]  # [BV, H, W, Z]
+        gt = td[self.config["lab_key"]]  # [B, H, W, C] or [B, H, W]
+        fov = td[self.config.get("mask_key", "inputs/fov_mask")]
+        views = int(self.config.get("views", 1))
+        ignore = int(self.config.get("ignore_index", -1))
+        temp = float(self.config.get("temperature", 0.1))
+
+        if gt.dim() == 4 and gt.shape[-1] > 1:
+            label = gt.argmax(-1)
+        elif gt.dim() == 4:
+            label = gt[..., 0]
+        else:
+            label = gt
+        label = label.to(torch.int32)
+
+        BV = preds.shape[0]
+        B = BV // views
+        H, W, Z = preds.shape[1:]
+        preds0 = preds.reshape(B, views, H, W, Z)[:, 0]
+        label0 = label.reshape(B, views, H, W)[:, 0]
+        if fov.dim() == 3 and fov.shape[0] == BV:
+            fov = fov.reshape(B, views, H, W)[:, 0]
+        if self.config.get("lab_key", "").endswith("3d_sam_label"):
+            label0 = remap_labels_per_batch(label0, ignore_idx=0)
+        valid = (label0 != ignore) & fov.bool()
+
+        flat_feats = preds0.reshape(-1, Z)
+        flat_labels = label0.reshape(-1)
+        idx, sel_valid = capped_class_sample(
+            flat_labels, valid.reshape(-1), self.max_samples, cap=1000,
+            rng=aux.get("rng", None))
+        cw = (self.class_weights.to(preds.device)
+              if self.class_weights is not None else None)
+        loss = multi_pos_con_loss(flat_feats[idx], flat_labels[idx],
+                                  sel_valid, temperature=temp,
+                                  class_weights=cw)
+        task = self.config.get("task", "3d_ssc")
+        key = self.config.get("lab_key", "x/x").split("/")[-1]
+        return {f"{task}/{key}/supcon/sem_loss": loss,
+                f"{task}/{key}/supcon/img_loss": loss}, {}
 
 
 class MaxEntIRLLoss(Loss):
@@ -142,7 +361,10 @@ class MaxEntIRLLoss(Loss):
         return {"maxentirl_loss": loss}, meta
 
 
-_REGISTRY: dict[str, type[Loss]] = {"MaxEntIRLLoss": MaxEntIRLLoss}
+_REGISTRY: dict[str, type[Loss]] = {
+    cls.__name__: cls for cls in (
+        CrossEntropyDepth, SmoothL1Depth, SmoothL1, MSELoss, CrossEntropy,
+        SupPixelConLoss, MaxEntIRLLoss)}
 
 
 def make_loss(config: Any) -> Loss:

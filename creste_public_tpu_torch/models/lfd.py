@@ -105,7 +105,8 @@ class MaxEntIRL(nn.Module):
         production, plus the policy/value/Q maps and the rollout.
         ``drop_connect`` is the EffNet trunk's mask source in training
         (``effnet.drop_connect_mask``)."""
-        outputs = dict(self.backbone(rgbd, p2p, drop_connect))
+        outputs = dict(self.backbone(rgbd, p2p,
+                                     drop_connect=drop_connect))
         if not self.solve_mdp:
             outputs.update(self.traversability_head(outputs))
             return outputs

@@ -48,10 +48,17 @@ class TerrainNet(nn.Module):
                 kw.get("input_key", "bev_features"))
 
     def forward(self, rgbd: torch.Tensor, p2p: torch.Tensor,
+                mv_mask: torch.Tensor | None = None,
                 drop_connect: DropConnect = None
                 ) -> dict[str, torch.Tensor]:
         """rgbd [B, N, H, W, 4], p2p [B, N, 4, 4] -> the merged NHWC dict
-        (depth_*, dino_pe_feats, bev_*, inpainting_*, elevation_*)."""
+        (depth_*, dino_pe_feats, bev_*, inpainting_*, elevation_*).
+        ``mv_mask`` [B, N, Hs, Ws] is the movability mask, which only the
+        movability branch reads (not ported: the constructor raises), so it
+        has no effect here, as in the JAX model with ``use_movability``
+        off. ``drop_connect`` is the EffNet trunk's mask source in
+        training."""
+        del mv_mask
         B, N = rgbd.shape[:2]
         outputs = dict(self.depthcomp(rgbd, p2p, drop_connect))
         feats = outputs[self.splat_key]

@@ -2,13 +2,18 @@
 
 Counterpart of ``creste_public_tpu/training/loop.py`` on one device. The
 loop moves each host batch to the device, runs the stage's training step
-with a drop-connect generator derived from ``(seed, step)``, logs every
+with a generator derived from ``(seed, step)`` (the drop-connect masks,
+then stage 2's SupCon priorities), logs every
 ``log_every_n_steps`` steps and once per epoch to ``ckpt_dir/
 metrics.jsonl`` (the JAX loop's keys), validates in eval mode every
 ``check_val_every_n_epoch`` epochs, keeps the top-k checkpoints by
 ``monitor_metric``, saves every ``ckpt_every_n_steps`` steps and at the
 end, and traces ``profile_steps`` steps from ``profile_start`` with
 ``torch.profiler`` when ``profile_dir`` is set.
+
+With ``freeze_backbone_epochs`` > 0 (stage 2) each batch carries the gate
+``_backbone_unfrozen`` = ``epoch >= freeze_backbone_epochs``, by which the
+step multiplies the backbone's gradients (``pipelines.backbone_freeze_gate``).
 
 Resume (``resume=true``) is position-faithful, as in the JAX loop: the
 epoch and the batches to skip in it follow from the restored step (the
@@ -18,8 +23,8 @@ drop-connect masks of an uninterrupted one.
 
 The JAX loop's ``_pad_to_multiple`` pads the last batch to a multiple of
 the mesh's devices; on one device every batch size divides, so the port has
-none. Data parallelism, the stage-2 epoch-scheduled backbone freeze,
-multi-task loaders and validation images are not ported yet and raise.
+none. Data parallelism, multi-task loaders and validation images are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -71,7 +76,8 @@ class TopKCheckpoints:
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of the drop-connect masks of step ``step``."""
+    """The CPU generator of step ``step``: its drop-connect masks, then its
+    SupCon priorities."""
     state = np.random.SeedSequence((int(seed), int(step))).generate_state(
         1, np.uint64)[0]
     return torch.Generator().manual_seed(int(state))
@@ -83,18 +89,27 @@ def to_device(batch: dict, device: torch.device) -> dict:
             else torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+# the seed of the validation's SupCon priorities: the JAX loop hands every
+# validation batch the key PRNGKey(1)
+EVAL_SEED = 1
+
+
 def make_eval_step(stage: str, model, loss_manager: LossManager,
                    task: str | None = None) -> Callable[[dict], dict]:
     """eval_fn(batch) -> {name: float}: the model in eval mode, the losses
-    with the penalty's eval-form ``reward_fn``, ``loss`` the sum of the
-    weighted losses, then the scalar metadata."""
+    (stage 3 with the penalty's eval-form ``reward_fn``, stage 2 with
+    SupCon's priorities from a generator seeded ``EVAL_SEED`` for each
+    batch), ``loss`` the sum of the weighted losses, then the scalar
+    metadata."""
 
     def eval_fn(batch: dict) -> dict[str, float]:
         model.eval()
         with torch.no_grad():
             outputs = model(*pipelines.model_inputs(stage, batch))
         td = pipelines.merge_tensor_dict(batch, outputs, task)
-        loss_dict, meta = loss_manager(td, {"reward_fn": model.reward})
+        aux = pipelines.loss_aux(stage, model,
+                                 torch.Generator().manual_seed(EVAL_SEED))
+        loss_dict, meta = loss_manager(td, aux)
         metrics = {k: w * v for k, (w, v) in loss_dict.items()}
         metrics["loss"] = sum(metrics.values())
         metrics.update({k: v for k, v in meta.items() if v.ndim == 0})
@@ -132,9 +147,6 @@ def run_training(
     n_devices = tcfg.get("devices", None)
     if n_devices is not None and int(n_devices) > 1:
         raise NotImplementedError("data-parallel training is not ported yet")
-    if int(tcfg.get("freeze_backbone_epochs", 0)) > 0:
-        raise NotImplementedError(
-            "the epoch-scheduled backbone freeze is not ported yet")
     if tcfg.get("log_val_images", False):
         raise NotImplementedError("validation images are not ported yet")
     max_epochs = int(tcfg.get("max_epochs", 1))
@@ -143,6 +155,7 @@ def run_training(
     ckpt_dir = tcfg.get("ckpt_dir", "ckpts")
     val_every = int(tcfg.get("check_val_every_n_epoch", 1))
     seed = int(tcfg.get("seed", 0))
+    freeze_epochs = int(tcfg.get("freeze_backbone_epochs", 0))
 
     factory = train_data if callable(train_data) else (lambda e: train_data)
     steps_per_epoch = tcfg.get("steps_per_epoch", None)
@@ -163,7 +176,9 @@ def run_training(
         frozen_pred=frozen_pred, device=dev)
     if load_weights is not None:
         state = load_weights(state)
-    step_fn = pipelines.make_train_step(stage, model, lm, task=task)
+    step_fn = pipelines.make_train_step(
+        stage, model, lm, task=task,
+        freeze_backbone_schedule=freeze_epochs > 0)
     eval_fn = make_eval_step(stage, model, lm, task=task)
 
     if tcfg.get("resume", False):
@@ -193,6 +208,10 @@ def run_training(
             for _ in range(start_step % steps_per_epoch):
                 next(batches, None)
         for batch in batches:
+            if freeze_epochs > 0:
+                bsz = len(batch["image"])
+                batch = dict(batch, _backbone_unfrozen=np.full(
+                    (bsz,), float(epoch >= freeze_epochs), np.float32))
             if profile_dir and state.step == profile_start and prof is None:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,

@@ -5,11 +5,14 @@ the port's parameter names, which are the flax scope paths joined by ``.``
 instead of ``/`` (``backbone.bevclassifier.head_0.proj.weight``), so each
 JAX predicate carries over with its separator changed.
 
-Freezing is ``requires_grad_(False)`` and leaving the parameter out of the
-optimizer. That gives what the JAX package's
-``optax.masked(set_to_zero())`` gives, because no gradient reaches a frozen
-parameter, and it keeps autograd from recording the forward of a frozen
-subtree.
+A frozen parameter is left out of the optimizer, which gives what the JAX
+package's ``optax.masked(set_to_zero())`` gives it: no update. The JAX
+step still computes its gradient and counts it in ``grad_norm``, so where
+the loss reaches a frozen parameter (stage 2 under a freezing load
+setting) it keeps ``requires_grad`` (``record_grads``); where no gradient
+can reach it (stage 3's backbone, behind the detached input view)
+``requires_grad_(False)`` gives the same zero and keeps autograd from
+recording its forward.
 """
 from __future__ import annotations
 
@@ -80,14 +83,16 @@ def freeze_mask(params: Mapping[str, torch.Tensor],
 
 
 def freeze(model: nn.Module,
-           frozen_pred: PathPred | ParamsPredFactory | None
-           ) -> list[nn.Parameter]:
-    """``requires_grad_(False)`` on every frozen parameter of ``model``;
-    returns the trainable ones, in ``named_parameters`` order."""
+           frozen_pred: PathPred | ParamsPredFactory | None,
+           record_grads: bool = False) -> list[nn.Parameter]:
+    """The trainable parameters of ``model``, in ``named_parameters``
+    order. A frozen one keeps ``requires_grad`` (its gradient counts in
+    ``grad_norm``) when ``record_grads``, else gets
+    ``requires_grad_(False)``."""
     params = dict(model.named_parameters())
     mask = freeze_mask(params, frozen_pred)
     for k, p in params.items():
-        p.requires_grad_(mask[k])
+        p.requires_grad_(mask[k] or record_grads)
     return [p for k, p in params.items() if mask[k]]
 
 

@@ -3,22 +3,28 @@
 Counterpart of ``creste_public_tpu/training/pipelines.py``: the positional
 model arguments of a stage, the merged tensor dict that the losses read
 (``inputs/<batch key>``, ``outputs/<model key>``, ``task``), the loss
-closure with the IRL penalty's ``reward_fn`` hook, ``init_stage`` and
-``make_train_step``. Only stage 3 (``traversability``) is ported; the other
-stages raise ``NotImplementedError``.
+closure (stage 2 hands SupCon its priority source, stage 3 the IRL
+penalty's ``reward_fn``), ``init_stage`` and ``make_train_step`` with the
+epoch-scheduled backbone freeze. Stages 2 (``ssc``) and 3
+(``traversability``) are ported; the others raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import torch
+from torch import nn
 
 from creste_public_tpu_torch import weights
 from creste_public_tpu_torch.losses.manager import LossManager
+from creste_public_tpu_torch.losses.supcon import PrioritySource
 from creste_public_tpu_torch.models.blocks.effnet import DropConnect
 from creste_public_tpu_torch.models.lfd import MaxEntIRL
+from creste_public_tpu_torch.models.terrainnet import TerrainNet
 from creste_public_tpu_torch.training import optim
 from creste_public_tpu_torch.training.state import (
+    GradTransform,
     LossClosure,
     TrainState,
     train_step,
@@ -26,12 +32,13 @@ from creste_public_tpu_torch.training.state import (
 from creste_public_tpu_torch.utils.device import resolve_device
 
 STAGES = ("depth", "distillation", "ssc", "traversability")
+_MODELS = {"ssc": TerrainNet, "traversability": MaxEntIRL}
 
 
-def build_model(stage: str, cfg: Any) -> MaxEntIRL:
+def build_model(stage: str, cfg: Any) -> nn.Module:
     cfg = cfg.to_dict() if hasattr(cfg, "to_dict") else cfg
-    if stage == "traversability":
-        return MaxEntIRL(cfg)
+    if stage in _MODELS:
+        return _MODELS[stage](cfg)
     if stage in STAGES:
         raise NotImplementedError(f"stage {stage!r} is not ported yet")
     raise ValueError(f"Unknown stage: {stage} (expected one of {STAGES})")
@@ -68,23 +75,47 @@ def loss_metrics(loss_dict: dict, meta: dict) -> dict[str, torch.Tensor]:
     return metrics
 
 
-def make_loss_closure(stage: str, model: MaxEntIRL,
+def priority_source(drop_connect: DropConnect,
+                    priorities: PrioritySource = None) -> PrioritySource:
+    """SupCon's priority source for a step: ``priorities`` when given, else
+    the step's own generator, drawn after the drop-connect masks (the JAX
+    step hands one key to both); None for a fed mask source."""
+    if priorities is not None:
+        return priorities
+    return drop_connect if isinstance(drop_connect, torch.Generator) else None
+
+
+def loss_aux(stage: str, model: nn.Module,
+             priorities: PrioritySource = None) -> dict:
+    """The ``aux`` a stage's losses read: stage 3 the IRL penalty's
+    ``reward_fn`` (``model.reward``: the reward net in its eval form, on
+    the running statistics from before the step, pipelines.py:154-160 of
+    the JAX package); stage 2 SupCon's priority source, which it needs."""
+    if stage == "traversability":
+        return {"reward_fn": model.reward}
+    if priorities is None:
+        raise ValueError("stage 2 needs SupCon's priorities: give the step a "
+                         "torch.Generator or pass priorities=")
+    return {"rng": priorities}
+
+
+def make_loss_closure(stage: str, model: nn.Module,
                       loss_manager: LossManager,
-                      task: str | None = None) -> LossClosure:
-    """loss_and_metrics(batch, drop_connect) -> (total, metrics), with the
-    model in whatever mode the caller set (``train_step`` sets training).
-    Stage 3 hands the losses ``model.reward`` as the penalty's
-    ``reward_fn``: the reward net in its eval form, on the running
-    statistics from before the step (pipelines.py:154-160 of the JAX
-    package)."""
-    if stage != "traversability":
+                      task: str | None = None) -> Callable[..., Any]:
+    """loss_and_metrics(batch, drop_connect, priorities=None) -> (total,
+    metrics), with the model in whatever mode the caller set
+    (``train_step`` sets training) and the stage's ``loss_aux``."""
+    if stage not in _MODELS:
         raise NotImplementedError(f"stage {stage!r} is not ported yet")
 
-    def loss_and_metrics(batch: dict, drop_connect: DropConnect):
+    def loss_and_metrics(batch: dict, drop_connect: DropConnect,
+                         priorities: PrioritySource = None):
         outputs = model(*model_inputs(stage, batch),
                         drop_connect=drop_connect)
         td = merge_tensor_dict(batch, outputs, task)
-        loss_dict, meta = loss_manager(td, {"reward_fn": model.reward})
+        aux = loss_aux(stage, model, priority_source(drop_connect,
+                                                     priorities))
+        loss_dict, meta = loss_manager(td, aux)
         return LossManager.total(loss_dict), loss_metrics(loss_dict, meta)
 
     return loss_and_metrics
@@ -93,13 +124,14 @@ def make_loss_closure(stage: str, model: MaxEntIRL,
 def init_stage(stage: str, cfg: Any, seed: int = 0,
                steps_per_epoch: int = 100, frozen_pred=None,
                device: str | torch.device = "cuda"
-               ) -> tuple[MaxEntIRL, LossManager, TrainState]:
+               ) -> tuple[nn.Module, LossManager, TrainState]:
     """(model, loss_manager, state) for a stage, with seeded random weights
     (``weights.init_weights``) on ``device``.
 
     frozen_pred: a path predicate marking frozen parameters (see
     ``optim.LOAD_SETTING_FROZEN``); stage 3 defaults to freezing the whole
-    backbone (lfd.py:81-90 of the reference)."""
+    backbone (lfd.py:81-90 of the reference), which no gradient reaches,
+    so it records none."""
     dev = resolve_device(device)
     cfg = cfg.to_dict() if hasattr(cfg, "to_dict") else cfg
     model = weights.init_weights(build_model(stage, cfg), seed).to(dev)
@@ -108,20 +140,43 @@ def init_stage(stage: str, cfg: Any, seed: int = 0,
         frozen_pred = lambda p: p.startswith("backbone")  # noqa: E731
     opt, sched = optim.make_optimizer(
         cfg.get("optimizer", {}), cfg.get("lr_scheduler", {}),
-        steps_per_epoch, optim.freeze(model, frozen_pred))
+        steps_per_epoch, optim.freeze(
+            model, frozen_pred, record_grads=stage != "traversability"))
     return model, loss_manager, TrainState(0, model, opt, sched)
 
 
-def make_train_step(stage: str, model: MaxEntIRL, loss_manager: LossManager,
-                    task: str | None = None
-                    ) -> Callable[[TrainState, dict, DropConnect], dict]:
-    """step(state, batch, drop_connect) -> metrics (``state.train_step``
-    over this stage's loss closure). ``batch`` holds tensors on the
-    model's device."""
-    loss_fn = make_loss_closure(stage, model, loss_manager, task)
+def backbone_freeze_gate(grads: dict[str, torch.Tensor],
+                         batch: dict) -> dict[str, torch.Tensor]:
+    """The epoch-scheduled backbone freeze (train_ssc.py:56-80 of the
+    reference): every ``depthcomp.*`` gradient times the batch's 0/1
+    ``_backbone_unfrozen`` gate. The gradients stay zero tensors, so Adam
+    still steps those parameters (its moments decay, its count advances),
+    as after optax's ``set_to_zero``. A batch without the gate raises."""
+    if "_backbone_unfrozen" not in batch:
+        raise KeyError("the scheduled backbone freeze needs the batch's "
+                       "_backbone_unfrozen gate")
+    gate = batch["_backbone_unfrozen"]
+    return optim.scheduled_freeze_gate(
+        grads, lambda p: p.startswith("depthcomp"), gate.reshape(-1)[0])
 
-    def step(state: TrainState, batch: dict,
-             drop_connect: DropConnect) -> dict:
-        return train_step(state, loss_fn, batch, drop_connect)
+
+def make_train_step(stage: str, model: nn.Module, loss_manager: LossManager,
+                    task: str | None = None,
+                    freeze_backbone_schedule: bool = False
+                    ) -> Callable[..., dict]:
+    """step(state, batch, drop_connect, priorities=None) -> metrics
+    (``state.train_step`` over this stage's loss closure). ``batch`` holds
+    tensors on the model's device. With ``freeze_backbone_schedule`` every
+    batch carries the ``_backbone_unfrozen`` gate
+    (``backbone_freeze_gate``)."""
+    loss_fn = make_loss_closure(stage, model, loss_manager, task)
+    transform: GradTransform | None = (
+        backbone_freeze_gate if freeze_backbone_schedule else None)
+
+    def step(state: TrainState, batch: dict, drop_connect: DropConnect,
+             priorities: PrioritySource = None) -> dict:
+        closure: LossClosure = functools.partial(loss_fn,
+                                                 priorities=priorities)
+        return train_step(state, closure, batch, drop_connect, transform)
 
     return step

@@ -23,6 +23,9 @@ from creste_public_tpu_torch.models.blocks.effnet import DropConnect
 # (batch, drop_connect) -> (total loss, {name: 0-dim tensor})
 LossClosure = Callable[[dict, DropConnect],
                        tuple[torch.Tensor, dict[str, torch.Tensor]]]
+# ({name: gradient}, batch) -> {name: gradient}
+GradTransform = Callable[[dict[str, torch.Tensor], dict],
+                         dict[str, torch.Tensor]]
 
 
 @dataclasses.dataclass
@@ -39,24 +42,41 @@ def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
 
 
 def train_step(state: TrainState, loss_fn: LossClosure, batch: dict,
-               drop_connect: DropConnect) -> dict[str, torch.Tensor]:
+               drop_connect: DropConnect,
+               grad_transform: GradTransform | None = None
+               ) -> dict[str, torch.Tensor]:
     """One step in place: the model in training mode computes the loss and
-    its gradient, Adam steps the trainable parameters, then the BatchNorm
+    its gradient, ``grad_transform`` (the scheduled backbone freeze) maps
+    the gradients, Adam steps the trainable parameters, then the BatchNorm
     running statistics the forward staged are committed (after the loss,
     so that an eval-form call inside it saw the pre-step ones). Returns the
-    metrics with ``grad_norm`` (over every gradient; frozen parameters have
-    none and count 0) and ``loss``, as 0-dim tensors on the model's
-    device."""
+    metrics with ``grad_norm`` and ``loss``, as 0-dim tensors on the
+    model's device.
+
+    As optax does, Adam steps every parameter it holds: one that the loss
+    did not reach gets a zero gradient, so that its moments decay and its
+    step count advances. ``grad_norm`` is taken after the transform over
+    every gradient, a frozen parameter's included where it records one
+    (``optim.freeze``); a parameter that records none counts 0, which is
+    what the JAX step's stop-gradient gives it."""
     model, opt = state.model, state.optimizer
     model.train()
     discard_batch_stats(model)
-    opt.zero_grad(set_to_none=True)
+    model.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(batch, drop_connect)
     loss.backward()
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    named = {k: p for k, p in model.named_parameters() if p.grad is not None}
+    if grad_transform is not None:
+        for k, g in grad_transform({k: p.grad for k, p in named.items()},
+                                   batch).items():
+            named[k].grad = g
     metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["grad_norm"] = (global_norm(grads) if grads
-                            else torch.zeros((), device=loss.device))
+    metrics["grad_norm"] = (global_norm([p.grad for p in named.values()])
+                            if named else torch.zeros((), device=loss.device))
     opt.step()
     state.scheduler.step()
     commit_batch_stats(model)

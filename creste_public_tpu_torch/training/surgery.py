@@ -1,12 +1,13 @@
-"""Cross-stage checkpoint surgery for stage 3: load a previous stage's
-checkpoint into the MaxEntIRL model.
+"""Cross-stage checkpoint surgery for stages 2 and 3: load a previous
+stage's checkpoint into the next stage's model.
 
-Counterpart of the stage-3 part of
-``creste_public_tpu/training/surgery.py``. A stage-2 TerrainNet IS
-MaxEntIRL's ``backbone`` submodule, so a TerrainNet checkpoint of the port
-grafts in whole under ``backbone.``; a checkpoint of the same stage is
-restored whole, except the subtrees a ``ft_decoders_*`` load setting
-re-initialises. Checkpoints are the port's torch files
+Counterpart of ``creste_public_tpu/training/surgery.py`` for the stages
+the port trains. The stages nest: a stage-1 DistillationBackbone IS
+TerrainNet's ``depthcomp`` submodule, and a stage-2 TerrainNet IS
+MaxEntIRL's ``backbone``, so a previous stage's checkpoint grafts in whole
+under that submodule; a checkpoint of the same stage (the same top-level
+modules) is restored whole, except the subtrees a ``ft_decoders_*`` load
+setting re-initialises. Checkpoints are the port's torch files
 (``training/checkpoint.py``). Freeze policies belong to the optimizer
 (``optim.LOAD_SETTING_FROZEN``), not here.
 """
@@ -24,7 +25,7 @@ from creste_public_tpu_torch.training.state import TrainState
 
 # stage being trained -> the submodule a previous stage's whole model
 # grafts into
-STAGE_SUBMODULE = {"traversability": "backbone"}
+STAGE_SUBMODULE = {"ssc": "depthcomp", "traversability": "backbone"}
 
 # subtrees a load setting does not restore: the decoder heads fine-tune
 # from their fresh init (terrainnet.py:184-189, :213-218 of the reference)

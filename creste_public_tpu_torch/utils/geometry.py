@@ -13,7 +13,13 @@ def backproject_depth(depth: torch.Tensor, p2p: torch.Tensor) -> torch.Tensor:
     """Lift a depth image into LiDAR-frame points.
 
     Homogeneous pixel rays [u*d, v*d, d, 1] are mapped by the 4x4
-    pixel-to-point matrix ``p2p``.
+    pixel-to-point matrix ``p2p``. Each coordinate is summed as XLA sums
+    the JAX package's 4-term einsum, ``(a0 + a1) + (a2 + a3)`` with every
+    product rounded on its own, so the points equal the reference's to the
+    bit: a row whose height cancels to exactly 0 there (the horizon of a
+    level camera) is exactly 0 here too, which keeps the z-embedding's
+    ReLU on the same side of its kink (a matmul with fused multiply-adds
+    leaves a residue of either sign).
 
     Args:
       depth: [..., H, W] metric depth (metres).
@@ -29,9 +35,11 @@ def backproject_depth(depth: torch.Tensor, p2p: torch.Tensor) -> torch.Tensor:
         torch.arange(W, dtype=torch.float32, device=d.device),
         indexing="ij",
     )
-    pix = torch.stack([u * d, v * d, d, torch.ones_like(d)], dim=-1)
-    xyz = torch.einsum("...ij,...hwj->...hwi", p2p.float(), pix)
-    return xyz[..., :3]
+    ud, vd = u * d, v * d
+    p = p2p.float()[..., None, None, :, :]  # [..., 1, 1, 4, 4]
+    return torch.stack([
+        (ud * p[..., i, 0] + vd * p[..., i, 1])
+        + (d * p[..., i, 2] + p[..., i, 3]) for i in range(3)], dim=-1)
 
 
 def lidar_to_map_matrix(min_bound: np.ndarray) -> np.ndarray:

@@ -177,8 +177,8 @@ def test_maxent_irl_loss_and_gradient_match_jax(objective, counterfactuals):
 
 
 def test_registry_names_unported_losses():
-    with pytest.raises(NotImplementedError, match="SupPixelConLoss"):
-        LossManager({"loss": [{"name": "SupPixelConLoss"}]})
+    with pytest.raises(NotImplementedError, match="FocalLoss"):
+        LossManager({"loss": [{"name": "FocalLoss"}]})
     cfg, _ = _loss_cfg()
     assert [type(lo).__name__ for lo in LossManager(cfg).losses] == [
         "MaxEntIRLLoss"]

@@ -16,9 +16,11 @@ from flax.traverse_util import flatten_dict
 
 from creste_public_tpu.config import presets as jpresets
 from creste_public_tpu.models.lfd import MaxEntIRL as JMaxEntIRL
+from creste_public_tpu.models.terrainnet import TerrainNet as JTerrainNet
 from creste_public_tpu_torch import weights
 from creste_public_tpu_torch.config import presets
 from creste_public_tpu_torch.models.lfd import MaxEntIRL
+from creste_public_tpu_torch.models.terrainnet import TerrainNet
 from creste_public_tpu_torch.runtime import export
 from creste_public_tpu_torch.weights import from_jax_variables
 
@@ -93,6 +95,24 @@ def test_weight_import_covers_production_tree():
         model.load_state_dict(from_jax_variables(missing), strict=True)
     with pytest.raises(ValueError, match="no rule"):
         from_jax_variables({"params/x/embedding": np.zeros(3)})
+
+
+def test_weight_import_covers_terrainnet_tree():
+    """A flax TerrainNet tree (top-level scopes depthcomp, cam2map and
+    bevclassifier) at the production stage-2 preset loads strictly."""
+    cfg = jpresets.terrainnet_model_config(image_size=(64, 80)).to_dict()
+    rgbd = np.zeros((1, 1, 64, 80, 4), np.float32)
+    p2p = np.tile(np.eye(4, dtype=np.float32), (1, 1, 1, 1))
+    tree = jax.eval_shape(lambda: JTerrainNet(cfg).init(
+        {"params": jax.random.PRNGKey(0)}, rgbd, p2p))
+    flat = {k: np.zeros(v.shape, np.float32)
+            for k, v in flatten_dict(dict(tree), sep="/").items()}
+    assert {k.split("/")[1] for k in flat} == {"depthcomp", "cam2map",
+                                               "bevclassifier"}
+    model = TerrainNet(presets.terrainnet_model_config().to_dict())
+    sd = from_jax_variables(flat)
+    model.load_state_dict(sd, strict=True)
+    assert set(model.state_dict()) == set(sd)
 
 
 def test_weight_import_covers_fc_policy_tree():

@@ -367,8 +367,10 @@ def test_config_groups_equal_the_yaml_files():
         for option, cfg in options.items():
             path = os.path.join(CONFIG_DIR, group, option + ".yaml")
             assert cfg == load_yaml(path).to_dict(), (group, option)
-    root = load_yaml(os.path.join(CONFIG_DIR, "traversability.yaml"))
-    assert ROOTS["traversability"] == root.to_dict()
+    assert sorted(ROOTS) == ["ssc_sam", "traversability"]
+    for name, cfg in ROOTS.items():
+        root = load_yaml(os.path.join(CONFIG_DIR, name + ".yaml"))
+        assert cfg == root.to_dict(), name
 
 
 @pytest.mark.parametrize("argv", [
@@ -381,6 +383,18 @@ def test_config_groups_equal_the_yaml_files():
 def test_compose_cli_matches_jax(argv):
     assert compose_cli("traversability", argv).to_dict() == jcompose_cli(
         "traversability", CONFIG_DIR, argv).to_dict()
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["trainer=smoke", "model=ssc_sam/tiny", "dataset=synthetic_tiny"],
+    ["trainer=standard_single", "model.batch_size=4",
+     "trainer.freeze_backbone_epochs=2", "model.load_setting=ft_decoders_all",
+     "dataset.train.length=16"],
+])
+def test_compose_cli_ssc_matches_jax(argv):
+    assert compose_cli("ssc_sam", argv).to_dict() == jcompose_cli(
+        "ssc_sam", CONFIG_DIR, argv).to_dict()
 
 
 def test_compose_cli_rejects_unknown_group():
@@ -476,7 +490,7 @@ def test_checkpoint_round_trip_and_stage_graft(tmp_path):
         assert torch.equal(v, before[k] if keep else
                            model.state_dict()[k]), k
     with pytest.raises(NotImplementedError):
-        make_stage_loader("ssc", path)
+        make_stage_loader("depth", path)
 
 
 def _rows(d):
@@ -565,6 +579,6 @@ def test_unported_options_raise():
         run_training("traversability", _tiny_cfg(), [], None,
                      {"device": "cpu", "devices": 2})
     with pytest.raises(NotImplementedError, match="not ported"):
-        pipelines.build_model("ssc", {})
+        pipelines.build_model("depth", {})
     with pytest.raises(NotImplementedError):
         build_dataset({"name": "coda"})
