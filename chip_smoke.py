@@ -42,12 +42,40 @@ Phases, each printing one line before the final one:
    path's own inputs with their bounds (SVF also per launch under the
    profiler, and queued behind a sleep at T and at T=1), each stage, and
    the whole objective.
+16. depth loop (run before phases 13-15): the stage-0 trainer through its
+    entry point, train_depth.main(trainer=smoke) at distillation/depth_only
+    (B=8, 512x612, 128 depth bins, seeded weights) on two training batches
+    and one validation batch of synthetic_pefree (cut from 32 and 8
+    samples): finite losses, the JAX CLI's metrics keys, no kernel launch
+    (stages 0 and 1 have no TPU kernel on their path), a step_2 checkpoint
+    that restores.
+17. distillation loop: the same for the stage-1 trainer,
+    train_pefree.main(trainer=smoke) at
+    distillation/effnet_ds4_dinov2_128 (B=4); its checkpoint is the one
+    phase 13 grafts.
+18. pefree step: one training step of presets.distillation_pefree_config()
+    at its published widths (V=3 views, 512x612, grid 256, batch 4: 12
+    frames; the learnable PE map, the max-mode multiview splat and
+    PEFreeMSELoss) on views made from synthetic_pefree samples with the
+    camera moved 0.2 m per view; then at B=1 the train-mode model with fed
+    masks card vs CPU for every output (the backbone from the same image,
+    the splat's bev_features, bev_densities and bev_coords from the card's
+    depth and features), and each loss on the card's outputs, PEFreeMSELoss
+    and an overlap_only MSELoss among them.
+19. timing stage 0/1: ms per step (CUDA events, inputs on the card) of the
+    B=8 depth step, the B=4 distillation step and the B=4 x V=3 PE-free
+    step, with the peak memory, the idle share and the top kernels under
+    the profiler over two steps.
 13. ssc loop (run before phases 9-12): the stage-2 trainer through its
-    entry point, train_ssc.main(trainer=smoke) at the production preset
-    (B=8, 512x612, grid 256, seeded weights) on two training batches and
-    one validation batch of synthetic_ssc (cut from 32 and 8 samples):
-    finite losses, the JAX CLI's metrics keys, no kernel launch (stage 2
-    has no TPU kernel on its path), a step_2 checkpoint that restores.
+    entry point, train_ssc.main(trainer=smoke model.weights_path=<the
+    stage-1 checkpoints of phase 17> trainer.freeze_backbone_epochs=1) at
+    the production preset (B=8, 512x612, grid 256, seeded weights) on two
+    training batches and one validation batch of synthetic_ssc (cut from 32
+    and 8 samples): the stage-1 graft into depthcomp checked tensor by
+    tensor (and its parameters still after the run, the backbone frozen
+    for its one epoch), finite losses, the JAX CLI's metrics keys, no
+    kernel launch (stage 2 has no TPU kernel on its path), a step_2
+    checkpoint that restores.
 14. ssc step card vs CPU at B=2, full resolution, fed drop-connect masks
     and SupCon priorities: each stage (backbone outputs, splat, each
     decoder head) on the CPU from the card's input to it, the six losses
@@ -526,17 +554,26 @@ def mdp_path(torch, dev, card: str) -> tuple[float, list[dict]]:
     svf_blocks = expected_svf_cuda.blocks
 
     # device time per launch under the profiler (over the launches it
-    # recorded: it can miss one at the end of a session)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            expected_svf_cuda(sharp, s0, s1, T, zts)
-        torch.cuda.synchronize()
-    seen = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "svf_kernel" in e.key]
-    if not seen or seen[0].count < 10:
-        fail("the profiler recorded fewer than 10 of 20 SVF launches")
+    # recorded: it can miss one at the end of a session, and on the card's
+    # machine a session has recorded no kernel at all, so a session that
+    # records fewer than half the launches is run again, up to 3 times)
+    for attempt in range(1, 4):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                expected_svf_cuda(sharp, s0, s1, T, zts)
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "svf_kernel" in e.key]
+        if seen and seen[0].count >= 10:
+            break
+        print(f"  profiler session {attempt} recorded "
+              f"{seen[0].count if seen else 0} of 20 SVF launches",
+              flush=True)
+    else:
+        fail("three profiler sessions each recorded fewer than 10 of 20 "
+             "SVF launches")
     svf_us = seen[0].self_device_time_total / seen[0].count
 
     def queued_us(horizon: int, n: int = 20) -> float:
@@ -765,6 +802,357 @@ def head_grads(torch, head, iv, exp_svf, batch: dict, losses,
     return {k: p.grad.detach().clone() for k, p in head.named_parameters()}
 
 
+# stages 0 and 1 through their entry points: the groups they compose and
+# the dataset sizes (two training batches of batch_size, one of val)
+DEPTH_MODEL = "distillation/depth_only"
+DISTILLATION_MODEL = "distillation/effnet_ds4_dinov2_128"
+STAGE01_DATASET = "synthetic_pefree"
+STAGE01_VAL_LENGTH = 8
+# the keys of a training line of the JAX package's stage-0 and stage-1 CLIs
+# (tests/test_torch_depth_stage.py and tests/test_torch_distillation_step.py
+# hold the port's CLIs to them on the CPU)
+DEPTH_TRAIN_KEYS = frozenset({
+    "CrossEntropyDepth/depth/acc", "CrossEntropyDepth/depth/cls_loss",
+    "SmoothL1Depth/depth/reg_loss", "epoch", "grad_norm", "loss", "step",
+    "wall_s"})
+DISTILLATION_TRAIN_KEYS = DEPTH_TRAIN_KEYS | {"MSELoss/loss"}
+# the PE-free multiview step card vs CPU at B=1: the train-mode backbone
+# from the same image and masks, and the max splat on the CPU from the
+# card's depth and features, each map to STAGE_RTOL; bev_densities come
+# from index_add_, whose atomic order varies on the card, so they are held
+# to DENSITY_RTOL of their largest entry (f32 sums of up to 4 * 19,584
+# bilinear weights per element); the losses, an overlap_only MSELoss
+# among them, to SSC_LOSS_RTOL on the card's outputs
+DENSITY_RTOL = 1e-5
+STAGE01_LOOP_STEPS = 2  # timed steps per stage (after one warm-up)
+
+
+def multiview_batch(ds, B: int, V: int) -> dict:
+    """B elements of V views for the PE-free preset: sample b * V + v of
+    ``ds`` is view v of element b, the camera of view v moved 0.2 m * v
+    along x (the JAX package's ``tests/test_pefree_multiview.py::make_batch``
+    shifts its second view so; the synthetic dataset has one view)."""
+    keys = ("image", "p2p", "depth_label", "fimg_label")
+    samples = [ds[i] for i in range(B * V)]
+    batch = {k: np.concatenate([s[k] for s in samples]).reshape(
+        B, V, *samples[0][k].shape[1:]) for k in keys}
+    batch["p2p"] = batch["p2p"].copy()
+    batch["p2p"][:, :, 0, 3] += 0.2 * np.arange(V, dtype=np.float32)
+    return batch
+
+
+def stage01_path(torch, dev, card: str) -> tuple[str, dict]:
+    """Phases 16-19: the stage-0 and stage-1 trainers at their published
+    presets through their entry points (train_depth.main,
+    train_pefree.main), one PE-free multiview training step at the
+    published widths with the card held to the CPU at B=1, and the three
+    steps' timing. Returns the directory of the stage-1 checkpoints, which
+    the stage-2 loop grafts, and the kernel launches of these phases."""
+    import os
+    import tempfile
+
+    from creste_public_tpu_torch import train_depth, train_pefree
+    from creste_public_tpu_torch.config import presets
+    from creste_public_tpu_torch.config.groups import compose_cli
+    from creste_public_tpu_torch.data.dataloader import build_dataset
+    from creste_public_tpu_torch.losses.manager import (
+        LossManager,
+        _bev_overlap_hits,
+    )
+    from creste_public_tpu_torch.models.blocks.convnets import (
+        discard_batch_stats,
+    )
+    from creste_public_tpu_torch.models.distillation import (
+        DistillationBackbone,
+    )
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
+    from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
+    from creste_public_tpu_torch.training import checkpoint as ckpt
+    from creste_public_tpu_torch.training import pipelines
+    from creste_public_tpu_torch.training.loop import step_generator, to_device
+
+    def cpu(t):
+        return t.detach().cpu()
+
+    def reset_launches():
+        torch.cuda.synchronize()
+        value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+        rk.msfcn_head_cuda.launches = 0
+
+    def kernel_launches():
+        torch.cuda.synchronize()
+        return (value_iteration_cuda.launches, expected_svf_cuda.launches,
+                rk.msfcn_head_cuda.launches)
+
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stage01_")
+
+    # 16-17. the entry points: trainer=smoke (2 steps), validation,
+    # checkpoints
+    def loop(entry, root, model_group, train_keys, name):
+        base = [f"model={model_group}", f"dataset={STAGE01_DATASET}"]
+        cfg = compose_cli(root, base)
+        B = int(cfg["model"]["batch_size"])
+        ckpt_dir = os.path.join(tmp, name)
+        argv = ["trainer=smoke", *base, f"dataset.train.length={2 * B}",
+                f"dataset.val.length={STAGE01_VAL_LENGTH}",
+                f"trainer.ckpt_dir={ckpt_dir}", "trainer.verbose=false"]
+        reset_launches()
+        t0 = time.perf_counter()
+        state = entry.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches[f"{name} loop"] = kernel_launches()
+        rows = [json.loads(line) for line in open(os.path.join(
+            ckpt_dir, "metrics.jsonl"))]
+        train_rows = [r for r in rows if "split" not in r]
+        splits = [r.get("split") for r in rows]
+        if state.step != 2 or [r["step"] for r in train_rows] != [1, 2] or \
+                splits != [None, None, "train_epoch", "val"]:
+            fail(f"{entry.__name__} ran {state.step} steps and logged "
+                 f"{splits}")
+        for r in train_rows:
+            if set(r) != train_keys:
+                fail(f"a {name} training line has the keys {sorted(r)}, "
+                     "not the JAX CLI's")
+        for r in rows:
+            bad = [k for k, v in r.items() if isinstance(v, float)
+                   and not np.isfinite(v)]
+            if bad:
+                fail(f"{name} metrics.jsonl line {r} has non-finite {bad}")
+        if launches[f"{name} loop"] != (0, 0, 0):
+            fail(f"the {name} loop launched the VI, SVF and reward-head "
+                 f"kernels {launches[f'{name} loop']} times: its path has "
+                 "none")
+        path = ckpt.latest_checkpoint(ckpt_dir)
+        if path is None or os.path.basename(path) != "step_2":
+            fail(f"the latest {name} checkpoint is {path}")
+        _, _, fresh = pipelines.init_stage(cfg["stage"], cfg["model"],
+                                           seed=SEED + 1, device=dev)
+        ckpt.restore_checkpoint(path, fresh)
+        sd = state.model.state_dict()
+        if fresh.step != 2 or any(not torch.equal(v, sd[k]) for k, v in
+                                  fresh.model.state_dict().items()):
+            fail(f"the {name} step_2 checkpoint does not restore the model")
+        print(f"phase {name} loop: ok, {entry.__name__.split('.')[-1]}"
+              f".main(trainer=smoke) at {model_group}, B={B} ran "
+              f"{state.step} steps + 1 validation batch in {run_s:.1f} s "
+              "(data, init, checkpoints included); kernel launches "
+              f"{launches[f'{name} loop']} (none on this path); the JAX "
+              "CLI's keys; losses "
+              + ", ".join(f"{r['loss']:.6e}" for r in train_rows)
+              + "; grad_norm " + ", ".join(f"{r['grad_norm']:.4e}"
+                                           for r in train_rows)
+              + f"; val loss {rows[-1]['loss']:.6e}; step_2 restores into "
+              "a fresh model", flush=True)
+        del fresh, state
+        return cfg, ckpt_dir
+
+    depth_cfg, _ = loop(train_depth, "depth", DEPTH_MODEL, DEPTH_TRAIN_KEYS,
+                        "depth")
+    dist_cfg, stage1_dir = loop(train_pefree, "distillation",
+                                DISTILLATION_MODEL, DISTILLATION_TRAIN_KEYS,
+                                "distillation")
+
+    # 18. one PE-free multiview step at the published widths, then the card
+    # against the CPU at B=1
+    cfg = presets.distillation_pefree_config().to_dict()
+    V, B = int(cfg["views"]), int(cfg["batch_size"])
+    ds = build_dataset(dist_cfg["dataset"], "train")
+    pefree_np = multiview_batch(ds, B, V)
+    model, lm, state = pipelines.init_stage("distillation", cfg, seed=SEED,
+                                            steps_per_epoch=2, device=dev)
+    step = pipelines.make_train_step("distillation", model, lm)
+    before = {k: v.clone() for k, v in model.named_parameters()}
+    reset_launches()
+    metrics = step(state, to_device(pefree_np, dev), step_generator(SEED, 0))
+    launches["pefree step"] = kernel_launches()
+    if launches["pefree step"] != (0, 0, 0):
+        fail(f"the PE-free step launched the kernels "
+             f"{launches['pefree step']} times: its path has none")
+    bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
+    if bad or "PEFreeMSELoss/loss" not in metrics:
+        fail(f"the PE-free step's metrics {sorted(metrics)} (non-finite: "
+             f"{bad})")
+    moved = {k for k, p in model.named_parameters()
+             if not torch.equal(p, before[k])}
+    must = {"learnable_pe_map", "pe_head_conv.weight", "pe_head_conv.bias",
+            "cam2map.vision_fusion.Conv_0.weight", "cam2map.z_proj.Dense_0"
+            ".weight", "dino_head.Conv_0.weight",
+            "depthcomp.vision_backbone.effnet.trunk.conv_stem.weight"}
+    if not must <= moved:
+        fail(f"the PE-free step left {sorted(must - moved)} still")
+    print(f"  PE-free step at B={B} x V={V} ({B * V} frames of "
+          f"{pefree_np['image'].shape[2]}x{pefree_np['image'].shape[3]}): "
+          f"loss {float(metrics['loss']):.6e}, PEFreeMSELoss "
+          f"{float(metrics['PEFreeMSELoss/loss']):.6e}, grad_norm "
+          f"{float(metrics['grad_norm']):.4e}; {len(moved)} of "
+          f"{len(before)} parameter tensors moved, the PE map, its head, "
+          "the splat's, the DINO head's and the stem's among them",
+          flush=True)
+
+    b1c = {k: torch.as_tensor(v[:1]) for k, v in pefree_np.items()}
+    b1 = {k: v.to(dev) for k, v in b1c.items()}
+    cpu_model = DistillationBackbone(cfg)
+    cpu_model.load_state_dict({k: cpu(v) for k, v in
+                               model.state_dict().items()}, strict=True)
+    masks = FedMasks(torch, 64, V)
+
+    def forward(m, b):
+        masks.calls = 0
+        out = m(b["image"], b["p2p"], drop_connect=masks)
+        discard_batch_stats(m)
+        return out
+
+    model.train()
+    cpu_model.train()
+    with torch.no_grad():
+        out = forward(model, b1)
+        out_cpu = forward(cpu_model, b1c)
+        Hs, Ws = out["depth_preds_metric"].shape[1:]
+        sp_cpu = cpu_model.cam2map(
+            cpu(out["depth_preds_metric"]).reshape(1, V, Hs, Ws),
+            cpu(out["dino_pefree_feats"]), b1c["p2p"])
+        discard_batch_stats(cpu_model)
+    nb = int(cfg["discretize"]["num_bins"])
+    Z = int(cfg["vision_backbone"]["effnet_cfgs"]["out_channels"])
+    D = int(cfg["fdn_embed_dim"])
+    Hg, Wg = model.cam2map.grid_hw
+    expected = {
+        "depth_preds_logits": (V, Hs, Ws, nb),
+        "depth_preds_metric": (V, Hs, Ws),
+        "depth_preds_feats": (V, Hs, Ws, Z),
+        "dino_pe": (1, Hs, Ws, D),
+        "dino_pefree_feats": (1, V, Hs, Ws, D),
+        "dino_pe_feats": (1, V, Hs, Ws, D),
+        "bev_features": (V, Hg, Wg, D),
+        "bev_densities": (V, Hg, Wg, 1),
+        "bev_coords": (V, Hs * Ws, 2),
+    }
+    rows_out, worst = [], 0.0
+    for k, shp in expected.items():
+        if tuple(out[k].shape) != shp or not bool(
+                torch.isfinite(out[k]).all()):
+            fail(f"PE-free {k}: shape {tuple(out[k].shape)} (expected "
+                 f"{shp}) or non-finite values")
+        if k.startswith("bev_"):
+            ref, what = sp_cpu[k], "splat from the card's inputs"
+        else:
+            ref, what = out_cpu[k], "backbone"
+        if k == "bev_densities":
+            rel = float((cpu(out[k]) - ref).abs().max()
+                        / ref.abs().max().clamp(min=1e-30))
+            bar = DENSITY_RTOL
+        else:
+            _, rel = max_rel(cpu(out[k]), ref)
+            bar = STAGE_RTOL
+        print(f"  PE-free card vs CPU {what} {k}: {rel:.3e} (bar {bar})",
+              flush=True)
+        if rel > bar:
+            fail(f"PE-free {k} card vs CPU: {rel:.3e} > {bar}")
+        worst = max(worst, rel)
+    rows_out.append(f"{len(expected)} train-mode maps <= {worst:.3e}")
+    overlap = {"name": "MSELoss", "tag": "Overlap", "overlap_only": True,
+               "pred_key": "outputs/dino_pe_feats",
+               "lab_key": "inputs/fimg_label"}
+    losses = LossManager({"loss": cfg["loss"] + [overlap]})
+    with torch.no_grad():
+        ld, meta = losses(pipelines.merge_tensor_dict(b1, out), {})
+    ld_cpu, meta_cpu = losses(pipelines.merge_tensor_dict(
+        b1c, {k: cpu(v) for k, v in out.items()}), {})
+    got_m = pipelines.loss_metrics(ld, meta)
+    want_m = pipelines.loss_metrics(ld_cpu, meta_cpu)
+    if got_m.keys() != want_m.keys() or len(ld) != 5:
+        fail(f"PE-free losses {sorted(got_m)} against {sorted(want_m)}")
+    worst = 0.0
+    for k, ref in want_m.items():
+        _, rel = max_rel(cpu(got_m[k]), ref)
+        if rel > SSC_LOSS_RTOL:
+            fail(f"PE-free loss {k}: {rel:.3e} > {SSC_LOSS_RTOL}")
+        worst = max(worst, rel)
+    coords = out["bev_coords"].reshape(1, V, Hs * Ws, 2)
+    hits = int(_bev_overlap_hits(coords[:, 0], coords[:, 1:].reshape(
+        1, -1, 2)).sum())
+    rows_out.append(f"{len(ld)} losses and {len(meta)} metrics <= "
+                    f"{worst:.3e} (" + ", ".join(
+                        f"{k} {float(v):.6e}" for k, v in want_m.items())
+                    + f"; {hits} of {(V - 1) * Hs * Ws} aug-view pixels "
+                    "within one voxel of an anchor pixel)")
+    print(f"phase pefree step: ok, B=1 x V={V} at full resolution; "
+          + "; ".join(rows_out), flush=True)
+    del cpu_model, out_cpu, state, model, out
+    torch.cuda.empty_cache()
+
+    # 19. timing: steps on inputs already on the card, the profile
+    def time_stage(name, stage, model_cfg, batch_np):
+        model, lm, state = pipelines.init_stage(stage, model_cfg, seed=SEED,
+                                                steps_per_epoch=2,
+                                                device=dev)
+        step = pipelines.make_train_step(stage, model, lm)
+        batch = to_device(batch_np, dev)
+        gens = iter([step_generator(SEED, i) for i in range(64)])
+
+        def one_step():
+            return step(state, batch, next(gens))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = time_ms(torch, one_step, iters=STAGE01_LOOP_STEPS, reps=3,
+                          warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                one_step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = union_us([(e.time_range.start, e.time_range.end)
+                            for e in prof.events() if e.device_type
+                            == torch.autograd.DeviceType.CUDA])
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        n = int(batch["image"].shape[0] * batch["image"].shape[1])
+        idle = max(0.0, 1 - busy_us / wall_us)
+        print(f"  {name} step: {step_ms:.3f} ms per step of {n} frames "
+              f"= {n * 1e3 / step_ms:.2f} frames/s; peak {peak:.2f} GiB; "
+              f"idle share {idle:.3f} over 2 profiled steps; top kernels: "
+              + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 2e3:.3f}"
+                          " ms/step" for e in top) + f" [{card}]",
+              flush=True)
+        del model, state, batch
+        torch.cuda.empty_cache()
+        return step_ms, peak, idle
+
+    def loader_batch(root_cfg, keys=("image", "p2p", "depth_label",
+                                     "fimg_label")):
+        B = int(root_cfg["model"]["batch_size"])
+        d = build_dataset(root_cfg["dataset"], "train")
+        samples = [d[i] for i in range(B)]
+        return {k: np.stack([s[k] for s in samples]) for k in keys}
+
+    timing = {
+        "depth": time_stage(
+            f"depth (stage 0, B={depth_cfg['model']['batch_size']})",
+            "depth", depth_cfg["model"], loader_batch(depth_cfg)),
+        "distillation": time_stage(
+            f"distillation (stage 1, B={dist_cfg['model']['batch_size']})",
+            "distillation", dist_cfg["model"], loader_batch(dist_cfg)),
+        "pefree": time_stage(f"PE-free (stage 1, B={B} x V={V})",
+                             "distillation", cfg, pefree_np),
+    }
+    print("phase timing stage 0/1: "
+          + "; ".join(f"{k} {ms:.3f} ms per step, peak {peak:.2f} GiB, "
+                      f"idle {idle:.3f}" for k, (ms, peak, idle)
+                      in timing.items())
+          + f" (CUDA events, inputs on the card, f32, TF32 off) [{card}]",
+          flush=True)
+    return stage1_dir, launches
+
+
 # the stage-2 trainer through its entry point: the groups it composes and
 # the dataset sizes (two training batches of batch_size, one of val)
 SSC_MODEL = "ssc_sam/terrainnet_supcon_sam2dynelev_jointdinopretrain"
@@ -818,9 +1206,10 @@ def tensor_gaps(got: dict, want: dict, keys) -> dict[str, float]:
             / max(float(want[k].abs().max()), 1e-2 * scale) for k in keys}
 
 
-def ssc_path(torch, dev, card: str) -> str:
+def ssc_path(torch, dev, card: str, stage1_dir: str) -> str:
     """Phases 13-15: the stage-2 trainer at the production preset through
-    its entry point (train_ssc.main), one step card vs CPU stage by stage,
+    its entry point (train_ssc.main) from the stage-1 checkpoints in
+    ``stage1_dir`` (the 1->2 graft), one step card vs CPU stage by stage,
     and the step's timing. Returns the directory of the stage-2
     checkpoints, which the stage-3 loop grafts from."""
     import os
@@ -848,6 +1237,7 @@ def ssc_path(torch, dev, card: str) -> str:
         step_generator,
         to_device,
     )
+    from creste_public_tpu_torch.training.surgery import make_stage_loader
 
     def cpu(t):
         return t.detach().cpu()
@@ -856,15 +1246,28 @@ def ssc_path(torch, dev, card: str) -> str:
         return (value_iteration_cuda.launches, expected_svf_cuda.launches,
                 rk.msfcn_head_cuda.launches)
 
-    # 13. the entry point: trainer=smoke (2 steps), validation, checkpoints
+    # 13. the entry point: trainer=smoke (2 steps), validation, checkpoints,
+    # the stage-1 model grafted into depthcomp and kept still by the
+    # scheduled freeze (its one epoch frozen)
     base = [f"model={SSC_MODEL}", f"dataset={SSC_DATASET}"]
     cfg = compose_cli("ssc_sam", base)
     B = int(cfg["model"]["batch_size"])
+    stage1 = ckpt.load_state_file(ckpt.latest_checkpoint(stage1_dir))["model"]
+    _, _, grafted = pipelines.init_stage("ssc", cfg["model"], seed=SEED + 2,
+                                         device=dev)
+    make_stage_loader("ssc", stage1_dir)(grafted)
+    sd = grafted.model.state_dict()
+    if any(not torch.equal(sd[f"depthcomp.{k}"].cpu(), v)
+           for k, v in stage1.items()):
+        fail("the stage-1 graft into depthcomp is not the stage-1 model")
+    del grafted, sd
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ssc_")
     ckpt_dir = os.path.join(tmp, "smoke")
     argv = ["trainer=smoke", *base, f"dataset.train.length={2 * B}",
             f"dataset.val.length={SSC_VAL_LENGTH}",
-            f"trainer.ckpt_dir={ckpt_dir}", "trainer.verbose=false"]
+            f"trainer.ckpt_dir={ckpt_dir}", "trainer.verbose=false",
+            f"model.weights_path={stage1_dir}",
+            "trainer.freeze_backbone_epochs=1"]
     torch.cuda.synchronize()
     value_iteration_cuda.launches = expected_svf_cuda.launches = 0
     rk.msfcn_head_cuda.launches = 0
@@ -902,7 +1305,14 @@ def ssc_path(torch, dev, card: str) -> str:
     if fresh.step != 2 or any(not torch.equal(v, sd[k]) for k, v in
                               fresh.model.state_dict().items()):
         fail("the stage-2 step_2 checkpoint does not restore the model")
-    print(f"phase ssc loop: ok, train_ssc.main(trainer=smoke) at B={B} ran "
+    kept = [k for k in stage1 if "running" not in k]
+    if any(not torch.equal(sd[f"depthcomp.{k}"].cpu(), stage1[k])
+           for k in kept):
+        fail("the frozen stage-2 backbone moved off the stage-1 graft")
+    print(f"phase ssc loop: ok, the stage-1 checkpoint grafts into "
+          f"depthcomp ({len(stage1)} tensors equal); the backbone frozen "
+          f"for the run keeps its {len(kept)} parameters; "
+          f"train_ssc.main(trainer=smoke) at B={B} ran "
           f"{state.step} steps + 1 validation batch in {run_s:.1f} s (data, "
           f"init, checkpoints included); kernel launches {launches} (none on "
           "this path); the JAX CLI's keys; losses "
@@ -1684,7 +2094,7 @@ def main() -> None:
           "cuDNN convolutions and matmuls", flush=True)
 
     # 1. build
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     report = _build.build()
     for name, r in report.items():
         ptxas = [ln.strip() for ln in r["log"].splitlines()
@@ -1942,19 +2352,37 @@ def main() -> None:
           f" GiB [{card}]", flush=True)
 
     # 5-8. the MDP kernels, the stage-3 objective, card vs CPU, timing
+    walls = {"phases 1-4": time.perf_counter() - t_start}
     mdp_kernel_checks(torch, dev)
     objective_ms, mdp_kernels = mdp_path(torch, dev, card)
+    walls["phases 5-8"] = time.perf_counter() - t_start - sum(walls.values())
 
-    # 13-15. the stage-2 trainer through its entry point, whose checkpoint
-    # the stage-3 trainer (9-12) then grafts from
+    # 16-19. the stage-0 and stage-1 trainers through their entry points;
+    # 13-15. the stage-2 trainer, which grafts the stage-1 checkpoint, and
+    # whose checkpoint the stage-3 trainer (9-12) then grafts
     import shutil
 
-    ssc_dir = ssc_path(torch, dev, card)
+    stage1_dir, stage01 = stage01_path(torch, dev, card)
+    walls["phases 16-19"] = (time.perf_counter() - t_start
+                             - sum(walls.values()))
+    ssc_dir = ssc_path(torch, dev, card, stage1_dir)
+    walls["phases 13-15"] = (time.perf_counter() - t_start
+                             - sum(walls.values()))
     train = train_path(torch, dev, card, objective_ms, ssc_dir)
-    shutil.rmtree(os.path.dirname(ssc_dir), ignore_errors=True)
+    walls["phases 9-12"] = (time.perf_counter() - t_start
+                            - sum(walls.values()))
+    print("wall time by phase group: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
+    for d in (stage1_dir, ssc_dir):
+        shutil.rmtree(os.path.dirname(d), ignore_errors=True)
     for k, name in zip(mdp_kernels, ("vi", "svf")):
         k["train_steps"] = train["train_steps"]
         k["train_launches"] = train[name]
+    # stages 0 and 1 launch none of the three (checked in their phases)
+    stage01_launches = [sum(v[i] for v in stage01.values())
+                        for i in range(3)]
+    for k, n in zip(mdp_kernels, stage01_launches):
+        k["stage01_launches"] = n
 
     print(json.dumps({"kernels": [{
         "name": "msfcn_head",
@@ -1969,6 +2397,7 @@ def main() -> None:
         "bound_by": head_bound_by,
         "library_ms": lib_ms,
         "library_conv_only_ms": conv_ms,
+        "stage01_launches": stage01_launches[2],
     }] + mdp_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,12 @@
 
 Counterpart of ``creste_public_tpu/cli.py``: ``python -m
 creste_public_tpu_torch.train_ssc trainer=smoke model.batch_size=4 ...``
-(or ``train_traversability``) composes the stage's root config from the
-plain-dict groups of ``config.groups`` (group selections + dotted
-overrides) and runs the stage's training loop on the synthetic dataset. The port has no
-``JAX_PLATFORMS``: ``trainer.device`` (default ``cuda``) picks the device,
-and ``trainer.device=cpu`` runs on the CPU.
+(or ``train_depth``, ``train_pefree``, ``train_traversability``) composes
+the stage's root config from the plain-dict groups of ``config.groups``
+(group selections + dotted overrides) and runs the stage's training loop
+on the synthetic dataset. The port has no ``JAX_PLATFORMS``:
+``trainer.device`` (default ``cuda``) picks the device, and
+``trainer.device=cpu`` runs on the CPU.
 """
 from __future__ import annotations
 

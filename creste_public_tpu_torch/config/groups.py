@@ -1,16 +1,20 @@
-"""The config groups the stage-2 and stage-3 commands compose, as plain
-dicts, and the hydra-style composition over them.
+"""The config groups the training commands compose, as plain dicts, and
+the hydra-style composition over them.
 
 Copies of the JAX package's ``configs/`` YAML files (the port and the
-card's machine have no YAML): the roots ``ssc_sam.yaml`` and
-``traversability.yaml``,
+card's machine have no YAML): the roots ``depth.yaml``,
+``distillation.yaml``, ``ssc_sam.yaml`` and ``traversability.yaml``,
+``model/distillation/{depth_only,effnet_ds4_dinov2_128,tiny}``,
 ``model/ssc_sam/{terrainnet_supcon_sam2dynelev_jointdinopretrain,tiny}``,
 ``model/traversability/{terrainnet_maxentirlcf_msfcn_sam2dynsemelev,tiny}``,
 ``trainer/{smoke,standard,standard_single}`` and
-``dataset/{synthetic_ssc,synthetic_traversability,synthetic_tiny}``. The
-model files are the presets (``presets.terrainnet_model_config`` and
-``presets.traversability_model_config`` at their published shapes, and at
-the tiny shapes with the full trunk and ``batch_size`` 2).
+``dataset/{synthetic_pefree,synthetic_ssc,synthetic_traversability,
+synthetic_tiny}``. The model files are the presets
+(``presets.distillation_model_config``, ``presets.terrainnet_model_config``
+and ``presets.traversability_model_config`` at their published shapes, and
+at the tiny shapes with the full trunk and ``batch_size`` 2; the stage-0
+``depth_only`` is the stage-1 preset without its DINO head and loss, at
+``batch_size`` 8).
 ``compose_cli`` is ``config.compose_cli`` of the JAX package over these
 dicts.
 """
@@ -38,6 +42,16 @@ def _tiny(make_config, **kw) -> dict:
     return cfg
 
 
+def _depth_only() -> dict:
+    cfg = presets.distillation_model_config().to_dict()
+    del cfg["distillation_head"]
+    cfg["loss"] = [lc for lc in cfg["loss"] if lc["name"] != "MSELoss"]
+    cfg["project_name"] = "DepthCompletion"
+    cfg["vision_backbone"]["class_name"] = "DepthCompletion"
+    cfg["batch_size"] = 8
+    return cfg
+
+
 def _trainer(**kw) -> dict:
     cfg = {"max_epochs": 50, "max_steps": -1, "devices": None,
            "log_every_n_steps": 10, "check_val_every_n_epoch": 1,
@@ -54,6 +68,26 @@ def _synthetic(train_length: int, val_length: int, **shape) -> dict:
 
 
 ROOTS = {
+    "depth": {
+        "defaults": [
+            {"dataset": "synthetic_pefree"},
+            {"model": "distillation/depth_only"},
+            {"trainer": "standard"},
+            "_self_",
+        ],
+        "stage": "depth",
+        "task": None,
+    },
+    "distillation": {
+        "defaults": [
+            {"dataset": "synthetic_pefree"},
+            {"model": "distillation/effnet_ds4_dinov2_128"},
+            {"trainer": "standard"},
+            "_self_",
+        ],
+        "stage": "distillation",
+        "task": None,
+    },
     "ssc_sam": {
         "defaults": [
             {"dataset": "synthetic_ssc"},
@@ -80,6 +114,8 @@ ROOTS = {
 
 GROUPS = {
     "dataset": {
+        "synthetic_pefree": _synthetic(
+            32, 8, image_size=[512, 612], ds=4, fdn_dim=128),
         "synthetic_ssc": _synthetic(
             32, 8, image_size=[512, 612], ds=4, fdn_dim=128, grid=256,
             map_range=12.8),
@@ -91,6 +127,12 @@ GROUPS = {
             map_range=1.6, horizon=10),
     },
     "model": {
+        "distillation/depth_only": _depth_only(),
+        "distillation/effnet_ds4_dinov2_128":
+            presets.distillation_model_config().to_dict(),
+        "distillation/tiny": dict(
+            presets.distillation_model_config(**presets.tiny_kwargs())
+            .to_dict(), batch_size=2),
         "ssc_sam/terrainnet_supcon_sam2dynelev_jointdinopretrain":
             presets.terrainnet_model_config().to_dict(),
         "ssc_sam/tiny": _tiny(presets.terrainnet_model_config),

@@ -1,9 +1,10 @@
 """Programmatic config presets: a plain-dict copy of the JAX package's
 ``config/presets.py`` for the models the port runs.
 
-Values and structure are the reference's (stage-2 TerrainNet, stage-3
-MaxEntIRL). The tiny_* presets build structurally identical miniature
-models for CPU tests.
+Values and structure are the reference's (stage-1 DistillationBackbone,
+single-view and PE-free multiview, stage-2 TerrainNet, stage-3 MaxEntIRL).
+The tiny_* presets build structurally identical miniature models for CPU
+tests.
 """
 from __future__ import annotations
 
@@ -80,6 +81,62 @@ def distillation_model_config(
             ],
         }
     )
+
+
+def distillation_pefree_config(
+    image_size=(512, 612),
+    grid: int = 256,
+    map_range: float = 12.8,
+    depth_embed_dim: int = 256,
+    fdn_embed_dim: int = 128,
+    num_depth_bins: int = 128,
+    depth_max: int = 25600,
+    num_views: int = 2,
+    z_embed_dim: int = 32,
+) -> Config:
+    """Stage-1 PE-free multiview variant: learnable PE map + multiview
+    splat + PEFreeMSELoss consistency (distillation.py:58-127, the code
+    path behind the reference's PE-free training; no public YAML exists,
+    so this preset IS the config surface)."""
+    base = distillation_model_config(
+        image_size, depth_embed_dim, fdn_embed_dim, num_depth_bins, depth_max
+    )
+    hs, ws = image_size[0] // 4, image_size[1] // 4
+    voxel = 2 * map_range / grid
+    base.update(Config({
+        "project_name": "Dinov2PEFreeDistillation",
+        "views": num_views + 1,
+        "multiview_distillation": True,
+        "fdn_embed_dim": fdn_embed_dim,
+        "pe_map": {"height": hs // 2, "width": ws // 2, "use_norm": False},
+        "camera_projector": {
+            "name": "Cam2MapMulti",
+            "voxel_size": [voxel, voxel, 3],
+            "point_cloud_range": [
+                -map_range, -map_range, -2, map_range, map_range, 1
+            ],
+            "embed_z": True,
+            "z_embed_dim": z_embed_dim,
+            "z_embed_mode": "mlp",
+            "num_cams": 1,
+            "splat_key": "depth_preds_feats",
+            "vision_fusion": {
+                "name": "ConvEncoder",
+                "dims": [fdn_embed_dim + z_embed_dim, fdn_embed_dim],
+                "kernels": [1],
+                "paddings": [0],
+                "norm_type": "batch_norm",
+            },
+        },
+        "loss": list(base["loss"]) + [
+            {"name": "PEFreeMSELoss", "weight": 1.0,
+             "num_views": num_views,
+             "pred_key": "outputs/bev_features",
+             "lab_key": "outputs/bev_densities",
+             "density_threshold": 1e-3},
+        ],
+    }))
+    return base
 
 
 def terrainnet_model_config(
@@ -296,6 +353,28 @@ def _shrink_trunk(cfg: Config) -> Config:
         vb = vb["vision_backbone"]
     vb["effnet_cfgs"]["stage_repeats"] = 1
     return cfg
+
+
+def tiny_distillation_config() -> Config:
+    """Stage-1 single-view miniature."""
+    return _shrink_trunk(distillation_model_config(**tiny_kwargs()))
+
+
+def tiny_depth_config() -> Config:
+    """Stage-0 depth-only miniature (configs/model/distillation/
+    depth_only.yaml shapes, CPU-friendly)."""
+    base = distillation_model_config(**tiny_kwargs())
+    base["project_name"] = "DepthCompletion"
+    del base["distillation_head"]
+    base["loss"] = [lc for lc in base["loss"] if lc["name"] != "MSELoss"]
+    return _shrink_trunk(base)
+
+
+def tiny_pefree_config() -> Config:
+    """Stage-1 PE-free multiview miniature (V=2 views)."""
+    return _shrink_trunk(distillation_pefree_config(
+        grid=32, map_range=1.6, num_views=1, z_embed_dim=8, **tiny_kwargs()
+    ))
 
 
 def tiny_terrainnet_config() -> Config:

@@ -3,7 +3,8 @@ the stage-3 MaxEnt-IRL loss.
 
 Counterpart of ``creste_public_tpu/losses/manager.py`` (``Loss``, the
 depth, regression, distillation, BEV cross-entropy and SAM-contrastive
-losses of stage 2, ``MaxEntIRLLoss``, ``LossManager``). Losses read
+losses of stages 0-2, the PE-free multiview consistency loss of stage 1,
+``MaxEntIRLLoss``, ``LossManager``). Losses read
 predictions, labels and masks from the merged dict keyed ``inputs/...`` /
 ``outputs/...`` and return ``{name: (weight, value)}`` plus a metadata
 dict, under the JAX package's keys. All maps are NHWC. The other losses of
@@ -31,7 +32,7 @@ from creste_public_tpu_torch.utils.imageops import (
 )
 
 # losses of the JAX package's registry that the port does not have yet
-_NOT_PORTED = ("PEFreeMSELoss", "FocalLoss", "BCActionLoss", "TREXLoss",
+_NOT_PORTED = ("FocalLoss", "BCActionLoss", "TREXLoss",
                "BalancedContrastiveLoss", "VicregLoss")
 
 
@@ -162,19 +163,99 @@ class SmoothL1(Loss):
         return {"val": loss}, {}
 
 
+def _bev_overlap_hits(anchor_xy: torch.Tensor, aug_xy: torch.Tensor,
+                      threshold: float = 1.0, chunk: int = 4096
+                      ) -> torch.Tensor:
+    """For each aug-view pixel, whether ANY anchor pixel lies within L2
+    ``threshold`` of its BEV coordinate (strictly, ``d2 < threshold**2``).
+
+    A full cdist is [N, N*V] pairs per element, so the anchors go in chunks
+    with a running any. The squared distance is ``dx*dx + dy*dy`` in f32, as
+    the JAX package sums it: ``torch.cdist`` or the |a|^2 + |b|^2 - 2ab
+    expansion round otherwise and flip points on the boundary.
+
+    anchor_xy [B, N, 2], aug_xy [B, M, 2] -> [B, M] bool.
+    """
+    thr2 = threshold * threshold
+    ax, ay = anchor_xy.float().unbind(-1)  # [B, N]
+    qx, qy = (c[:, :, None] for c in aug_xy.float().unbind(-1))  # [B, M, 1]
+    hits = torch.zeros(aug_xy.shape[:2], dtype=torch.bool,
+                       device=aug_xy.device)
+    for s in range(0, anchor_xy.shape[1], chunk):
+        dx = qx - ax[:, None, s:s + chunk]
+        dy = qy - ay[:, None, s:s + chunk]
+        hits |= (dx * dx + dy * dy < thr2).any(-1)
+    return hits
+
+
 class MSELoss(Loss):
     """Dense feature-distillation MSE over the finite labels (reference
-    loss_utils.py:606-647). The BEV-overlap variant (``overlap_only``)
-    needs the multiview BEV coordinates and is not ported yet."""
+    loss_utils.py:606-647).
+
+    ``overlap_only: true`` is the BEV-overlap variant (reference
+    train_utils.py:355-440): the MSE on the anchor view plus, per batch
+    element, the MSE over the aug-view pixels whose BEV coordinate
+    (``coords_key``, the multiview splat's ``bev_coords``) lies within one
+    voxel of any anchor pixel's, summed (not averaged) over the batch. An
+    element with no overlapping pixel adds 0."""
 
     def loss(self, td, aux):
-        if self.config.get("overlap_only", False):
-            raise NotImplementedError("MSELoss with overlap_only")
         pred = td[self.config["pred_key"]]
         gt = td[self.config["lab_key"]]
+        if self.config.get("overlap_only", False):
+            return {"loss": self._overlap_loss(td, pred, gt)}, {}
         valid = ~torch.isinf(gt)
         gt_safe = torch.where(valid, gt, torch.zeros_like(gt))
         return {"loss": masked_mean((pred - gt_safe) ** 2, valid)}, {}
+
+    def _overlap_loss(self, td, pred, gt):
+        coords = td[self.config.get("coords_key", "outputs/bev_coords")]
+        B, V, H, W, Z = pred.shape
+        fin_a = ~torch.isinf(gt[:, 0])
+        anchor = masked_mean(
+            (pred[:, 0] - torch.where(fin_a, gt[:, 0],
+                                      torch.zeros_like(gt[:, 0]))) ** 2,
+            fin_a)
+        if V == 1:
+            return anchor
+        coords = coords.reshape(B, V, H * W, 2)
+        hits = _bev_overlap_hits(
+            coords[:, 0], coords[:, 1:].reshape(B, (V - 1) * H * W, 2))
+        gt_aug = gt[:, 1:].reshape(B, -1, Z)
+        fin = ~torch.isinf(gt_aug)
+        diff2 = (pred[:, 1:].reshape(B, -1, Z)
+                 - torch.where(fin, gt_aug, torch.zeros_like(gt_aug))
+                 ) ** 2 * fin
+        w = hits.to(pred.dtype)[..., None]
+        per_b = (diff2 * w).sum((1, 2)) / torch.clamp(
+            (w * fin).sum((1, 2)), min=1.0)
+        return per_b.sum() + anchor
+
+
+class PEFreeMSELoss(Loss):
+    """Multiview consistency of the splatted PE-free features (reference
+    loss_utils.py:650-734): the MSE between the anchor view's BEV features
+    and each other view's, over the cells where the normalised log of the
+    two densities' product exceeds ``density_threshold``."""
+
+    def loss(self, td, aux):
+        pred = td[self.config["pred_key"]]  # [B*V, H, W, Z]
+        density = td[self.config["lab_key"]]  # [B*V, H, W, 1]
+        V = int(self.config["num_views"]) + 1
+        thr = float(self.config.get("density_threshold", 1e-3))
+        BV, H, W, Z = pred.shape
+        B = BV // V
+        pred = pred.reshape(B, V, H, W, Z)
+        density = density.reshape(B, V, H, W, 1)
+        overlap = pred[:, 1:]
+        anchor = pred[:, :1].expand_as(overlap)
+        log_d = torch.log(density[:, :1] * density[:, 1:] + 1e-5)
+        log_d = log_d - log_d.amin(1, keepdim=True)
+        log_d = log_d / (log_d.amax(1, keepdim=True)
+                         - log_d.amin(1, keepdim=True) + 1e-5)
+        valid = (log_d > thr).detach()
+        return {"loss": masked_mean((anchor - overlap) ** 2,
+                                    valid.expand_as(overlap))}, {}
 
 
 class CrossEntropy(Loss):
@@ -363,8 +444,8 @@ class MaxEntIRLLoss(Loss):
 
 _REGISTRY: dict[str, type[Loss]] = {
     cls.__name__: cls for cls in (
-        CrossEntropyDepth, SmoothL1Depth, SmoothL1, MSELoss, CrossEntropy,
-        SupPixelConLoss, MaxEntIRLLoss)}
+        CrossEntropyDepth, SmoothL1Depth, SmoothL1, MSELoss, PEFreeMSELoss,
+        CrossEntropy, SupPixelConLoss, MaxEntIRLLoss)}
 
 
 def make_loss(config: Any) -> Loss:

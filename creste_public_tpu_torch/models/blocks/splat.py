@@ -3,8 +3,9 @@
 Counterpart of ``creste_public_tpu/models/blocks/splat.py`` (reference
 Camera2MapMulti, splat_projection.py:53-354): depth + p2p -> LiDAR-frame
 points -> z-MLP elevation embedding -> 1x1-conv vision fusion -> in-range
-mask -> voxel coords -> bilinear mean splat. The movability-mask training
-branch and the max-mode splat of multiview distillation are not ported.
+mask -> voxel coords -> bilinear splat, in mean mode (TerrainNet) or in max
+mode (the multiview distillation branch). The movability-mask training
+branch is not ported.
 """
 from __future__ import annotations
 
@@ -25,10 +26,12 @@ class Camera2MapMulti(nn.Module):
     cfg keys: point_cloud_range [xmin, ymin, zmin, xmax, ymax, zmax],
     voxel_size [vx, vy, vz], z_embed_dim, z_embed_mode ('mlp'), num_cams,
     vision_fusion (ConvEncoder cfg, dims [F + z_embed_dim, C]).
+    ``scatter_mode`` is the splat's mode ('mean', 'sum' or 'max').
     """
 
-    def __init__(self, cfg: Any):
+    def __init__(self, cfg: Any, scatter_mode: str = "mean"):
         super().__init__()
+        self.scatter_mode = scatter_mode
         if cfg.get("z_embed_mode", "mlp") != "mlp":
             raise ValueError(f"Unknown z_embed_mode: {cfg['z_embed_mode']}")
         pcr = np.asarray(list(cfg["point_cloud_range"]), np.float32)
@@ -71,16 +74,21 @@ class Camera2MapMulti(nn.Module):
         fused = fused.permute(0, 2, 3, 1).reshape(B, N, H, W, -1)
         C = fused.shape[-1]
 
-        mask = geo.point_in_range_mask(xyz, self.min_bound, self.max_bound)
+        # the geometry is f32 whatever the features' dtype, as in the JAX
+        # package: a module cast to f64 keeps its constants f32 here
+        g = xyz.dtype
+        mask = geo.point_in_range_mask(xyz, self.min_bound.to(g),
+                                       self.max_bound.to(g))
         fused = fused * mask[..., None]
 
         if N % self.nc:
             raise ValueError(f"Number of frames must be divisible by {self.nc}")
         ns = N // self.nc
-        xy = geo.points_to_voxels(xyz, self.l2m, self.voxel_xy)
+        xy = geo.points_to_voxels(xyz, self.l2m.to(g),
+                                  self.voxel_xy.to(g))
         xy = xy.reshape(B * ns, self.nc * H * W, 2)
         fused = fused.reshape(B * ns, self.nc * H * W, C)
 
         bev, dens = splat_to_bev(xy, fused, self.grid_hw,
-                                 mode="mean", min_weight=1.0)
+                                 mode=self.scatter_mode, min_weight=1.0)
         return {"bev_features": bev, "bev_densities": dens, "bev_coords": xy}

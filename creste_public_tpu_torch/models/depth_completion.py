@@ -3,7 +3,8 @@
 Counterpart of ``creste_public_tpu/models/depth_completion.py``. The EffNet
 trunk gives ``depth_embed_dim`` features at downsample ``ds``; a
 MultiLayerConv head gives per-bin depth logits; the metric depth is the
-softmax expectation over the bin values, in metres.
+softmax expectation over the bin values, in metres. ``DepthCompletionModel``
+is the stage-0 (depth-only) model over multiview frames.
 """
 from __future__ import annotations
 
@@ -37,6 +38,25 @@ class VisionEncoder(nn.Module):
     def forward(self, x: torch.Tensor,
                 drop_connect: DropConnect = None) -> torch.Tensor:
         return self.effnet(x, drop_connect)[0]
+
+
+class DepthCompletionModel(nn.Module):
+    """The stage-0 model: frames [B, V, H, W, C] -> the DepthCompletion
+    outputs over B*V frames (the reference's depth-only stage,
+    CODaDepthModule)."""
+
+    def __init__(self, cfg: Any):
+        super().__init__()
+        self.depthcomp = DepthCompletion(cfg)
+
+    def forward(self, rgbd: torch.Tensor, p2p: torch.Tensor | None = None,
+                drop_connect: DropConnect = None
+                ) -> dict[str, torch.Tensor]:
+        """``p2p`` is not read (the stages share their positional
+        arguments)."""
+        B, V, H, W, C = rgbd.shape
+        return dict(self.depthcomp(rgbd.reshape(B * V, H, W, C),
+                                   drop_connect))
 
 
 class DepthCompletion(nn.Module):

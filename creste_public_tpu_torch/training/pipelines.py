@@ -5,8 +5,8 @@ model arguments of a stage, the merged tensor dict that the losses read
 (``inputs/<batch key>``, ``outputs/<model key>``, ``task``), the loss
 closure (stage 2 hands SupCon its priority source, stage 3 the IRL
 penalty's ``reward_fn``), ``init_stage`` and ``make_train_step`` with the
-epoch-scheduled backbone freeze. Stages 2 (``ssc``) and 3
-(``traversability``) are ported; the others raise ``NotImplementedError``.
+epoch-scheduled backbone freeze, for the four stages: ``depth`` (0),
+``distillation`` (1), ``ssc`` (2) and ``traversability`` (3).
 """
 from __future__ import annotations
 
@@ -20,6 +20,10 @@ from creste_public_tpu_torch import weights
 from creste_public_tpu_torch.losses.manager import LossManager
 from creste_public_tpu_torch.losses.supcon import PrioritySource
 from creste_public_tpu_torch.models.blocks.effnet import DropConnect
+from creste_public_tpu_torch.models.depth_completion import (
+    DepthCompletionModel,
+)
+from creste_public_tpu_torch.models.distillation import DistillationBackbone
 from creste_public_tpu_torch.models.lfd import MaxEntIRL
 from creste_public_tpu_torch.models.terrainnet import TerrainNet
 from creste_public_tpu_torch.training import optim
@@ -31,17 +35,17 @@ from creste_public_tpu_torch.training.state import (
 )
 from creste_public_tpu_torch.utils.device import resolve_device
 
-STAGES = ("depth", "distillation", "ssc", "traversability")
-_MODELS = {"ssc": TerrainNet, "traversability": MaxEntIRL}
+_MODELS = {"depth": DepthCompletionModel,
+           "distillation": DistillationBackbone, "ssc": TerrainNet,
+           "traversability": MaxEntIRL}
+STAGES = tuple(_MODELS)
 
 
 def build_model(stage: str, cfg: Any) -> nn.Module:
     cfg = cfg.to_dict() if hasattr(cfg, "to_dict") else cfg
-    if stage in _MODELS:
-        return _MODELS[stage](cfg)
-    if stage in STAGES:
-        raise NotImplementedError(f"stage {stage!r} is not ported yet")
-    raise ValueError(f"Unknown stage: {stage} (expected one of {STAGES})")
+    if stage not in _MODELS:
+        raise ValueError(f"Unknown stage: {stage} (expected one of {STAGES})")
+    return _MODELS[stage](cfg)
 
 
 def model_inputs(stage: str, batch: dict) -> tuple:
@@ -90,9 +94,12 @@ def loss_aux(stage: str, model: nn.Module,
     """The ``aux`` a stage's losses read: stage 3 the IRL penalty's
     ``reward_fn`` (``model.reward``: the reward net in its eval form, on
     the running statistics from before the step, pipelines.py:154-160 of
-    the JAX package); stage 2 SupCon's priority source, which it needs."""
+    the JAX package); stage 2 SupCon's priority source, which it needs;
+    stages 0 and 1 nothing (no loss of theirs draws at random)."""
     if stage == "traversability":
         return {"reward_fn": model.reward}
+    if stage != "ssc":
+        return {}
     if priorities is None:
         raise ValueError("stage 2 needs SupCon's priorities: give the step a "
                          "torch.Generator or pass priorities=")
@@ -105,8 +112,6 @@ def make_loss_closure(stage: str, model: nn.Module,
     """loss_and_metrics(batch, drop_connect, priorities=None) -> (total,
     metrics), with the model in whatever mode the caller set
     (``train_step`` sets training) and the stage's ``loss_aux``."""
-    if stage not in _MODELS:
-        raise NotImplementedError(f"stage {stage!r} is not ported yet")
 
     def loss_and_metrics(batch: dict, drop_connect: DropConnect,
                          priorities: PrioritySource = None):

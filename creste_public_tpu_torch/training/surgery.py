@@ -1,15 +1,21 @@
-"""Cross-stage checkpoint surgery for stages 2 and 3: load a previous
-stage's checkpoint into the next stage's model.
+"""Cross-stage checkpoint surgery: load a checkpoint of the same stage,
+or a previous stage's into the next stage's model.
 
-Counterpart of ``creste_public_tpu/training/surgery.py`` for the stages
-the port trains. The stages nest: a stage-1 DistillationBackbone IS
-TerrainNet's ``depthcomp`` submodule, and a stage-2 TerrainNet IS
-MaxEntIRL's ``backbone``, so a previous stage's checkpoint grafts in whole
-under that submodule; a checkpoint of the same stage (the same top-level
-modules) is restored whole, except the subtrees a ``ft_decoders_*`` load
-setting re-initialises. Checkpoints are the port's torch files
-(``training/checkpoint.py``). Freeze policies belong to the optimizer
-(``optim.LOAD_SETTING_FROZEN``), not here.
+Counterpart of ``creste_public_tpu/training/surgery.py``. The stages nest:
+a stage-1 DistillationBackbone IS TerrainNet's ``depthcomp`` submodule, and
+a stage-2 TerrainNet IS MaxEntIRL's ``backbone``, so a previous stage's
+checkpoint grafts in whole under that submodule; a checkpoint of the same
+stage (the same top-level modules) is restored whole, except the subtrees
+a ``ft_decoders_*`` load setting re-initialises. Stages 0 and 1 have no
+submodule to graft into: they restore only their own stage's checkpoints
+(the JAX package restores a stage-0 tree into stage 1 whole, without the
+``dino_head``, and its step then fails). A checkpoint with tensors that the
+submodule lacks (a PE-free stage-1 model's PE map, PE head and multiview
+splat, which TerrainNet's ``depthcomp`` does not have) is refused: the JAX
+package grafts them and its first training step fails on the optimizer's
+tree. Checkpoints are the port's torch files (``training/checkpoint.py``).
+Freeze policies belong to the optimizer (``optim.LOAD_SETTING_FROZEN``),
+not here.
 """
 from __future__ import annotations
 
@@ -58,10 +64,9 @@ def make_stage_loader(stage: str, weights_path: str,
                       load_setting: str = "strict"
                       ) -> Callable[[TrainState], TrainState]:
     """Returns load(state) -> state with the checkpoint at ``weights_path``
-    loaded into ``state.model`` in place."""
-    if stage not in STAGE_SUBMODULE:
-        raise NotImplementedError(f"stage {stage!r} is not ported yet")
-    sub = STAGE_SUBMODULE[stage]
+    loaded into ``state.model`` in place; raises ValueError on a checkpoint
+    that is neither of the stage nor graftable into it."""
+    sub = STAGE_SUBMODULE.get(stage)
 
     def load(state: TrainState) -> TrainState:
         raw = load_raw_checkpoint(weights_path)
@@ -72,8 +77,19 @@ def make_stage_loader(stage: str, weights_path: str,
                 raw = {k: target[k] if skip(k) else v
                        for k, v in raw.items()}
             state.model.load_state_dict(raw, strict=True)
-        else:
-            getattr(state.model, sub).load_state_dict(raw, strict=True)
+            return state
+        if sub is None:
+            raise ValueError(
+                f"stage {stage!r} restores only a checkpoint of its own "
+                f"stage (modules {sorted(_top(target))}); {weights_path} "
+                f"holds {sorted(_top(raw))}")
+        module = getattr(state.model, sub)
+        extra = _top(set(raw) - set(module.state_dict()))
+        if extra:
+            raise ValueError(
+                f"{weights_path} holds {sorted(extra)}, which the {stage} "
+                f"model's {sub!r} does not have: it does not graft")
+        module.load_state_dict(raw, strict=True)
         return state
 
     return load

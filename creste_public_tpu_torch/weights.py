@@ -10,6 +10,8 @@ state_dict key by one rule table:
   params/<path>/scale   -> <path>.weight            (BatchNorm)
   batch_stats/<path>/mean -> <path>.running_mean
   batch_stats/<path>/var  -> <path>.running_var
+  params/<path>/learnable_pe_map  NHWC [1, h, w, C] -> <path>.learnable_pe_map
+                        NCHW [1, C, h, w]   (the PE-free distillation map)
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from creste_public_tpu_torch.models.blocks.convnets import BatchNorm
 
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+_PE_MAP = "learnable_pe_map"
 
 
 def from_jax_variables(flat: Mapping[str, np.ndarray]
@@ -45,6 +48,8 @@ def from_jax_variables(flat: Mapping[str, np.ndarray]
                 else:
                     raise ValueError(f"{key}: kernel of rank {arr.ndim}")
             name = _PARAM_LEAVES[leaf]
+        elif coll == "params" and leaf == _PE_MAP and arr.ndim == 4:
+            arr, name = arr.transpose(0, 3, 1, 2), _PE_MAP
         elif coll == "batch_stats" and leaf in _STAT_LEAVES:
             name = _STAT_LEAVES[leaf]
         else:
@@ -70,10 +75,14 @@ def init_weights(module: nn.Module, seed: int) -> nn.Module:
     Conv and dense weights are lecun-normal (std 1/sqrt(fan_in), the flax
     default), biases zero, BN scale 1 and bias 0. BN running statistics are
     jittered (mean |0.3 N|, var |1 + 0.3 N|) so that the reward head's BN
-    fold has real work to do.
+    fold has real work to do. A PE-free distillation map is 0.05 N, its
+    flax init.
     """
     g = torch.Generator().manual_seed(seed)
     for m in module.modules():
+        pe = getattr(m, _PE_MAP, None)
+        if isinstance(pe, nn.Parameter):
+            pe.copy_(0.05 * torch.randn(pe.shape, generator=g))
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             w = m.weight
             fan_in = w[0].numel()

@@ -76,7 +76,8 @@ def test_distillation_backbone():
     out, ref = _run(JDB(cfg), DistillationBackbone(cfg), _rgbd())
     _check(out, ref, 1e-4, 5e-4)
     with pytest.raises(NotImplementedError):
-        DistillationBackbone(dict(cfg, pe_map={"height": 4, "width": 4}))
+        DistillationBackbone(dict(cfg, distillation_head={
+            "feature_head": {"name": "ViT"}}))
 
 
 def test_terrainnet():

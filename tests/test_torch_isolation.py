@@ -141,3 +141,57 @@ def test_entry_point_defaults_to_cuda(monkeypatch):
     cfg = presets.tiny_traversability_config()
     with pytest.raises(RuntimeError, match="CUDA"):
         export.build_inference_fn(cfg, {})
+
+
+@pytest.mark.parametrize("stage, make_cfg", [
+    ("depth", lambda: jpresets.tiny_depth_config().to_dict() | {
+        "vision_backbone": jpresets.distillation_model_config(
+            image_size=(64, 80))["vision_backbone"].to_dict(),
+        "depth_head": jpresets.distillation_model_config()[
+            "depth_head"].to_dict(),
+        "discretize": jpresets.discretize_cfg()}),
+    ("distillation", lambda: jpresets.distillation_model_config(
+        image_size=(64, 80)).to_dict()),
+    ("distillation", lambda: jpresets.distillation_pefree_config(
+        image_size=(64, 80)).to_dict()),
+    ("distillation", lambda: jpresets.distillation_pefree_config(
+        image_size=(64, 80)).to_dict() | {
+            "pe_map": {"height": 8, "width": 10, "use_norm": True}}),
+], ids=["depth", "distillation", "pefree", "pefree_bn"])
+def test_weight_import_covers_stage01_trees(stage, make_cfg):
+    """The flax trees of the stage-0 and stage-1 models at the published
+    widths (the PE-free one with its ``learnable_pe_map``, ``pe_head_conv``,
+    ``pe_head_bn`` and multiview ``cam2map``) load strictly, every state
+    key from a leaf; the seeded init gives the PE map its 0.05 N."""
+    from creste_public_tpu.training import pipelines as jpipelines
+    from creste_public_tpu_torch.training import pipelines
+
+    cfg = make_cfg()
+    views = int(cfg.get("views", 1))
+    rgbd = np.zeros((1, views, 64, 80, 4), np.float32)
+    p2p = np.tile(np.eye(4, dtype=np.float32), (1, views, 1, 1))
+    jm = jpipelines.build_model(stage, cfg)
+    tree = jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.PRNGKey(0)}, rgbd, p2p))
+    flat = {k: np.zeros(v.shape, np.float32)
+            for k, v in flatten_dict(dict(tree), sep="/").items()}
+    model = pipelines.build_model(stage, cfg)
+    sd = from_jax_variables(flat)
+    model.load_state_dict(sd, strict=True)
+    assert set(model.state_dict()) == set(sd)
+    pe = getattr(weights.init_weights(model, 0), "learnable_pe_map", None)
+    assert (pe is not None) == ("pe_map" in cfg)
+    if pe is not None:
+        assert 0.03 < float(pe.detach().std()) < 0.07
+
+
+@pytest.mark.parametrize("entry", ["train_depth", "train_pefree"])
+def test_stage01_entry_points_default_to_cuda(entry):
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    main = importlib.import_module(f"creste_public_tpu_torch.{entry}").main
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["trainer=smoke", "dataset=synthetic_tiny",
+              "model=distillation/tiny"])

@@ -274,10 +274,12 @@ def test_mse_loss_matches_jax():
            "lab_key": "inputs/fimg_label", "overlap_only": False}
     got, _ = _run_both(cfg, _bev_td(np.random.default_rng(4)))
     assert np.isfinite(float(got["loss"][1]))
-    with pytest.raises(NotImplementedError, match="overlap_only"):
-        manager.make_loss(dict(cfg, overlap_only=True))(
-            {k: torch.from_numpy(np.asarray(v)) for k, v in
-             _bev_td(np.random.default_rng(4)).items()})
+    # the BEV-overlap variant at one view is the anchor view's MSE
+    td = _bev_td(np.random.default_rng(4))
+    td["outputs/bev_coords"] = np.zeros((2, 6 * 7, 2), np.float32)
+    over, _ = _run_both(dict(cfg, overlap_only=True), td)
+    assert float(over["loss"][1]) == pytest.approx(float(got["loss"][1]),
+                                                   rel=1e-6)
 
 
 @pytest.mark.parametrize("variant", ["class_dim", "argmax", "ignore",

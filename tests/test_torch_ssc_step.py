@@ -42,7 +42,6 @@ port's Adam count, gate effect and first-step statistics;
 ``test_adam_replay_across_gate_flip`` holds Adam's update across the gate
 flip on the JAX gradients to 1e-6.
 """
-import contextlib
 import copy
 import functools
 
@@ -51,7 +50,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from flax.traverse_util import flatten_dict
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from creste_public_tpu.config.config import Config as JConfig
@@ -83,6 +81,13 @@ from creste_public_tpu_torch.training.loop import to_device
 from creste_public_tpu_torch.training.surgery import make_stage_loader
 from creste_public_tpu_torch.weights import from_jax_variables, init_weights
 from tests.test_torch_helpers import jax_variables, jitter_bn, seeded_variables
+from tests.test_torch_step_helpers import Feeder
+from tests.test_torch_step_helpers import KeepF64 as _KeepF64
+from tests.test_torch_step_helpers import f64_forward as _f64_forward
+from tests.test_torch_step_helpers import flat as _flat
+from tests.test_torch_step_helpers import flat_state as _flat_state
+from tests.test_torch_step_helpers import rel as _rel
+from tests.test_torch_step_helpers import x64 as _x64
 
 STEPS = 3
 STEPS_PER_EPOCH = 2
@@ -118,60 +123,6 @@ def _masks() -> list[np.ndarray]:
     masks = [rng.uniform(size=(2, 1, 1, 1)) > 0.3 for _ in range(N_MASKS)]
     masks[0][1] = masks[4][0] = False
     return masks
-
-
-class Feeder:
-    """Fed drop-connect masks, in call order, for the port's trunk."""
-
-    def __init__(self, masks):
-        self.masks, self.calls = masks, 0
-
-    def __call__(self, batch, keep):
-        m = self.masks[self.calls % len(self.masks)]
-        self.calls += 1
-        assert m.shape == (batch, 1, 1, 1)
-        return torch.from_numpy(m.astype(np.float32))
-
-
-@contextlib.contextmanager
-def _x64():
-    jax.config.update("jax_enable_x64", True)
-    try:
-        yield
-    finally:
-        jax.config.update("jax_enable_x64", False)
-
-
-class _KeepF64:
-    """``jax.numpy`` for the JAX package's BatchNorm wrapper, whose
-    ``jnp.asarray(x, jnp.float32)`` would round an f64 stream to f32."""
-
-    def __init__(self, jnp_):
-        self._jnp = jnp_
-
-    def __getattr__(self, name):
-        return getattr(self._jnp, name)
-
-    def asarray(self, x, dtype=None, **kw):
-        if getattr(x, "dtype", None) == self._jnp.float64:
-            return x
-        return self._jnp.asarray(x, dtype, **kw)
-
-
-def _flat(tree, prefix) -> dict[str, np.ndarray]:
-    return {f"{prefix}/{k}": np.asarray(v)
-            for k, v in flatten_dict(tree, sep="/").items()}
-
-
-def _flat_state(state) -> dict[str, np.ndarray]:
-    return dict(_flat(state.params, "params"),
-                **_flat(state.batch_stats, "batch_stats"))
-
-
-def _rel(got, want) -> float:
-    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
-    want = np.asarray(want)
-    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
 @pytest.fixture(scope="module")
@@ -563,18 +514,6 @@ def test_backbone_gradient_eval_form_matches_jax(jax_run):
     gaps = _grad_gaps(_backbone_grads_f64(run, 0, _detached_stats_forward),
                       _exact(run), "depthcomp")
     assert gaps[f"{stem}.weight"] > F64_RTOL, gaps[f"{stem}.weight"]
-
-
-def _f64_forward(bn):
-    """The port's train-mode BatchNorm without its cast to f32."""
-    def forward(x):
-        dims = [0, *range(2, x.dim())]
-        mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(var + bn.eps) * bn.weight
-        return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
-    return forward
 
 
 def _detached_stats_forward(bn):

@@ -367,7 +367,8 @@ def test_config_groups_equal_the_yaml_files():
         for option, cfg in options.items():
             path = os.path.join(CONFIG_DIR, group, option + ".yaml")
             assert cfg == load_yaml(path).to_dict(), (group, option)
-    assert sorted(ROOTS) == ["ssc_sam", "traversability"]
+    assert sorted(ROOTS) == ["depth", "distillation", "ssc_sam",
+                             "traversability"]
     for name, cfg in ROOTS.items():
         root = load_yaml(os.path.join(CONFIG_DIR, name + ".yaml"))
         assert cfg == root.to_dict(), name
@@ -395,6 +396,21 @@ def test_compose_cli_matches_jax(argv):
 def test_compose_cli_ssc_matches_jax(argv):
     assert compose_cli("ssc_sam", argv).to_dict() == jcompose_cli(
         "ssc_sam", CONFIG_DIR, argv).to_dict()
+
+
+@pytest.mark.parametrize("root, argv", [
+    ("depth", []),
+    ("depth", ["trainer=smoke", "dataset=synthetic_tiny", "model.batch_size=2",
+               "model.vision_backbone.effnet_cfgs.stage_repeats=1"]),
+    ("distillation", []),
+    ("distillation", ["trainer=smoke", "model=distillation/tiny",
+                      "dataset=synthetic_tiny"]),
+    ("distillation", ["model=distillation/depth_only",
+                      "dataset=synthetic_pefree", "model.batch_size=3"]),
+])
+def test_compose_cli_stage01_matches_jax(root, argv):
+    assert compose_cli(root, argv).to_dict() == jcompose_cli(
+        root, CONFIG_DIR, argv).to_dict()
 
 
 def test_compose_cli_rejects_unknown_group():
@@ -489,8 +505,11 @@ def test_checkpoint_round_trip_and_stage_graft(tmp_path):
         keep = "bevclassifier" in k and "head_" in k
         assert torch.equal(v, before[k] if keep else
                            model.state_dict()[k]), k
-    with pytest.raises(NotImplementedError):
-        make_stage_loader("depth", path)
+    # a stage-3 checkpoint is no checkpoint of stage 0 and does not graft
+    _, _, depth_state = pipelines.init_stage(
+        "depth", jpresets.tiny_depth_config(), device="cpu")
+    with pytest.raises(ValueError, match="own stage"):
+        make_stage_loader("depth", path)(depth_state)
 
 
 def _rows(d):
@@ -578,7 +597,10 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="data-parallel"):
         run_training("traversability", _tiny_cfg(), [], None,
                      {"device": "cpu", "devices": 2})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pipelines.build_model("depth", {})
+    with pytest.raises(ValueError, match="Unknown stage"):
+        pipelines.build_model("stereo", {})
+    with pytest.raises(NotImplementedError, match="movability"):
+        pipelines.build_model("ssc", dict(
+            GROUPS["model"]["ssc_sam/tiny"], use_movability=True))
     with pytest.raises(NotImplementedError):
         build_dataset({"name": "coda"})
