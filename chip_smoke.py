@@ -112,6 +112,28 @@ Phases, each printing one line before the final one:
     card) beside the eval objective, the loop's steady-state time per step
     with its loader, peak device memory, and the idle share and top
     kernels under the profiler over two steps.
+20. movability step (run after phases 9-12): one training step of the
+    stage-2 preset (B=8, 512x612, grid 256) with use_movability (the
+    anchor splat, the masked multiview splat, the decoder twice) and its
+    six losses plus a VicregLoss on bev_features against
+    bev_features_mv, timed (ms per step, peak, idle share); then at B=1
+    with fed masks and priorities each stage card vs CPU from the card's
+    input to it (bev_features, bev_features_mv, the SAM head plain and
+    _mv, the other heads), the seven losses on the card's outputs, and
+    the decoder's running statistics after one card step against the
+    CPU's two updates, with the one-update control.
+21. temporal chunks: the same preset with use_temporal (a GRU of the
+    preset's BEV width, kernel (1, 1), pose warp with noise, the decoder
+    on merged_bev_features), two chunks of SequenceChunkLoader at B=2,
+    seq_len 4, chunk_len 2 (bos, then the carried hidden state), the
+    chunk step's time, merged_bev_features and the hidden state card vs
+    CPU (the temporal layer from the card's BEV features), and the
+    zero-carry control.
+22. merged heads and the other losses: the deployment decoder at B=1
+    merged vs per-head on the card (and both times), then FocalLoss,
+    BalancedContrastiveLoss (stage 2, B=8), BCActionLoss and TREXLoss
+    (stage 3, B=10), value and gradient card vs CPU; no kernel launch in
+    phases 20-22.
 
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
@@ -2066,6 +2088,452 @@ def train_path(torch, dev, card: str, objective_ms: float,
             "svf": train_launches[1]}
 
 
+# TerrainNet's other branches and the last losses: the stage-2 preset with
+# the movability double-forward and a VicregLoss configured as the JAX
+# package's tests/test_secondary_models.py configures it; the temporal
+# layer (the port's choice of widths: no published temporal config is in
+# the repo): 96 channels into a GRU of 96, the preset's bev_feat_dim,
+# kernel (1, 1), pose warp with noise, the decoder on the merged features;
+# SequenceChunkLoader chunks
+VICREG_LOSS = {"name": "VicregLoss", "weight": 1.0,
+               "pred_key": "outputs/bev_features",
+               "pred_mv_key": "outputs/bev_features_mv",
+               "lab_key": "inputs/3d_sam_label"}
+TEMPORAL_B, TEMPORAL_SEQ, TEMPORAL_CHUNK = 2, 4, 2
+TEMPORAL_STEPS = 4  # timed chunk steps (after one warm-up)
+# the decoder's running statistics after the movability step, card vs CPU
+# (the CPU's two decoder calls from the card's BEV inputs), max|d| /
+# max(1, max|ref|) per tensor; the control, the CPU's statistics after
+# only the first of the two calls, must read above 10x this bar
+MV_STAT_RTOL = 1e-4
+# the zero-carry control: the second chunk's hidden state from a zeroed
+# carry must differ from the carried one's by more than this share of its
+# largest entry
+CARRY_BAR = 1e-3
+# the merged decoder heads against the per-head ones on the card, each
+# output's max|d| over its largest entry
+MERGED_RTOL = 1e-5
+BRANCH_KEYS = ("image", "p2p", "mv_mask", "depth_label", "fimg_label",
+               "fov_mask", "3d_sam_label", "3d_sam_dynamic_label",
+               "elevation_label")
+
+
+def trajectory(np_, B: int, T: int, seed: int):
+    """[B, T, 4, 4] seeded SE(3) poses: a turn of 0.1 rad and 0.5 m
+    forward per frame, a small height change."""
+    rng = np_.random.default_rng(seed)
+    out = np_.zeros((B, T, 4, 4), np_.float32)
+    for b in range(B):
+        x0, y0, th0 = rng.uniform(-2, 2), rng.uniform(-2, 2), rng.uniform(-1, 1)
+        for t in range(T):
+            th = th0 + 0.1 * t
+            q = np_.eye(4)
+            q[:2, :2] = [[np_.cos(th), -np_.sin(th)],
+                         [np_.sin(th), np_.cos(th)]]
+            q[0, 3] = x0 + 0.5 * t * np_.cos(th)
+            q[1, 3] = y0 + 0.5 * t * np_.sin(th)
+            q[2, 3] = 0.02 * t
+            out[b, t] = q
+    return out
+
+
+def branches_path(torch, dev, card: str) -> tuple[int, int, int]:
+    """Phases 20-22: the movability step at the stage-2 preset (B=8 timed,
+    B=1 card vs CPU with the decoder's statistics and a control), two
+    temporal chunks of SequenceChunkLoader (timed, card vs CPU, the
+    zero-carry control), the merged decoder heads against the per-head
+    ones on the deployment decoder, and FocalLoss, BCActionLoss, TREXLoss
+    and BalancedContrastiveLoss card vs CPU at their stages' shapes.
+    Returns the launches of the three kernels in these phases (none: no
+    TPU kernel is on these paths)."""
+    import copy
+
+    from creste_public_tpu_torch import weights
+    from creste_public_tpu_torch.config.groups import GROUPS, compose_cli
+    from creste_public_tpu_torch.data.dataloader import (
+        SequenceChunkLoader,
+        build_dataset,
+    )
+    from creste_public_tpu_torch.data.synthetic import collate
+    from creste_public_tpu_torch.losses.manager import LossManager, make_loss
+    from creste_public_tpu_torch.models.blocks.convnets import (
+        BatchNorm,
+        discard_batch_stats,
+    )
+    from creste_public_tpu_torch.models.blocks.resnet import (
+        InpaintingResNet18MultiHead,
+        merge_decoder_heads,
+    )
+    from creste_public_tpu_torch.models.terrainnet import TerrainNet
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
+    from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
+    from creste_public_tpu_torch.training import pipelines
+    from creste_public_tpu_torch.training.loop import step_generator, to_device
+
+    def cpu(t):
+        return t.detach().cpu()
+
+    def to_cpu(x):
+        if isinstance(x, (list, tuple)):
+            return type(x)(to_cpu(v) for v in x)
+        return cpu(x)
+
+    def to_dev(x):
+        if isinstance(x, (list, tuple)):
+            return type(x)(to_dev(v) for v in x)
+        return x.to(dev)
+
+    def profiled(fn, n: int):
+        """Idle share and peak over n calls of fn under the profiler."""
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy_us = union_us([(e.time_range.start, e.time_range.end)
+                            for e in prof.events() if e.device_type
+                            == torch.autograd.DeviceType.CUDA])
+        return max(0.0, 1 - busy_us / wall_us)
+
+    def check_map(name, got, ref, rows):
+        _, rel = max_rel(cpu(got), ref.detach())
+        if rel > STAGE_RTOL:
+            fail(f"{name}: card vs CPU {rel:.3e} > {STAGE_RTOL}")
+        rows.append(f"{name} {rel:.3e}")
+
+    torch.cuda.synchronize()
+    value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = 0
+    root = compose_cli("ssc_sam", [f"model={SSC_MODEL}",
+                                   f"dataset={SSC_DATASET}"])
+    B = int(root["model"]["batch_size"])
+    root = compose_cli("ssc_sam", [
+        f"model={SSC_MODEL}", f"dataset={SSC_DATASET}",
+        f"dataset.train.length={max(B, TEMPORAL_B * TEMPORAL_SEQ)}"])
+    ds = build_dataset(root["dataset"], "train")
+    batch_np = collate([{k: ds[i][k] for k in BRANCH_KEYS}
+                        for i in range(B)])
+
+    # 20. the movability step: B timed, then B=1 card vs CPU
+    mv_cfg = root["model"].to_dict()
+    mv_cfg["use_movability"] = True
+    mv_cfg["loss"] = list(mv_cfg["loss"]) + [dict(VICREG_LOSS)]
+    model, lm, state = pipelines.init_stage("ssc", mv_cfg, seed=SEED,
+                                            steps_per_epoch=2, device=dev)
+    step = pipelines.make_train_step("ssc", model, lm, task="joint")
+    batch = to_device(batch_np, dev)
+    gens = iter([step_generator(SEED, i) for i in range(64)])
+
+    def mv_step():
+        return step(state, batch, next(gens))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mv_ms = time_ms(torch, mv_step, iters=2, reps=3, warmup=1)
+    mv_peak = torch.cuda.max_memory_allocated() / 2**30
+    mv_idle = profiled(mv_step, 2)
+    m = mv_step()
+    names = {k.split("/")[0] for k in m if "/" in k}
+    if len(names) != 7 or "VicregLoss/vicreg_loss" not in m or \
+            not all(bool(torch.isfinite(v)) for v in m.values()):
+        fail(f"the movability step's metrics {sorted(m)} are not the seven "
+             "losses' or not finite")
+    del batch
+    # B=1: the card's train-mode forward with fed masks, each stage on the
+    # CPU from the card's input to it
+    b1c = {k: torch.as_tensor(v[:1]) for k, v in batch_np.items()}
+    b1 = {k: v.to(dev) for k, v in b1c.items()}
+    cpu_model = TerrainNet(mv_cfg)
+    cpu_model.load_state_dict({k: cpu(v) for k, v in
+                               model.state_dict().items()}, strict=True)
+    masks = FedMasks(torch, 64, 2)  # each call takes the first row
+    model.train()
+    cpu_model.train()
+    rows = []
+    with torch.no_grad():
+        masks.calls = 0
+        out = model(b1["image"], b1["p2p"], b1["mv_mask"],
+                    drop_connect=masks)
+    discard_batch_stats(model)
+    Hs, Ws = out["depth_preds_metric"].shape[1:]
+    depth = cpu(out["depth_preds_metric"]).reshape(1, 1, Hs, Ws)
+    feats = cpu(out["depth_preds_feats"]).reshape(1, 1, Hs, Ws, -1)
+    with torch.no_grad():
+        sp = dict(cpu_model.cam2map(depth, feats, b1c["p2p"]))
+        sp.update(cpu_model.cam2map(depth, feats, b1c["p2p"],
+                                    b1c["mv_mask"]))
+        for k in ("bev_features", "bev_features_mv"):
+            check_map(k, out[k], sp[k], rows)
+        dec = dict(cpu_model.bevclassifier({
+            "bev_features": cpu(out["bev_features"])}))
+        once = {n: tuple(t.clone() for t in bn.staged) for n, bn in
+                cpu_model.named_modules() if isinstance(bn, BatchNorm)
+                and n.startswith("bevclassifier")}
+        dec.update(cpu_model.bevclassifier({
+            "bev_features_mv": cpu(out["bev_features_mv"])},
+            key_suffix="_mv"))
+        twice = {n: bn.staged for n, bn in cpu_model.named_modules()
+                 if n in once}
+    for k in ("inpainting_sam_preds", "inpainting_sam_mv_preds",
+              "inpainting_sam_dynamic_preds", "elevation_preds"):
+        check_map(k, out[k], dec[k], rows)
+    # the seven losses on the card's outputs, fed priorities
+    g = torch.Generator().manual_seed(SEED + 9)
+    n_px = b1c["3d_sam_label"].numel()
+    prio = {"rng": torch.rand(n_px, generator=g),
+            "vicreg_rng": (torch.rand(1, n_px, generator=g),
+                           torch.rand(n_px, generator=g))}
+    ld_cpu, meta_cpu = LossManager(mv_cfg)(pipelines.merge_tensor_dict(
+        b1c, {k: to_cpu(v) for k, v in out.items()}, "joint"), prio)
+    with torch.no_grad():
+        ld, meta = lm(pipelines.merge_tensor_dict(b1, out, "joint"),
+                      {k: to_dev(v) for k, v in prio.items()})
+    got_m = pipelines.loss_metrics(ld, meta)
+    want_m = pipelines.loss_metrics(ld_cpu, meta_cpu)
+    if len(ld) != 8 or got_m.keys() != want_m.keys():
+        fail(f"movability losses {sorted(got_m)} against {sorted(want_m)}")
+    worst = 0.0
+    for k, ref in want_m.items():
+        _, rel = max_rel(cpu(got_m[k]), ref.detach())
+        if rel > SSC_LOSS_RTOL:
+            fail(f"movability loss {k}: {rel:.3e} > {SSC_LOSS_RTOL}")
+        worst = max(worst, rel)
+    rows.append(f"{len(ld)} loss terms (seven losses) and {len(meta)} "
+                f"metrics <= {worst:.3e}")
+    # one step on the card (the same masks and priorities): the decoder's
+    # statistics it commits, against the CPU's after its two calls, and
+    # the control against the CPU's after the first call only
+    masks.calls = 0
+    pipelines.make_train_step("ssc", model, lm, task="joint")(
+        state, b1, masks, priorities={k: to_dev(v) for k, v in prio.items()})
+    sd = model.state_dict()
+    stat_gap = ctl_gap = 0.0
+    for n, (mean, var) in twice.items():
+        for leaf, ref, ref1 in (("running_mean", mean, once[n][0]),
+                                ("running_var", var, once[n][1])):
+            stat_gap = max(stat_gap, max_rel(cpu(sd[f"{n}.{leaf}"]), ref)[1])
+            ctl_gap = max(ctl_gap, max_rel(cpu(sd[f"{n}.{leaf}"]), ref1)[1])
+    if stat_gap > MV_STAT_RTOL or ctl_gap <= 10 * MV_STAT_RTOL:
+        fail(f"the decoder's statistics after the movability step: "
+             f"{stat_gap:.3e} from the CPU's two updates (bar "
+             f"{MV_STAT_RTOL}), {ctl_gap:.3e} from one (control, must "
+             f"exceed {10 * MV_STAT_RTOL})")
+    rows.append(f"the decoder's {len(twice)} BatchNorms' statistics after "
+                f"the step {stat_gap:.3e} (control, one update: "
+                f"{ctl_gap:.3e})")
+    print(f"phase movability step: ok, B={B}: {mv_ms:.3f} ms per step = "
+          f"{B * 1e3 / mv_ms:.2f} samples/s (CUDA events, inputs on the "
+          f"card, f32, TF32 off), peak {mv_peak:.2f} GiB, idle share "
+          f"{mv_idle:.3f} over 2 profiled steps; loss {float(m['loss']):.6e},"
+          f" vicreg {float(m['VicregLoss/vicreg_loss']):.6e}; B=1 card vs "
+          f"CPU: " + "; ".join(rows) + f" [{card}]", flush=True)
+    del model, cpu_model, state, lm, step
+    torch.cuda.empty_cache()
+
+    # 21. two temporal chunks of SequenceChunkLoader
+    t_cfg = root["model"].to_dict()
+    width = int(t_cfg["camera_projector"]["vision_fusion"]["dims"][-1])
+    t_cfg["use_temporal"] = True
+    t_cfg["temporal_layer"] = {"net_kwargs": {
+        "rnn_input_channels": width,
+        "rnn_config": {"hidden_dims": [width], "groups": 1,
+                       "cell_type": "GRU", "kernel_size": [1, 1],
+                       "use_pose": True, "noisy_pose": True}}}
+    t_cfg["bev_classifier"]["net_kwargs"]["input_key"] = "merged_bev_features"
+    loader = SequenceChunkLoader(ds, TEMPORAL_B, TEMPORAL_SEQ,
+                                 TEMPORAL_CHUNK, shuffle=False)
+    poses = trajectory(np, TEMPORAL_B, TEMPORAL_SEQ, SEED + 4)
+    chunks = []
+    for c, ch in enumerate(loader.epoch(0)):
+        if c == 2:
+            break
+        sl = slice(c * TEMPORAL_CHUNK, (c + 1) * TEMPORAL_CHUNK)
+        chunks.append(dict({k: ch[k] for k in BRANCH_KEYS},
+                           pose=poses[:, sl], bos=ch["bos"]))
+    if [bool(c["bos"][0]) for c in chunks] != [True, False]:
+        fail("SequenceChunkLoader's bos flags are not [True, False]")
+    chunks = [to_device({k: v for k, v in c.items() if k != "bos"}, dev)
+              for c in chunks]
+    model, lm, state = pipelines.init_stage("ssc", t_cfg, seed=SEED,
+                                            steps_per_epoch=2, device=dev)
+    tstep = pipelines.make_temporal_train_step(model, lm, task="joint")
+    hidden = pipelines.init_temporal_hidden(model, chunks[0])
+    _, m0, h1 = tstep(state, chunks[0], hidden, True, step_generator(SEED, 0))
+    _, m1, h2 = tstep(state, chunks[1], h1, False, step_generator(SEED, 1))
+    for mm in (m0, m1):
+        if not all(bool(torch.isfinite(v)) for v in mm.values()):
+            fail(f"a temporal chunk step has non-finite metrics {mm}")
+    gens = iter([step_generator(SEED, 10 + i) for i in range(64)])
+
+    def chunk_step():
+        return tstep(state, chunks[1], h1, False, next(gens))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_ms = time_ms(torch, chunk_step, iters=TEMPORAL_STEPS, reps=1,
+                   warmup=1)
+    t_peak = torch.cuda.max_memory_allocated() / 2**30
+    # card vs CPU: the chunk-1 forward with fed masks and pose noise, the
+    # temporal layer on the CPU from the card's BEV features and carry
+    masks = FedMasks(torch, 64, TEMPORAL_B * TEMPORAL_CHUNK)
+    ng = torch.Generator().manual_seed(SEED + 5)
+    noise = [(torch.randn(TEMPORAL_B, TEMPORAL_CHUNK, generator=ng),
+              torch.randn(TEMPORAL_B, TEMPORAL_CHUNK, 2, generator=ng))]
+    model.train()
+
+    def chunk_forward(carry):
+        masks.calls = 0
+        with torch.no_grad():
+            o = model(chunks[1]["image"], chunks[1]["p2p"], None,
+                      drop_connect=masks, temporal_hidden=carry, bos=False,
+                      pose=chunks[1]["pose"], pose_noise=noise)
+        discard_batch_stats(model)
+        return o
+
+    out = chunk_forward(h1)
+    zero = [tuple(torch.zeros_like(a) for a in h1[0])]
+    out_zero = chunk_forward(zero)
+    cpu_layer = copy.deepcopy(model.temporal_layer).cpu().train()
+    with torch.no_grad():
+        merged, h_cpu = cpu_layer(
+            cpu(out["bev_features"]), t=TEMPORAL_CHUNK, hidden=to_cpu(h1),
+            bos=False, pose=cpu(chunks[1]["pose"]).reshape(-1, 4, 4),
+            noise=noise)
+    rows = []
+    check_map("merged_bev_features", out["merged_bev_features"], merged.reshape(
+        TEMPORAL_B, TEMPORAL_CHUNK, *merged.shape[1:])[:, -1], rows)
+    check_map("hidden state", out["temporal_hidden"][0][0], h_cpu[0][0],
+              rows)
+    if not torch.equal(cpu(out["temporal_hidden"][0][1]), h_cpu[0][1]):
+        fail("the carried cell pose differs card vs CPU")
+    h, hz = out["temporal_hidden"][0][0], out_zero["temporal_hidden"][0][0]
+    carry = float((h - hz).abs().max() / h.abs().max())
+    if carry <= CARRY_BAR:
+        fail(f"a zeroed carry moves the second chunk's hidden state by "
+             f"{carry:.3e}, not above {CARRY_BAR}")
+    print(f"phase temporal chunks: ok, B={TEMPORAL_B} sequences of "
+          f"{TEMPORAL_SEQ} frames in chunks of {TEMPORAL_CHUNK} (bos, then "
+          f"the carried hidden state); losses {float(m0['loss']):.6e}, "
+          f"{float(m1['loss']):.6e}; {t_ms:.3f} ms per chunk step (CUDA "
+          f"events, inputs on the card, f32, TF32 off), peak {t_peak:.2f} "
+          f"GiB; card vs CPU: " + "; ".join(rows) + f"; the zero-carry "
+          f"control moves the hidden state by {carry:.3e} of its largest "
+          f"entry (bar {CARRY_BAR}) [{card}]", flush=True)
+    del model, state, lm, tstep, chunks, cpu_layer
+    torch.cuda.empty_cache()
+
+    # 22. merged heads on the deployment decoder, and the other losses
+    tr = GROUPS["model"][TRAIN_MODEL]
+    kw = tr["vision_backbone"]["bev_classifier"]["net_kwargs"]
+    per = weights.init_weights(InpaintingResNet18MultiHead(
+        int(kw["num_input_features"]), kw["num_classes"],
+        kw["output_prefix"]), SEED + 6).to(dev).eval()
+    merged = InpaintingResNet18MultiHead(
+        int(kw["num_input_features"]), kw["num_classes"], kw["output_prefix"],
+        merged_heads=True)
+    merged.load_state_dict(merge_decoder_heads(per.state_dict(),
+                                               kw["num_classes"]), strict=True)
+    merged = merged.to(dev).eval()
+    grid = int(round(2 * tr["vision_backbone"]["camera_projector"][
+        "point_cloud_range"][3] / tr["vision_backbone"]["camera_projector"][
+        "voxel_size"][0]))
+    x = torch.randn(1, grid, grid, int(kw["num_input_features"]),
+                    generator=torch.Generator().manual_seed(SEED + 8)).to(dev)
+    with torch.no_grad():
+        a, b = per({"bev_features": x}), merged({"bev_features": x})
+        worst = max(float((b[k] - a[k]).abs().max() / a[k].abs().max())
+                    for k in a)
+        if worst > MERGED_RTOL:
+            fail(f"merged heads vs per-head on the card: {worst:.3e} > "
+                 f"{MERGED_RTOL}")
+        per_ms = time_ms(torch, lambda: per({"bev_features": x}), iters=10,
+                         reps=5)
+        merged_ms = time_ms(torch, lambda: merged({"bev_features": x}),
+                            iters=10, reps=5)
+    rows = [f"merged heads vs per-head {worst:.3e} (bar {MERGED_RTOL}); "
+            f"decoder {per_ms:.3f} ms with the per-head tail, {merged_ms:.3f} "
+            "ms merged"]
+    del per, merged
+    # the four losses at their stages' shapes: stage 2 at B, stage 3 at
+    # its batch size
+    rng = torch.Generator().manual_seed(SEED + 11)
+    C = int(root["model"]["bev_classifier"]["net_kwargs"]["num_classes"][1])
+    Z = int(root["model"]["bev_classifier"]["net_kwargs"]["num_classes"][0])
+    s2 = to_device(batch_np, torch.device("cpu"))
+    troot = compose_cli("traversability", [f"model={TRAIN_MODEL}",
+                                           f"dataset={TRAIN_DATASET}"])
+    B3 = int(troot["model"]["batch_size"])
+    tds = build_dataset(troot["dataset"], "train")
+    s3 = to_device(collate([{k: tds[i][k] for k in (
+        "traversability_label", "counterfactuals_label")}
+        for i in range(B3)]), torch.device("cpu"))
+    H3, W3 = troot["model"]["map_size"]
+    T3 = s3["traversability_label"].shape[1]
+    g2 = s2["fov_mask"].shape[-1]
+    cases = [
+        ({"name": "FocalLoss", "weight": 1.0, "task": "joint",
+          "pred_key": "outputs/inpainting_sam_dynamic_preds",
+          "lab_key": "inputs/3d_sam_dynamic_label", "class_dim": 1},
+         {"outputs/inpainting_sam_dynamic_preds": torch.randn(
+             B, g2, g2, C, generator=rng)}, s2, None),
+        ({"name": "BalancedContrastiveLoss", "weight": 1.0,
+          "pred_key": "outputs/inpainting_sam_preds",
+          "lab_key": "inputs/3d_sam_label", "max_samples": 1024},
+         {"outputs/inpainting_sam_preds": torch.randn(
+             B, g2, g2, Z, generator=rng)}, s2,
+         torch.rand(B * g2 * g2, generator=rng)),
+        ({"name": "BCActionLoss", "weight": 1.0,
+          "pred_key": "outputs/action_preds",
+          "lab_key": "inputs/traversability_label"},
+         {"outputs/action_preds": torch.rand(B3, T3, 8, generator=rng)},
+         s3, None),
+        ({"name": "TREXLoss", "weight": 1.0,
+          "pred_key": "outputs/traversability_preds",
+          "lab_key": "inputs/counterfactuals_label", "map_sz": [H3, W3]},
+         {"outputs/traversability_preds": torch.randn(
+             B3, H3, W3, 1, generator=rng)}, s3, None),
+    ]
+    for cfg, preds, inputs, pri in cases:
+        loss = make_loss(cfg)
+        (key, pred), = preds.items()
+        vals = {}
+        for d in (torch.device("cpu"), dev):
+            td = {f"inputs/{k}": to_dev(v) if d == dev else v
+                  for k, v in inputs.items() if not isinstance(v, dict)}
+            td.update({f"inputs/{k}": {kk: vv.to(d) for kk, vv in v.items()}
+                       for k, v in inputs.items() if isinstance(v, dict)})
+            td["task"] = "joint"
+            p = pred.to(d).requires_grad_(True)
+            td[key] = p
+            ld, _ = loss(td, {"rng": None if pri is None else pri.to(d)})
+            total = LossManager.total(ld)
+            (grad,) = torch.autograd.grad(total, p)
+            vals[d.type] = (cpu(total), cpu(grad))
+        (v_c, g_c), (v_d, g_d) = vals["cpu"], vals[dev.type]
+        _, rel = max_rel(v_d, v_c)
+        g_rel = float((g_d - g_c).abs().max() / g_c.abs().max())
+        if rel > SSC_LOSS_RTOL or g_rel > SSC_LOSS_RTOL:
+            fail(f"{cfg['name']} card vs CPU: value {rel:.3e}, gradient "
+                 f"{g_rel:.3e} (bar {SSC_LOSS_RTOL})")
+        rows.append(f"{cfg['name']} {float(v_c):.6e} at "
+                    f"{list(pred.shape)}: value {rel:.3e}, gradient "
+                    f"{g_rel:.3e}")
+    torch.cuda.synchronize()
+    launches = (value_iteration_cuda.launches, expected_svf_cuda.launches,
+                rk.msfcn_head_cuda.launches)
+    if launches != (0, 0, 0):
+        fail(f"phases 20-22 launched the VI, SVF and reward-head kernels "
+             f"{launches} times: their paths have none")
+    print("phase merged heads and losses: ok; " + "; ".join(rows)
+          + f" (bar {SSC_LOSS_RTOL}); kernel launches in phases 20-22 "
+          f"{launches} [{card}]", flush=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2371,6 +2839,11 @@ def main() -> None:
     train = train_path(torch, dev, card, objective_ms, ssc_dir)
     walls["phases 9-12"] = (time.perf_counter() - t_start
                             - sum(walls.values()))
+    # 20-22. the movability and temporal branches, merged heads, the last
+    # losses (no kernel on their paths)
+    branch_launches = branches_path(torch, dev, card)
+    walls["phases 20-22"] = (time.perf_counter() - t_start
+                             - sum(walls.values()))
     print("wall time by phase group: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
     for d in (stage1_dir, ssc_dir):
@@ -2383,6 +2856,8 @@ def main() -> None:
                         for i in range(3)]
     for k, n in zip(mdp_kernels, stage01_launches):
         k["stage01_launches"] = n
+    for k, n in zip(mdp_kernels, branch_launches):
+        k["branch_launches"] = n
 
     print(json.dumps({"kernels": [{
         "name": "msfcn_head",
@@ -2398,6 +2873,7 @@ def main() -> None:
         "library_ms": lib_ms,
         "library_conv_only_ms": conv_ms,
         "stage01_launches": stage01_launches[2],
+        "branch_launches": branch_launches[2],
     }] + mdp_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

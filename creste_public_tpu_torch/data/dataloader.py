@@ -5,9 +5,10 @@ A copy of ``build_dataset`` and ``EpochLoader`` (thread mode) of
 ``creste_public_tpu/data/dataloader.py``: numpy batches, collated on the
 host and prefetched by a background thread while the card runs the previous
 step, with the same per-epoch seeded shuffle, so that both packages give the
-same batches bit for bit. The CODa reader, augmentation (with its
-per-sample rng), the process-pool workers, ``MultiTaskIterator`` and
-``SequenceChunkLoader`` are not ported yet.
+same batches bit for bit, and ``SequenceChunkLoader``, the temporal
+mini-sequence batches. The CODa reader, augmentation (with its per-sample
+rng), the process-pool workers and ``MultiTaskIterator`` are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -121,3 +122,59 @@ class EpochLoader:
 
     def __iter__(self):
         return self.epoch(0)
+
+
+class SequenceChunkLoader:
+    """Temporal mini-sequence batches for ConvGRU training (the JAX
+    package's ``SequenceChunkLoader``): the dataset is cut into windows of
+    ``seq_len`` consecutive samples, a batch takes ``batch_size`` windows
+    (shuffled per epoch with the same seed rule) and yields each window's
+    ``seq_len // chunk_len`` chunks in order. The frame keys (image, p2p,
+    depth_label, fimg_label) are stacked on a [B, T, ...] time axis (a
+    sample's singleton view axis folds into it); every other key is the
+    chunk's last frame's; ``bos`` [B] bool is True on a window's first
+    chunk only, where the hidden state starts from zeros."""
+
+    FRAME_KEYS = ("image", "p2p", "depth_label", "fimg_label")
+
+    def __init__(self, dataset, batch_size: int, seq_len: int,
+                 chunk_len: int, shuffle: bool = True, seed: int = 0):
+        if seq_len % chunk_len:
+            raise ValueError("seq_len must be divisible by chunk_len")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self.chunk_len = chunk_len
+        self.shuffle = shuffle
+        self.seed = seed
+        self.windows = list(range(0, len(dataset) - seq_len + 1, seq_len))
+
+    def __len__(self) -> int:
+        per_seq = self.seq_len // self.chunk_len
+        return (len(self.windows) // self.batch_size) * per_seq
+
+    def epoch(self, epoch: int = 0) -> Iterator[dict]:
+        order = np.asarray(self.windows)
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(order)
+        n_seq = len(order) - (len(order) % self.batch_size)
+        per_seq = self.seq_len // self.chunk_len
+        for i in range(0, n_seq, self.batch_size):
+            starts = order[i:i + self.batch_size]
+            for c in range(per_seq):
+                frames = [[self.dataset[int(s + c * self.chunk_len + t)]
+                           for t in range(self.chunk_len)] for s in starts]
+                last = frames[0][-1]
+                batch: dict = {}
+                for k in last:
+                    if k in self.FRAME_KEYS:
+                        batch[k] = np.stack([
+                            np.concatenate([np.asarray(f[k]) for f in seq])
+                            for seq in frames])
+                    elif isinstance(last[k], dict):
+                        batch[k] = collate([seq[-1][k] for seq in frames])
+                    else:
+                        batch[k] = np.stack([np.asarray(seq[-1][k])
+                                             for seq in frames])
+                batch["bos"] = np.full((len(starts),), c == 0)
+                yield batch

@@ -1,15 +1,17 @@
 """Config-driven loss registry (LossManager) with the stage-2 losses and
-the stage-3 MaxEnt-IRL loss.
+the stage-3 losses.
 
-Counterpart of ``creste_public_tpu/losses/manager.py`` (``Loss``, the
-depth, regression, distillation, BEV cross-entropy and SAM-contrastive
-losses of stages 0-2, the PE-free multiview consistency loss of stage 1,
-``MaxEntIRLLoss``, ``LossManager``). Losses read
-predictions, labels and masks from the merged dict keyed ``inputs/...`` /
-``outputs/...`` and return ``{name: (weight, value)}`` plus a metadata
-dict, under the JAX package's keys. All maps are NHWC. The other losses of
-the JAX registry are not ported yet: asking for one raises
-``NotImplementedError``.
+Counterpart of ``creste_public_tpu/losses/manager.py``, its whole registry:
+``Loss``, the depth, regression, distillation, BEV cross-entropy, focal and
+contrastive losses of stages 0-2 (SAM-instance SupCon, the balanced
+l_spread loss, VICReg between the anchor and the movability-masked BEV
+features), the PE-free multiview consistency loss of stage 1, and
+``MaxEntIRLLoss``, ``BCActionLoss`` and ``TREXLoss`` of stage 3, with
+``LossManager``. Losses read predictions, labels and masks from the merged
+dict keyed ``inputs/...`` / ``outputs/...`` and return ``{name: (weight,
+value)}`` plus a metadata dict, under the JAX package's keys. All maps are
+NHWC. A loss that samples at random takes its priorities from
+``aux["rng"]`` (``supcon.priorities``).
 """
 from __future__ import annotations
 
@@ -19,22 +21,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from creste_public_tpu_torch.losses.balancedsupcon import (
+    bal_contrastive_loss,
+)
 from creste_public_tpu_torch.losses.supcon import (
+    PrioritySource,
     capped_class_sample,
     multi_pos_con_loss,
+    priorities,
     remap_labels_per_batch,
 )
 from creste_public_tpu_torch.ops.rasterize import rasterize_trajectory
+from creste_public_tpu_torch.ops.value_iteration import DYNAMICS
 from creste_public_tpu_torch.utils import depth as du
 from creste_public_tpu_torch.utils.imageops import (
     resize_and_crop,
     resize_nearest,
 )
-
-# losses of the JAX package's registry that the port does not have yet
-_NOT_PORTED = ("FocalLoss", "BCActionLoss", "TREXLoss",
-               "BalancedContrastiveLoss", "VicregLoss")
-
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     m = mask.to(x.dtype)
@@ -294,6 +297,39 @@ class CrossEntropy(Loss):
         return {f"{task}/cls_loss": loss}, {f"{task}/acc": acc}
 
 
+class FocalLoss(Loss):
+    """Focal loss over the BEV semantics with optional class weights and
+    the FOV mask (reference loss_utils.py:289-377, kornia-style)."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.class_weights = (load_class_weights(config["class_weights"])
+                              if "class_weights" in config else None)
+
+    def loss(self, td, aux):
+        pred = td[self.config["pred_key"]]  # [B, H, W, C]
+        gt = td[self.config["lab_key"]]
+        fov = td[self.config.get("mask_key", "inputs/fov_mask")]
+        gt_mode = _gt_mode(gt, int(self.config.get("class_dim", -1)))
+        C = pred.shape[-1]
+        alpha = float(self.config.get("alpha", 0.25))
+        gamma = float(self.config.get("gamma", 2.0))
+
+        valid = fov.bool()
+        safe = torch.clamp(gt_mode, 0, C - 1)
+        logpt = F.log_softmax(pred, dim=-1).gather(-1, safe[..., None])[..., 0]
+        fl = -alpha * (1.0 - torch.exp(logpt)) ** gamma * logpt
+        if self.class_weights is not None:
+            fl = fl * self.class_weights.to(pred.device)[safe]
+        loss = masked_mean(fl, valid)
+
+        ignore = self.config.get("ignore_index", None)
+        acc_valid = valid if ignore is None else valid & (gt_mode != ignore)
+        acc = masked_mean((pred.argmax(-1) == gt_mode).float(), acc_valid)
+        task = self.config.get("task", "3d_ssc")
+        return {f"{task}/cls_loss": loss}, {f"{task}/FocalLoss/acc": acc}
+
+
 class SupPixelConLoss(Loss):
     """SAM-instance pixel contrastive loss on the anchor view (reference
     loss_utils.py:203-286). ``aux["rng"]`` is the sampling's priority
@@ -442,17 +478,267 @@ class MaxEntIRLLoss(Loss):
         return {"maxentirl_loss": loss}, meta
 
 
+class BCActionLoss(Loss):
+    """Binary cross-entropy of the action predictions against the one-hot
+    of the action nearest each expert step (reference
+    loss_utils.py:1261-1301); a tie goes to the first action, as
+    ``argmin`` gives on both sides."""
+
+    def loss(self, td, aux):
+        pred = td[self.config["pred_key"]]  # [B, T, 8]
+        gt = td[self.config["lab_key"]]  # [B, T, 3, 3]
+        actions = torch.as_tensor(DYNAMICS, dtype=torch.float32,
+                                  device=pred.device)
+        deltas = gt[:, 1:, :2, 2] - gt[:, :-1, :2, 2]  # [B, T-1, 2]
+        diff = actions[None, None] - deltas[:, :, None, :]
+        dist = torch.sqrt((diff * diff).sum(-1))
+        closest = F.one_hot(dist.argmin(-1), 8).to(pred.dtype)
+        p = torch.clamp(pred[:, 1:], 1e-7, 1 - 1e-7)
+        bce = -(closest * torch.log(p) + (1 - closest) * torch.log(1 - p))
+        return {"bc_action_loss": bce.mean((0, 2)).sum() / pred.shape[1]}, {}
+
+
+class TREXLoss(Loss):
+    """Pairwise preference (T-REX) loss over the counterfactuals' rank
+    pairs (reference loss_utils.py:1303-1404) on padded arrays: each
+    trajectory's summed reward; the preferred (rank 0) and the other valid
+    ones packed to the front in their order by a stable argsort; the pairs
+    enumerated as the reference does, ``(pref[k % P], not_pref[k % Q])``
+    for k < P*Q; the softmax over the valid pairs (-1e9 standing in for a
+    non-finite entry) and the sum-BCE against all-ones labels, over the
+    pair count plus ``l1_reg`` times the mean |reward|."""
+
+    def loss(self, td, aux):
+        pred = td[self.config["pred_key"]][..., 0]  # [B, H, W]
+        cf = td[self.config["lab_key"]]
+        map_ds = float(self.config.get("map_ds", 2))
+        H, W = self.config.get("map_sz", [64, 128])
+        l1_reg = float(self.config.get("l1_reg", 0.1))
+
+        traj = torch.round(cf["trajectories"] / map_ds).to(torch.int64)
+        rows = torch.clamp(traj[..., 0], 0, H - 1)
+        cols = torch.clamp(traj[..., 1], 0, W - 1)  # [B, N, T]
+        valid = cf["valid"].bool()  # [B, N]
+        rank = cf["rank"]
+        B, N = valid.shape
+        dev = pred.device
+        bidx = torch.arange(B, device=dev)[:, None, None]
+        rew = pred[bidx, rows, cols].sum(-1)  # [B, N]
+
+        pref = valid & (rank == 0)
+        not_pref = valid & (rank > 0)
+        r_pref_packed = rew.gather(1, torch.argsort(
+            (~pref).to(torch.uint8), dim=1, stable=True))
+        r_not_packed = rew.gather(1, torch.argsort(
+            (~not_pref).to(torch.uint8), dim=1, stable=True))
+        P, Q = pref.sum(1), not_pref.sum(1)  # [B]
+        k = torch.arange(N * N, device=dev)[None, :]
+        i = k % torch.clamp(P, min=1)[:, None]
+        j = k % torch.clamp(Q, min=1)[:, None]
+        r_pref = r_pref_packed.gather(1, i)
+        r_not = r_not_packed.gather(1, j)
+        pair_valid = k < (P * Q)[:, None]
+        z = torch.logaddexp(r_pref, r_not)
+        a, b = r_pref - z, r_not - z
+        p1 = a / (a + b + 1e-6)
+        flat = torch.where(pair_valid, p1, torch.full_like(p1, -torch.inf))
+        sm = torch.softmax(torch.where(torch.isfinite(flat), flat,
+                                       torch.full_like(flat, -1e9)), dim=-1)
+        sm = torch.where(pair_valid, torch.clamp(sm, 1e-7, 1.0),
+                         torch.ones_like(sm))
+        bce = -torch.log(sm) * pair_valid
+        n_pairs = torch.clamp(pair_valid.sum(), min=1)
+        loss = bce.sum() / (n_pairs + l1_reg * pred.abs().mean())
+        return {"trex_loss": loss}, {}
+
+
+class BalancedContrastiveLoss(Loss):
+    """The balanced l_spread contrastive loss over sampled BEV pixels of
+    the anchor view (reference loss_utils.py:94-200 ->
+    ``balancedsupcon.bal_contrastive_loss``), each view's feature of a
+    sampled pixel unit-normalised. ``aux["rng"]`` is the sampling's
+    priority source."""
+
+    def loss(self, td, aux):
+        preds = td[self.config["pred_key"]]  # [BV, H, W, Z]
+        gt = td[self.config["lab_key"]]
+        fov = td[self.config.get("mask_key", "inputs/fov_mask")]
+        views = int(self.config.get("views", 1))
+        max_samples = int(self.config.get("max_samples", 1024))
+        ignore = int(self.config.get("ignore_index", 0))
+
+        if gt.dim() == 4 and gt.shape[-1] > 1:
+            label = _gt_mode(gt, -1)
+        elif gt.dim() == 4:
+            label = gt[..., 0]
+        else:
+            label = gt
+        label = label.to(torch.int32)
+        BV = preds.shape[0]
+        B = BV // views
+        H, W, Z = preds.shape[1:]
+        preds = preds.reshape(B, views, H, W, Z)
+        # each element's anchor view (b-major layout)
+        label0 = (label if label.shape[0] == B
+                  else label.reshape(B, views, H, W)[:, 0])
+        fov0 = fov if fov.shape[0] == B else fov.reshape(B, views, H, W)[:, 0]
+        valid = (label0 != ignore) & fov0.bool()
+
+        idx, sel_valid = capped_class_sample(
+            label0.reshape(-1), valid.reshape(-1), max_samples,
+            cap=int(self.config.get("cap", 1000)), rng=aux.get("rng", None))
+        feats = preds.permute(0, 2, 3, 1, 4).reshape(-1, views, Z)[idx]
+        feats = feats * torch.rsqrt((feats * feats).sum(-1, keepdim=True)
+                                    + 1e-12)
+        loss = bal_contrastive_loss(
+            feats, label0.reshape(-1)[idx],
+            temperature=float(self.config.get("temperature", 0.5)),
+            a_lc=float(self.config.get("a_lc", 1.0)),
+            a_spread=float(self.config.get("a_spread", 1.0)),
+            loss_type=self.config.get("type", "l_spread"), valid=sel_valid)
+        return {"balcon_loss": loss}, {}
+
+
+def vicreg_priorities(source, B: int, n: int, device: torch.device
+                      ) -> tuple[list[PrioritySource], PrioritySource]:
+    """VICReg's sampling priorities: one source per batch element for the
+    pairwise term and one for the variance term. ``source`` is None (no
+    randomness: the deterministic selection), a ``torch.Generator`` (B
+    draws of ``n`` values, then one of ``B * n``), or the fed pair
+    ``(pairs [B, n], variance [B * n])``."""
+    if source is None or isinstance(source, torch.Generator):
+        pairs = [priorities(source, n, device) for _ in range(B)]
+        return pairs, priorities(source, B * n, device)
+    if not isinstance(source, (tuple, list)) or len(source) != 2:
+        raise ValueError("VicregLoss's priorities are a torch.Generator or "
+                         "the pair (pairs [B, H*W], variance [B*H*W]); give "
+                         "them as aux['vicreg_rng'] beside another loss's "
+                         "fed aux['rng']")
+    pairs, var = source
+    if tuple(pairs.shape) != (B, n):
+        raise ValueError(f"VICReg pair priorities of shape "
+                         f"{tuple(pairs.shape)}, expected ({B}, {n})")
+    return list(pairs), var
+
+
+class VicregLoss(Loss):
+    """VICReg between the anchor BEV features and the movability-masked
+    multiview ones (``pred_mv_key``), with the reference's semantics
+    (loss_utils.py:737-969):
+
+      * invariance: the squared distance between anchor[i] and
+        multiview[j] over every same-label pair of sampled pixels, per
+        batch element, summed and divided once by the global pair count;
+      * variance: the hinge relu(1 - sqrt(var + 1e-4)) of the unbiased
+        variance over a per-label sample (cap ``max_variance_samples``)
+        across the batch, for each view, summed;
+      * covariance: the off-diagonal squares of the masked set's
+        covariance (divisor N - 1) over Z, for each view, summed.
+
+    The per-label samples are the capped sampler's static budgets
+    (``sample_budget`` per element, ``variance_budget`` for the batch).
+    Its priorities come from ``aux["vicreg_rng"]`` or else ``aux["rng"]``
+    (see ``vicreg_priorities``)."""
+
+    def loss(self, td, aux):
+        anchor = td[self.config["pred_key"]]  # [B, H, W, Z]
+        mv = td[self.config["pred_mv_key"]]
+        fov = td[self.config.get("fov_key", "inputs/fov_mask")]
+        gt = td[self.config["lab_key"]]
+        sim_c = float(self.config.get("sim_coeff", 1.0))
+        std_c = float(self.config.get("std_coeff", 1.0))
+        cov_c = float(self.config.get("cov_coeff", 1.0))
+        ignore = int(self.config.get("ignore_index", 0))
+        pair_budget = int(self.config.get("sample_budget", 1024))
+        var_budget = int(self.config.get("variance_budget", 512))
+        pair_cap = int(self.config.get("max_samples_per_label", 2000))
+        var_cap = int(self.config.get("max_variance_samples", 1))
+
+        B, H, W, Z = anchor.shape
+        if gt.dim() == 4 and gt.shape[-1] == 1:
+            gt = gt[..., 0]
+        if self.config["lab_key"].endswith("3d_ssc_label") and gt.dim() == 4:
+            label = _gt_mode(gt, -1)  # class ids shared across the batch
+            joint_label = label
+        else:
+            label = gt.to(torch.int32)
+            # instances distinct across batch elements
+            joint_label = remap_labels_per_batch(label, ignore_idx=ignore)
+        label = label.to(torch.int32)
+
+        mask = fov
+        if tuple(mask.shape[-2:]) != (H, W):
+            mask = resize_nearest(mask.float(), (H, W))
+        valid = mask.bool() & (label != ignore)
+        pair_pri, var_pri = vicreg_priorities(
+            aux.get("vicreg_rng", aux.get("rng", None)), B, H * W,
+            anchor.device)
+
+        # invariance: same-label pairwise squared distances per element,
+        # |a_i|^2 + |m_j|^2 - 2 a_i.m_j without the [S, S, Z] tensor
+        a_flat = anchor.reshape(B, H * W, Z)
+        m_flat = mv.reshape(B, H * W, Z)
+        l_flat = label.reshape(B, H * W)
+        v_flat = valid.reshape(B, H * W)
+        totals, counts = [], []
+        for b in range(B):
+            idx, sel = capped_class_sample(l_flat[b], v_flat[b], pair_budget,
+                                           cap=pair_cap, rng=pair_pri[b],
+                                           use_median=False)
+            A, M, li = a_flat[b][idx], m_flat[b][idx], l_flat[b][idx]
+            eqf = ((li[:, None] == li[None, :]) & sel[:, None]
+                   & sel[None, :]).to(anchor.dtype)
+            pair = ((A * A).sum(-1)[:, None] + (M * M).sum(-1)[None, :]
+                    - 2.0 * (A @ M.T))
+            totals.append((pair * eqf).sum())
+            counts.append(eqf.sum())
+        sim = torch.stack(totals).sum() / torch.clamp(
+            torch.stack(counts).sum(), min=1.0)
+
+        # variance: a per-label sample across the batch
+        vidx, vsel = capped_class_sample(
+            joint_label.reshape(-1), valid.reshape(-1), var_budget,
+            cap=var_cap, rng=var_pri, use_median=False)
+
+        def std_hinge(x):
+            s = x.reshape(-1, Z)[vidx]
+            w = vsel.to(x.dtype)[:, None]
+            n = w.sum()
+            mean = (s * w).sum(0) / torch.clamp(n, min=1.0)
+            var = ((s - mean) ** 2 * w).sum(0) / torch.clamp(n - 1, min=1.0)
+            hinge = torch.clamp(1.0 - torch.sqrt(var + 1e-4), min=0.0).mean()
+            return torch.where(n > 1, hinge, torch.zeros_like(hinge))
+
+        std = std_hinge(anchor) + std_hinge(mv)
+
+        # covariance: the whole masked set, both views
+        wcol = valid.reshape(B * H * W, 1).to(anchor.dtype)
+        n_all = torch.clamp(wcol.sum(), min=1.0)
+
+        def cov_term(x):
+            xm = x.reshape(B * H * W, Z)
+            xc = (xm - (xm * wcol).sum(0) / n_all) * wcol
+            cov = (xc.T @ xc) / torch.clamp(n_all - 1, min=1.0)
+            off = cov - torch.diag(torch.diag(cov))
+            return (off ** 2).sum() / Z
+
+        cov = cov_term(anchor) + cov_term(mv)
+
+        loss = sim_c * sim + std_c * std + cov_c * cov
+        return {"vicreg_loss": loss}, {"vicreg/sim": sim_c * sim,
+                                       "vicreg/std": std_c * std,
+                                       "vicreg/cov": cov_c * cov}
+
+
 _REGISTRY: dict[str, type[Loss]] = {
     cls.__name__: cls for cls in (
         CrossEntropyDepth, SmoothL1Depth, SmoothL1, MSELoss, PEFreeMSELoss,
-        CrossEntropy, SupPixelConLoss, MaxEntIRLLoss)}
+        CrossEntropy, FocalLoss, SupPixelConLoss, MaxEntIRLLoss,
+        BCActionLoss, TREXLoss, BalancedContrastiveLoss, VicregLoss)}
 
 
 def make_loss(config: Any) -> Loss:
-    name = config["name"]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"loss {name} is not ported yet")
-    return _REGISTRY[name](config)
+    return _REGISTRY[config["name"]](config)
 
 
 class LossManager:

@@ -4,8 +4,9 @@ Counterpart of ``creste_public_tpu/models/blocks/splat.py`` (reference
 Camera2MapMulti, splat_projection.py:53-354): depth + p2p -> LiDAR-frame
 points -> z-MLP elevation embedding -> 1x1-conv vision fusion -> in-range
 mask -> voxel coords -> bilinear splat, in mean mode (TerrainNet) or in max
-mode (the multiview distillation branch). The movability-mask training
-branch is not ported.
+mode (the multiview distillation branch). In training a movability mask
+keeps only the static pixels, and the outputs then carry the suffix
+``_mv``.
 """
 from __future__ import annotations
 
@@ -55,15 +56,19 @@ class Camera2MapMulti(nn.Module):
         self.vision_fusion = ConvEncoder(cfg["vision_fusion"])
 
     def forward(self, depth: torch.Tensor, feats: torch.Tensor,
-                p2p: torch.Tensor) -> dict[str, torch.Tensor]:
+                p2p: torch.Tensor, mv_mask: torch.Tensor | None = None
+                ) -> dict[str, torch.Tensor]:
         """
         Args:
           depth: [B, N, H, W] metric depth (metres).
           feats: [B, N, H, W, F] image features.
           p2p:   [B, N, 4, 4] pixel->LiDAR transform.
+          mv_mask: optional [B, N, H, W] movability mask, read in training
+            only: a pixel splats where it is > 0 (and in range).
 
         Returns 'bev_features' [B*NS, Hg, Wg, C], 'bev_densities'
-        [B*NS, Hg, Wg, 1] and 'bev_coords' [B*NS, NC*H*W, 2].
+        [B*NS, Hg, Wg, 1] and 'bev_coords' [B*NS, NC*H*W, 2], each key
+        with the suffix '_mv' when the mask was applied.
         """
         B, N, H, W = depth.shape
         xyz = geo.backproject_depth(depth, p2p)  # [B, N, H, W, 3]
@@ -79,6 +84,10 @@ class Camera2MapMulti(nn.Module):
         g = xyz.dtype
         mask = geo.point_in_range_mask(xyz, self.min_bound.to(g),
                                        self.max_bound.to(g))
+        suffix = ""
+        if self.training and mv_mask is not None:
+            mask = mask & (mv_mask > 0)
+            suffix = "_mv"
         fused = fused * mask[..., None]
 
         if N % self.nc:
@@ -91,4 +100,5 @@ class Camera2MapMulti(nn.Module):
 
         bev, dens = splat_to_bev(xy, fused, self.grid_hw,
                                  mode=self.scatter_mode, min_weight=1.0)
-        return {"bev_features": bev, "bev_densities": dens, "bev_coords": xy}
+        return {f"bev_features{suffix}": bev,
+                f"bev_densities{suffix}": dens, f"bev_coords{suffix}": xy}

@@ -6,7 +6,9 @@ model arguments of a stage, the merged tensor dict that the losses read
 closure (stage 2 hands SupCon its priority source, stage 3 the IRL
 penalty's ``reward_fn``), ``init_stage`` and ``make_train_step`` with the
 epoch-scheduled backbone freeze, for the four stages: ``depth`` (0),
-``distillation`` (1), ``ssc`` (2) and ``traversability`` (3).
+``distillation`` (1), ``ssc`` (2) and ``traversability`` (3); and for
+sequence-chunked stage-2 training ``make_temporal_train_step`` with the
+ConvGRU hidden state carried between chunks, and ``init_temporal_hidden``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from torch import nn
 from creste_public_tpu_torch import weights
 from creste_public_tpu_torch.losses.manager import LossManager
 from creste_public_tpu_torch.losses.supcon import PrioritySource
+from creste_public_tpu_torch.models.blocks.convnets import eval_form
 from creste_public_tpu_torch.models.blocks.effnet import DropConnect
 from creste_public_tpu_torch.models.depth_completion import (
     DepthCompletionModel,
@@ -90,12 +93,15 @@ def priority_source(drop_connect: DropConnect,
 
 
 def loss_aux(stage: str, model: nn.Module,
-             priorities: PrioritySource = None) -> dict:
+             priorities: PrioritySource | dict = None) -> dict:
     """The ``aux`` a stage's losses read: stage 3 the IRL penalty's
     ``reward_fn`` (``model.reward``: the reward net in its eval form, on
     the running statistics from before the step, pipelines.py:154-160 of
-    the JAX package); stage 2 SupCon's priority source, which it needs;
-    stages 0 and 1 nothing (no loss of theirs draws at random)."""
+    the JAX package); stage 2 the sampling losses' priority source, which
+    it needs (``{"rng": priorities}``, or ``priorities`` itself when it is
+    a dict of such entries: fed priorities for SupCon under ``rng`` and
+    for VICReg under ``vicreg_rng``); stages 0 and 1 nothing (no loss of
+    theirs draws at random)."""
     if stage == "traversability":
         return {"reward_fn": model.reward}
     if stage != "ssc":
@@ -103,7 +109,8 @@ def loss_aux(stage: str, model: nn.Module,
     if priorities is None:
         raise ValueError("stage 2 needs SupCon's priorities: give the step a "
                          "torch.Generator or pass priorities=")
-    return {"rng": priorities}
+    return dict(priorities) if isinstance(priorities, dict) else {
+        "rng": priorities}
 
 
 def make_loss_closure(stage: str, model: nn.Module,
@@ -185,3 +192,60 @@ def make_train_step(stage: str, model: nn.Module, loss_manager: LossManager,
         return train_step(state, closure, batch, drop_connect, transform)
 
     return step
+
+
+def make_temporal_train_step(model: nn.Module, loss_manager: LossManager,
+                             task: str | None = None) -> Callable[..., Any]:
+    """The sequence-chunked stage-2 step (``make_temporal_train_step`` of
+    the JAX package on one device): step(state, batch, hidden, bos,
+    drop_connect, priorities=None, pose_noise=None) -> (state, metrics,
+    new_hidden). The model reads the chunk's ``image`` and ``p2p`` [B, T,
+    ...] and its ``pose`` (with ``use_pose``), and no movability mask;
+    ``bos`` is a Python bool: True starts the sequence from a zero hidden
+    state and ignores ``hidden``. The returned hidden state is out of the
+    graph (the reference's detached cross-chunk state). Pose noise comes
+    from ``pose_noise``, else from the step's generator after the
+    drop-connect masks, as SupCon's priorities do. The metrics are the
+    JAX step's: the weighted losses, the scalar metadata and ``loss``."""
+
+    def loss_fn(batch: dict, drop_connect: DropConnect,
+                priorities: PrioritySource | dict, pose_noise, hidden,
+                bos: bool, carry: dict):
+        outputs = model(batch["image"], batch["p2p"], None,
+                        drop_connect=drop_connect, temporal_hidden=hidden,
+                        bos=bos, pose=batch.get("pose", None),
+                        pose_noise=pose_noise)
+        carry["hidden"] = outputs["temporal_hidden"]
+        td = merge_tensor_dict(batch, outputs, task)
+        loss_dict, meta = loss_manager(td, loss_aux(
+            "ssc", model, priority_source(drop_connect, priorities)))
+        return LossManager.total(loss_dict), loss_metrics(loss_dict, meta)
+
+    def step(state: TrainState, batch: dict, hidden, bos: bool,
+             drop_connect: DropConnect,
+             priorities: PrioritySource | dict = None, pose_noise=None):
+        if pose_noise is None and isinstance(drop_connect, torch.Generator):
+            pose_noise = drop_connect
+        carry: dict = {}
+        closure: LossClosure = functools.partial(
+            loss_fn, priorities=priorities, pose_noise=pose_noise,
+            hidden=hidden, bos=bool(bos), carry=carry)
+        metrics = train_step(state, closure, batch, drop_connect)
+        del metrics["grad_norm"]
+        return state, metrics, carry["hidden"]
+
+    return step
+
+
+@torch.no_grad()
+def init_temporal_hidden(model: nn.Module, sample_batch: dict) -> list:
+    """A zero hidden state of the right shapes (one eval forward of the
+    sample batch, its ``pose`` passed where it has one, pose noise from a
+    throwaway generator: the values are zeroed), the model's modes
+    restored after it."""
+    with eval_form(model):
+        outputs = model(sample_batch["image"], sample_batch["p2p"], None,
+                        pose=sample_batch.get("pose", None),
+                        pose_noise=torch.Generator().manual_seed(0))
+    return [tuple(torch.zeros_like(t) for t in h) if isinstance(h, tuple)
+            else torch.zeros_like(h) for h in outputs["temporal_hidden"]]

@@ -12,6 +12,13 @@ state_dict key by one rule table:
   batch_stats/<path>/var  -> <path>.running_var
   params/<path>/learnable_pe_map  NHWC [1, h, w, C] -> <path>.learnable_pe_map
                         NCHW [1, C, h, w]   (the PE-free distillation map)
+  params/<path>/log_var -> <path>.log_var   (the decoder's learnable loss
+                        weight)
+
+A grouped conv's HWIO kernel [kh, kw, in / groups, out] becomes torch's
+[out, in / groups, kh, kw] by the same transpose (the merged decoder heads'
+``mh_*`` convs), and a Dense kernel [in, out] a Linear weight [out, in]
+(the temporal layer's ``z_map_*``).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from creste_public_tpu_torch.models.blocks.convnets import BatchNorm
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 _PE_MAP = "learnable_pe_map"
+_LOG_VAR = "log_var"
 
 
 def from_jax_variables(flat: Mapping[str, np.ndarray]
@@ -50,6 +58,8 @@ def from_jax_variables(flat: Mapping[str, np.ndarray]
             name = _PARAM_LEAVES[leaf]
         elif coll == "params" and leaf == _PE_MAP and arr.ndim == 4:
             arr, name = arr.transpose(0, 3, 1, 2), _PE_MAP
+        elif coll == "params" and leaf == _LOG_VAR and arr.ndim == 1:
+            name = _LOG_VAR
         elif coll == "batch_stats" and leaf in _STAT_LEAVES:
             name = _STAT_LEAVES[leaf]
         else:

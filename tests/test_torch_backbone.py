@@ -86,5 +86,6 @@ def test_terrainnet():
     p2p[:, :, :3, :3] = np.diag([0.01, 0.01, 1.0])
     out, ref = _run(JTN(cfg), TerrainNet(cfg), _rgbd(), p2p)
     _check(out, ref, 1e-3, 1e-3)
-    with pytest.raises(NotImplementedError):
+    # the temporal branch is ported: without its config it has no layer
+    with pytest.raises(KeyError, match="temporal_layer"):
         TerrainNet(dict(cfg, use_temporal=True))

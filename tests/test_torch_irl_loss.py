@@ -177,8 +177,11 @@ def test_maxent_irl_loss_and_gradient_match_jax(objective, counterfactuals):
 
 
 def test_registry_names_unported_losses():
-    with pytest.raises(NotImplementedError, match="FocalLoss"):
-        LossManager({"loss": [{"name": "FocalLoss"}]})
+    # every loss of the JAX registry is ported: a name outside it raises
+    with pytest.raises(KeyError, match="NoSuchLoss"):
+        LossManager({"loss": [{"name": "NoSuchLoss"}]})
+    assert [type(lo).__name__ for lo in LossManager(
+        {"loss": [{"name": "FocalLoss"}]}).losses] == ["FocalLoss"]
     cfg, _ = _loss_cfg()
     assert [type(lo).__name__ for lo in LossManager(cfg).losses] == [
         "MaxEntIRLLoss"]

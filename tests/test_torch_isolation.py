@@ -57,6 +57,19 @@ def test_source_imports(path):
             assert n.split(".")[0] not in FORBIDDEN, f"{path}: imports {n}"
 
 
+# the modules the stage-2 branches added (the checks above walk the whole
+# package; these must stay among what they walk)
+BRANCH_MODULES = ("ops/warp.py", "models/blocks/convgru.py",
+                  "losses/balancedsupcon.py")
+
+
+@pytest.mark.parametrize("rel_path", BRANCH_MODULES)
+def test_branch_modules_are_checked(rel_path):
+    path = PKG / rel_path
+    assert path in set(PKG.rglob("*.py"))
+    test_source_imports(path)
+
+
 def _production_tree(**overrides) -> dict:
     """The production MaxEntIRL variable tree (shapes only). Parameter
     shapes do not depend on the image size, so the abstract init traces a
@@ -195,3 +208,42 @@ def test_stage01_entry_points_default_to_cuda(entry):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["trainer=smoke", "dataset=synthetic_tiny",
               "model=distillation/tiny"])
+
+
+def test_weight_import_covers_terrainnet_branch_trees():
+    """The flax TerrainNet trees of the branches at the published stage-2
+    widths load strictly, every state key from a leaf: the temporal layer
+    (pre-RNN conv and BatchNorm, a pose-warped GRU with its z-MLP), the
+    merged decoder heads (``mh_*``, grouped convs) and ``log_var``."""
+    cfg = jpresets.terrainnet_model_config(image_size=(64, 80)).to_dict()
+    cfg["use_temporal"] = True
+    cfg["temporal_layer"] = {"net_kwargs": {
+        "rnn_input_channels": 96, "rnn_config": {
+            "hidden_dims": [96], "groups": 2, "kernel_size": [3, 3],
+            "use_pose": True, "use_z": True}}}
+    kw = cfg["bev_classifier"]["net_kwargs"]
+    kw.update(merged_heads=True, learnable_loss_weight=True,
+              input_key="merged_bev_features")
+    rgbd = np.zeros((1, 2, 64, 80, 4), np.float32)
+    p2p = np.tile(np.eye(4, dtype=np.float32), (1, 2, 1, 1))
+    tree = jax.eval_shape(lambda: JTerrainNet(cfg).init(
+        {"params": jax.random.PRNGKey(0)}, rgbd, p2p, None, train=False,
+        pose=p2p))
+    flat = {k: np.zeros(v.shape, np.float32)
+            for k, v in flatten_dict(dict(tree), sep="/").items()}
+    assert "params/temporal_layer/rnn/z_map_0/kernel" in flat
+    assert "params/bevclassifier/mh_conv1/kernel" in flat
+    assert "params/bevclassifier/log_var" in flat
+    cfg_t = presets.terrainnet_model_config().to_dict()
+    cfg_t.update(use_temporal=True, temporal_layer=cfg["temporal_layer"])
+    cfg_t["bev_classifier"]["net_kwargs"].update(
+        merged_heads=True, learnable_loss_weight=True,
+        input_key="merged_bev_features")
+    model = TerrainNet(cfg_t)
+    sd = from_jax_variables(flat)
+    model.load_state_dict(sd, strict=True)
+    assert set(model.state_dict()) == set(sd)
+    w = sd["temporal_layer.rnn.cell_0.conv_gates.weight"]
+    assert tuple(w.shape) == (96, 96, 3, 3)
+    assert tuple(sd["bevclassifier.mh_conv1.weight"].shape) == (768, 256, 3,
+                                                                3)

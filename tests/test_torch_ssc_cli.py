@@ -36,6 +36,9 @@ from creste_public_tpu_torch.training.loop import run_training, to_device
 from creste_public_tpu_torch.training.state import global_norm
 from creste_public_tpu_torch.weights import from_jax_variables
 from tests.test_torch_helpers import jax_variables, jitter_bn, seeded_variables
+from tests.test_torch_step_helpers import (
+    one_torch_thread,  # noqa: F401 (an autouse fixture)
+)
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
 CPU = torch.device("cpu")

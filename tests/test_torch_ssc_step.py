@@ -81,6 +81,9 @@ from creste_public_tpu_torch.training.loop import to_device
 from creste_public_tpu_torch.training.surgery import make_stage_loader
 from creste_public_tpu_torch.weights import from_jax_variables, init_weights
 from tests.test_torch_helpers import jax_variables, jitter_bn, seeded_variables
+from tests.test_torch_step_helpers import (
+    one_torch_thread,  # noqa: F401 (an autouse fixture)
+)
 from tests.test_torch_step_helpers import Feeder
 from tests.test_torch_step_helpers import KeepF64 as _KeepF64
 from tests.test_torch_step_helpers import f64_forward as _f64_forward

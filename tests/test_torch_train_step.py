@@ -69,6 +69,9 @@ from creste_public_tpu_torch.training.loop import to_device
 from creste_public_tpu_torch.training.state import train_step
 from creste_public_tpu_torch.weights import from_jax_variables
 from tests.test_torch_helpers import jax_variables, jitter_bn, seeded_variables
+from tests.test_torch_step_helpers import (
+    one_torch_thread,  # noqa: F401 (an autouse fixture)
+)
 
 STEPS = 3
 STEPS_PER_EPOCH = 2

@@ -58,6 +58,9 @@ from tests.test_torch_helpers import (
     nhwc,
     seeded_variables,
 )
+from tests.test_torch_step_helpers import (
+    one_torch_thread,  # noqa: F401 (an autouse fixture)
+)
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")
 CPU = torch.device("cpu")
@@ -599,8 +602,9 @@ def test_unported_options_raise():
                      {"device": "cpu", "devices": 2})
     with pytest.raises(ValueError, match="Unknown stage"):
         pipelines.build_model("stereo", {})
-    with pytest.raises(NotImplementedError, match="movability"):
-        pipelines.build_model("ssc", dict(
-            GROUPS["model"]["ssc_sam/tiny"], use_movability=True))
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        pipelines.build_model("traversability", dict(
+            GROUPS["model"]["traversability/tiny"],
+            compute_dtype="bfloat16"))
     with pytest.raises(NotImplementedError):
         build_dataset({"name": "coda"})
