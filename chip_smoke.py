@@ -134,6 +134,37 @@ Phases, each printing one line before the final one:
     BalancedContrastiveLoss (stage 2, B=8), BCActionLoss and TREXLoss
     (stage 3, B=10), value and gradient card vs CPU; no kernel launch in
     phases 20-22.
+23. serving graphs (run after phases 20-22): the production deployment
+    graph (B=1, seed-0 weights) in five variants through
+    runtime.export.build_inference_fn: fused f32, unfused f32, fused
+    fold_bn, fused bf16 and fused bf16 + fold_bn; for each, ms/frame and Hz
+    (CUDA events, a fresh device-resident frame per call, runtime.
+    benchmark), the peak device memory of a frame, the reward's max|d| from
+    the fused f32 graph, the reward-head kernel's launches per frame (4
+    fused, 0 unfused), the achieved TFLOP/s of the unfused graph's FLOP
+    count against the H100's bf16, TF32 and f32 peaks, and card vs CPU for
+    every stage from the card's input to it (f32 and fold_bn to
+    STAGE_RTOL; bf16 to BF16_STAGE_RTOL, its f32 islands to STAGE_RTOL,
+    its backbone maps to BF16_NOISE_RATIO times the f32-vs-bf16 control).
+24. export: the fused f32 graph through torch.export (creste::msfcn_head
+    inside), saved, reloaded in the same process and run: every output
+    equal to the eager graph's bit for bit (deterministic algorithms on),
+    4 reward-head launches; then the native artifact (the program and its
+    manifest, cut to the reward maps) and its manifest lines.
+25. reference import: a reference-style checkpoint of the seed-0 weights
+    (training.torch_import.export_reference_style), checked by
+    runtime.parity_check --fused on the card against the CPU run's reward:
+    its worst deviation, no key unmatched, no FAIL.
+26. serve: runtime.serve --fused in a thread on a free local port; one
+    POST /infer equal to InferenceEngine.step bit for bit, 4 launches;
+    GET /healthz.
+27. bf16 stage-3 step: one mixed-precision training step at B=10
+    (compute_dtype bfloat16: only the frozen backbone in bf16) beside the
+    f32 step from the same seeded state: one VI and one SVF launch, the
+    head gradient's deviation from the f32 step's (printed), f32 masters
+    and statistics, ms per step and peak for both.
+28. bf16 stage-2 step: the same at B=8 for the stage-2 preset (the whole
+    model in bf16 from f32 masters), ms per step and peak beside f32.
 
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
@@ -2534,6 +2565,470 @@ def branches_path(torch, dev, card: str) -> tuple[int, int, int]:
     return launches
 
 
+# the runtime (phases 23-28): the serving variants, and their bars card vs
+# CPU. Each stage from the card's input to it is held: the f32 islands (the
+# depth head from the card's features, the reward head from its input
+# view) to STAGE_RTOL in every variant; the splat and the decoder to
+# STAGE_RTOL in f32 and to BF16_STAGE_RTOL in bf16 (a bf16 stream computed
+# by cuDNN and by the CPU rounds after other operations: a few bf16
+# roundings, as the CPU tests hold the port's bf16 stages against JAX's).
+# End to end, the f32 variants hold the backbone maps to STAGE_RTOL and
+# the reward to FRAME_RTOL; the bf16 ones hold each of BF16_NOISE_MAPS to
+# BF16_NOISE_RATIO times its control, the card's f32 graph against the
+# CPU's bf16 one (bf16's own noise on these weights; two independent
+# roundings lie sqrt(2) times one apart), and never above the map's typical
+# value (its mean |x| on the scale of max(1, max |x|)), so that a map as
+# far off as it is large fails. The bf16 reward end to end is held to
+# BF16_NOISE_RATIO times its control alone: on random weights bf16 moves
+# it about as far as it is large (its control is of its own size: the
+# depth's softmax moves the splat), so its precision rests on the stages
+SERVING_VARIANTS = (
+    ("fused f32", {}),
+    ("unfused f32", {"fused_reward": False}),
+    ("fused fold_bn", {"fold_bn": True}),
+    ("fused bf16", {"compute_dtype": "bfloat16"}),
+    ("fused bf16 fold_bn", {"fold_bn": True, "compute_dtype": "bfloat16"}),
+)
+BF16_STAGE_RTOL = 5e-2
+BF16_NOISE_RATIO = 2.0
+BACKBONE_MAPS = ("depth_preds_feats", "dino_pe_feats", "depth_preds_logits",
+                 "depth_preds_metric")
+F32_ISLANDS = ("depth head logits", "depth head metric", "reward head")
+REWARD = "traversability_preds"
+BF16_NOISE_MAPS = ("depth_preds_feats", "dino_pe_feats", "depth_preds_logits")
+BF16_B3, BF16_B2 = 10, 8  # the bf16 training steps' batches (the presets')
+
+
+def profile_window(torch, f, n: int) -> tuple[float, float, list]:
+    """``n`` calls of ``f`` under the profiler: (device busy ms per call,
+    idle share of the wall, the top 3 kernels as (name, ms per call))."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_us = union_us([(e.time_range.start, e.time_range.end)
+                        for e in prof.events() if e.device_type == cuda])
+    top = sorted((e for e in prof.key_averages() if e.device_type == cuda),
+                 key=lambda e: -e.self_device_time_total)[:3]
+    return (busy_us / n / 1e3, max(0.0, 1 - busy_us / wall_us),
+            [(e.key[:40], e.self_device_time_total / n / 1e3) for e in top])
+
+
+def serving_stages(torch, graph, out: dict, p2p) -> dict:
+    """Each stage of ``graph`` (a CPU ``InferenceGraph``) from the card's
+    input to it (``out``, the card's outputs on the CPU): the depth head
+    (its logits and metric depth) from the card's features, the splat from
+    the card's depth and features, each decoder head from its BEV
+    features, the reward head (fused: the operator) from its input view.
+    Returns {stage: (the CPU's output, the card's)}."""
+    m = graph.model
+    d = out["depth_preds_metric"]
+    f = out["depth_preds_feats"]
+    with torch.no_grad():
+        depth = m.backbone.depthcomp.depthcomp.predict_depth(
+            f.permute(0, 3, 1, 2).contiguous())
+        splat = m.backbone.cam2map(d.reshape(1, 1, *d.shape[1:]),
+                                   f.reshape(1, 1, *f.shape[1:]),
+                                   torch.from_numpy(p2p))
+        dec = m.backbone.bevclassifier(out)
+        iv = out["input_view"]
+        if graph.fused_reward:
+            r = torch.ops.creste.msfcn_head(iv, graph.head_tensors())
+        else:
+            r = m.traversability_head.reward(iv)
+    stages = {"depth head logits": (depth["depth_preds_logits"],
+                                    out["depth_preds_logits"]),
+              "depth head metric": (depth["depth_preds_metric"], d),
+              "splat bev_features": (splat["bev_features"],
+                                     out["bev_features"]),
+              "reward head": (r, out[REWARD])}
+    stages.update({f"decoder {k}": (v, out[k]) for k, v in dec.items()
+                   if k.endswith("_preds")})
+    return stages
+
+
+def typical_rel(ref) -> float:
+    """The mean |ref| on the scale ``max_rel`` reads: over max(1, max|ref|)."""
+    a = ref.float().abs()
+    return float(a.mean()) / max(1.0, float(a.max()))
+
+
+def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
+    """Phases 23-28: the serving variants timed and held card vs CPU, the
+    exported program reloaded, the reference-checkpoint import through
+    parity_check, the server's round trip, and the bf16 training steps of
+    stages 3 and 2. Returns the kernels' launches in these phases."""
+    import pickle
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    from creste_public_tpu_torch.config.groups import compose_cli
+    from creste_public_tpu_torch.data.dataloader import (
+        EpochLoader,
+        build_dataset,
+    )
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
+    from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
+    from creste_public_tpu_torch.runtime import benchmark, parity_check, serve
+    from creste_public_tpu_torch.runtime.export import (
+        build_inference_fn,
+        export_inference_graph,
+        export_native_artifacts,
+        load_exported,
+    )
+    from creste_public_tpu_torch.training import pipelines
+    from creste_public_tpu_torch.training.loop import (
+        step_generator,
+        to_device,
+    )
+    from creste_public_tpu_torch.training.torch_import import (
+        export_reference_style,
+    )
+
+    h, w = cfg["vision_backbone"]["vision_backbone"]["effnet_cfgs"][
+        "image_size"]
+    rgbd, p2p = example_inputs(h, w)
+    x, p = torch.from_numpy(rgbd).to(dev), torch.from_numpy(p2p).to(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    launches: dict = {}
+
+    # 23. the serving variants: time, peak, deviation, launches, card vs
+    # CPU, against the fused f32 graph's reward
+    unfused = build_inference_fn(cfg, state, "cuda", fused_reward=False)
+    ref_out = ref_cpu = None
+    rows, failed = [], []
+    for name, kw in SERVING_VARIANTS:
+        fn = build_inference_fn(cfg, state, "cuda", **kw)
+        torch.cuda.synchronize()
+        rk.msfcn_head_cuda.launches = 0
+        out = fn(x, p)
+        torch.cuda.synchronize()
+        n = rk.msfcn_head_cuda.launches
+        want = 0 if kw.get("fused_reward") is False else rk.LAUNCHES_PER_HEAD
+        if n != want:
+            fail(f"the {name} graph launched the reward-head kernel {n} "
+                 f"times per frame, not {want}")
+        launches[name] = n
+        for k, v in out.items():
+            if not bool(torch.isfinite(v.float()).all()):
+                fail(f"the {name} graph's {k} has non-finite values")
+        if out[REWARD].dtype != torch.float32 or (
+                "compute_dtype" in kw
+                and out["bev_features"].dtype != torch.bfloat16):
+            fail(f"the {name} graph's dtypes: reward {out[REWARD].dtype}, "
+                 f"bev_features {out['bev_features'].dtype}")
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(x, p)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = benchmark.frame_latency_ms(fn, rgbd, p2p, iters=10, repeats=5)
+        busy, idle, _ = profile_window(torch, lambda: fn(x, p), 5)
+        cost = benchmark.cost_stats(fn.graph, x, p, flops_graph=unfused.graph)
+        roof = benchmark.mfu_fields(cost["flops"], cost["bytes"], ms / 1e3)
+        if ref_out is None:
+            ref_out = {k: v.float().cpu() for k, v in out.items()}
+        dev_ref, rel_ref = max_rel(out[REWARD].cpu(), ref_out[REWARD])
+        # card vs CPU: the same variant on the CPU
+        t0 = time.perf_counter()
+        fn_cpu = build_inference_fn(cfg, state, "cpu", **kw)
+        out_cpu = fn_cpu(rgbd, p2p)
+        cpu_s = time.perf_counter() - t0
+        if ref_cpu is None:
+            ref_cpu = out_cpu
+        c = {k: v.cpu() for k, v in out.items()}
+        bf16 = "compute_dtype" in kw
+        checks = []  # (what, card vs CPU, bar, how the bar was set)
+        for sname, (got_cpu, got_card) in serving_stages(
+                torch, fn_cpu.graph, c, p2p).items():
+            _, rel = max_rel(got_card, got_cpu)
+            bar = (BF16_STAGE_RTOL if bf16 and sname not in F32_ISLANDS
+                   else STAGE_RTOL)
+            checks.append((sname, rel, bar, ""))
+        if bf16:
+            for k in BF16_NOISE_MAPS + (REWARD,):
+                _, rel = max_rel(c[k], out_cpu[k])
+                control = max_rel(ref_out[k], out_cpu[k])[1]
+                typical = typical_rel(out_cpu[k])
+                bar = BF16_NOISE_RATIO * control
+                if k != REWARD:
+                    bar = min(bar, typical)
+                checks.append((f"end to end {k}", rel, bar,
+                               f"; {BF16_NOISE_RATIO} x control "
+                               f"{control:.2e}, typical {typical:.2e}"))
+        else:
+            for k in BACKBONE_MAPS:
+                checks.append((f"end to end {k}",
+                               max_rel(c[k], out_cpu[k])[1], STAGE_RTOL, ""))
+            checks.append((f"end to end {REWARD}",
+                           max_rel(c[REWARD], out_cpu[REWARD])[1],
+                           FRAME_RTOL, ""))
+        failed += [f"{name}: {s_} card vs CPU {r:.3e} > {b:.3e}"
+                   for s_, r, b, _ in checks if r > b]
+        rows.append(name)
+        print(f"  serving {name}: {ms:.3f} ms/frame = {1e3 / ms:.2f} Hz "
+              f"(CUDA events, fresh frame per call, median of 5 x 10); "
+              f"device busy {busy:.3f} ms/frame, idle share {idle:.3f} (5 "
+              f"frames under the profiler); peak "
+              f"{peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} GiB "
+              f"above the resident {resident / 2**30:.3f}); reward max|d| "
+              f"from fused f32 {dev_ref:.3e} ({rel_ref:.3e} of max(1, "
+              f"max|r| {float(ref_out[REWARD].abs().max()):.3e})); "
+              f"reward-head launches {n}; "
+              f"{roof['achieved_tflops']:.3f} TFLOP/s of "
+              f"{roof['gflop_per_frame']:.2f} GFLOP (unfused count) = "
+              f"{roof['share_of_bf16_peak']:.4f} of the bf16, "
+              f"{roof['share_of_tf32_peak']:.4f} of the TF32, "
+              f"{roof['share_of_f32_peak']:.4f} of the f32 peak; "
+              f"{roof['hbm_gbps']:.1f} GB/s of >= {cost['bytes'] / 1e6:.1f} "
+              f"MB; card vs CPU " + ", ".join(
+                  f"{s_} {r:.2e} (bar {b:.1e}{how})"
+                  for s_, r, b, how in checks)
+              + f"; CPU frame {cpu_s:.1f} s [{card}]", flush=True)
+        del fn, fn_cpu, out, out_cpu
+        torch.cuda.empty_cache()
+    if failed:
+        fail("serving graphs card vs CPU: " + "; ".join(failed))
+    print(f"phase serving graphs: ok, {len(rows)} variants timed and held "
+          f"card vs CPU (the depth and reward heads <= {STAGE_RTOL} in "
+          f"every variant; f32 and fold_bn stages and backbone maps <= "
+          f"{STAGE_RTOL}, reward end to end <= {FRAME_RTOL}; bf16 stages "
+          f"<= {BF16_STAGE_RTOL}, end to end <= {BF16_NOISE_RATIO} x the "
+          f"f32-vs-bf16 control, the backbone maps also <= their typical "
+          f"value), reward-head launches per frame {launches}", flush=True)
+
+    # 24. export: the fused f32 graph through torch.export, reloaded here.
+    # The splat's index_add_ is atomic, so the comparison runs with
+    # deterministic algorithms; a program keeps the cuDNN settings it was
+    # traced under (traced without them, its convolutions ignore them),
+    # so it is exported under them too
+    fn = build_inference_fn(cfg, state, "cuda")
+    path = os.path.join(tmp, "graph.pt2")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        export_inference_graph(fn.graph, rgbd, p2p, path)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        module = load_exported(path).module()
+        load_s = time.perf_counter() - t0
+        with torch.no_grad():
+            eager = fn(x, p)
+            torch.cuda.synchronize()
+            rk.msfcn_head_cuda.launches = 0
+            got = module(x, p)
+            torch.cuda.synchronize()
+            n = rk.msfcn_head_cuda.launches
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches["export reload"] = n
+    if n != rk.LAUNCHES_PER_HEAD:
+        fail(f"the reloaded program launched the reward-head kernel {n} "
+             "times")
+    if got.keys() != eager.keys() or any(
+            not torch.equal(got[k], eager[k]) for k in eager):
+        fail("the reloaded program's outputs differ from the eager graph's: "
+             + ", ".join(f"{k} {max_rel(got[k], eager[k])[0]:.3e}"
+                         for k in eager if not torch.equal(got[k], eager[k])))
+    t0 = time.perf_counter()
+    info = export_native_artifacts(
+        cfg, state, rgbd, p2p, os.path.join(tmp, "native"),
+        fused_reward=True, output_keys=[REWARD, f"{REWARD}_full"])
+    native_s = time.perf_counter() - t0
+    manifest = open(os.path.join(tmp, "native", "manifest.txt")).read()
+    print(f"phase export: ok, the fused f32 graph exported in {export_s:.1f} "
+          f"s ({os.path.getsize(path) / 1e6:.1f} MB), reloaded in "
+          f"{load_s:.1f} s; the reload's {len(got)} outputs equal the eager "
+          f"graph's bit for bit (deterministic algorithms on, at the export "
+          f"and the runs) in {n} "
+          f"reward-head launches; native artifact in {native_s:.1f} s: "
+          f"{info['program_bytes'] / 1e6:.1f} MB program, "
+          f"{info['manifest_lines']} manifest lines: "
+          + " | ".join(manifest.strip().splitlines()), flush=True)
+    del fn, module, eager, got
+    torch.cuda.empty_cache()
+
+    # 25. the reference-checkpoint import: a reference-style checkpoint of
+    # the seeded weights, parity_check against the CPU run's outputs
+    ckpt_path = os.path.join(tmp, "reference.ckpt")
+    torch.save({"state_dict": export_reference_style(state)}, ckpt_path)
+    with open(os.path.join(tmp, "sample.pkl"), "wb") as f:
+        pickle.dump({"rgbd": rgbd, "p2p": p2p}, f)
+    expected = ref_cpu[REWARD].permute(0, 3, 1, 2).numpy()
+    with open(os.path.join(tmp, "expected.pkl"), "wb") as f:
+        pickle.dump({REWARD: expected}, f)
+    tol = FRAME_RTOL * max(1.0, float(np.abs(expected).max()))
+    res = parity_check.main([
+        "--ckpt", ckpt_path, "--fused", "--tol", str(tol),
+        "--sample", os.path.join(tmp, "sample.pkl"),
+        "--expected", os.path.join(tmp, "expected.pkl")])
+    if (res["unmatched"] or res["dropped"] or res["seeded"]
+            or res["worst"] is None or res["worst"] > tol):
+        fail(f"parity_check: worst {res['worst']}, unmatched "
+             f"{res['unmatched'][:5]}, dropped {res['dropped'][:5]}, left "
+             f"seeded {res['seeded'][:5]}")
+    print(f"phase reference import: ok, a reference-style checkpoint of "
+          f"{len(export_reference_style(state))} tensors imported with none "
+          f"unmatched, none dropped and no tensor of the graph left at its "
+          f"seeded value; parity_check --fused on the card against the CPU "
+          f"run: worst deviation {res['worst']:.3e} (tol {tol:.3e} = "
+          f"{FRAME_RTOL} of max(1, max|ref|), the card-vs-CPU frame bar), "
+          "no FAIL", flush=True)
+    del ref_out, ref_cpu
+
+    # 26. serve --fused in-process: one POST /infer, GET /healthz
+    server, engine, stats = serve.build_server(
+        ["--fused", "--host", "127.0.0.1", "--port", "0"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        port = server.server_address[1]
+        frame, cam = example_inputs(h, w)
+        frame[..., :3] = np.random.default_rng(5).uniform(
+            0, 1, frame[..., :3].shape)
+        torch.cuda.synchronize()
+        rk.msfcn_head_cuda.launches = 0
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/infer", data=frame.tobytes(),
+            headers={"X-P2P": json.dumps(cam.reshape(-1).tolist())})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            shape = json.loads(r.headers["X-Shape"])
+            reply = np.frombuffer(r.read(), np.float32).reshape(shape)
+        rtt = time.perf_counter() - t0
+        n = rk.msfcn_head_cuda.launches
+        want = engine.step(frame, cam)[REWARD].cpu().numpy()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        torch.use_deterministic_algorithms(False)
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    launches["serve"] = n
+    if n != rk.LAUNCHES_PER_HEAD:
+        fail(f"the server's frame launched the reward-head kernel {n} times")
+    if reply.shape != want.shape or not np.array_equal(reply, want):
+        fail("the server's reply differs from InferenceEngine.step")
+    if health.get("status") != "ok":
+        fail(f"/healthz answered {health}")
+    print(f"phase serve: ok, serve --fused answered POST /infer in "
+          f"{rtt * 1e3:.1f} ms round trip ({shape}, equal to "
+          f"InferenceEngine.step bit for bit, deterministic algorithms on; "
+          f"{n} reward-head launches); /healthz {health}; warm engine "
+          f"p50 {stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms "
+          f"({stats['clock']}) [{card}]", flush=True)
+    del server, engine
+    torch.cuda.empty_cache()
+
+    # 27-28. the bf16 training steps of stages 3 and 2 beside the f32 ones
+    def steps(stage, model_cfg, loader_cfg, keys, B, task=None):
+        batch_np = next(iter(EpochLoader(build_dataset(loader_cfg, "train"),
+                                         B, num_workers=4).epoch(5)))
+        batch = to_device({k: batch_np[k] for k in keys}, dev)
+        out = {}
+        for name, mcfg in (("bf16", dict(model_cfg,
+                                          compute_dtype="bfloat16")),
+                           ("f32", model_cfg)):
+            model, lm, st = pipelines.init_stage(stage, mcfg, seed=SEED,
+                                                 device=dev)
+            step = pipelines.make_train_step(stage, model, lm, task)
+            torch.cuda.synchronize()
+            value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+            rk.msfcn_head_cuda.launches = 0
+            metrics = step(st, batch, step_generator(SEED, 0))
+            torch.cuda.synchronize()
+            n = (value_iteration_cuda.launches, expected_svf_cuda.launches,
+                 rk.msfcn_head_cuda.launches)
+            grads = {k: q.grad.float().cpu() for k, q in
+                     model.named_parameters() if q.grad is not None}
+            bad = [k for k, q in model.state_dict().items()
+                   if q.is_floating_point() and q.dtype != torch.float32]
+            if bad or any(not np.isfinite(float(v))
+                          for v in metrics.values()):
+                fail(f"{stage} {name} step: non-f32 masters or statistics "
+                     f"{bad[:3]}, metrics {metrics}")
+            gens = [step_generator(SEED, i) for i in range(1, 64)]
+            it = iter(range(63))
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(torch, lambda: step(st, batch, gens[next(it)]),
+                         iters=2, reps=3, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            _, idle, top = profile_window(
+                torch, lambda: step(st, batch, gens[next(it)]), 1)
+            out[name] = dict(metrics={k: float(v) for k, v in
+                                      metrics.items()},
+                             launches=n, grads=grads, ms=ms, peak=peak,
+                             idle=idle, top="; ".join(
+                                 f"{k} {v:.1f} ms" for k, v in top))
+            del model, st
+            torch.cuda.empty_cache()
+        return out
+
+    tcfg = compose_cli("traversability", [f"model={TRAIN_MODEL}",
+                                          f"dataset={TRAIN_DATASET}"])
+    s3 = steps("traversability", tcfg["model"].to_dict(), tcfg["dataset"],
+               ("image", "p2p", "traversability_label", "fov_mask"),
+               BF16_B3)
+    if s3["bf16"]["launches"] != (1, 1, 0):
+        fail(f"the bf16 stage-3 step launched VI, SVF and the reward-head "
+             f"kernel {s3['bf16']['launches']} times")
+    head = [k for k in s3["f32"]["grads"] if k.startswith(
+        "traversability_head.")]
+    g32 = torch.cat([s3["f32"]["grads"][k].reshape(-1) for k in head])
+    g16 = torch.cat([s3["bf16"]["grads"][k].reshape(-1) for k in head])
+    head_dev = float((g16 - g32).abs().max() / g32.abs().max())
+    if not bool(torch.isfinite(g16).all()) or float(g16.abs().max()) == 0:
+        fail("the bf16 stage-3 step's head gradient is not finite and live")
+    if any(k.startswith("backbone.") for k in s3["bf16"]["grads"]):
+        fail("the bf16 stage-3 step gave the frozen backbone a gradient")
+    launches["bf16 stage-3 step"] = s3["bf16"]["launches"]
+    print(f"phase bf16 stage-3 step: ok, B={BF16_B3}: one VI and one SVF "
+          f"launch; {s3['bf16']['ms']:.3f} ms per step, peak "
+          f"{s3['bf16']['peak']:.2f} GiB, against the f32 step's "
+          f"{s3['f32']['ms']:.3f} ms, {s3['f32']['peak']:.2f} GiB "
+          f"({s3['f32']['ms'] / s3['bf16']['ms']:.3f}x); idle "
+          f"{s3['bf16']['idle']:.3f} / {s3['f32']['idle']:.3f}; top kernels "
+          f"bf16: {s3['bf16']['top']}; f32: {s3['f32']['top']}; loss bf16 "
+          f"{s3['bf16']['metrics']['loss']:.6e} vs f32 "
+          f"{s3['f32']['metrics']['loss']:.6e}; the head gradient's max|d| "
+          f"from the f32 step's {head_dev:.3e} of its largest entry "
+          "(bf16 backbone features; not a bar); masters and statistics f32 "
+          f"[{card}]", flush=True)
+    scfg = compose_cli("ssc_sam", [f"model={SSC_MODEL}",
+                                   f"dataset={SSC_DATASET}"])
+    s2 = steps("ssc", scfg["model"].to_dict(), scfg["dataset"],
+               ("image", "p2p", "mv_mask", "depth_label", "fimg_label",
+                "fov_mask", "3d_sam_label", "3d_sam_dynamic_label",
+                "elevation_label"), BF16_B2, task="joint")
+    if s2["bf16"]["launches"] != (0, 0, 0):
+        fail(f"the bf16 stage-2 step launched {s2['bf16']['launches']}")
+    print(f"phase bf16 stage-2 step: ok, B={BF16_B2}: "
+          f"{s2['bf16']['ms']:.3f} ms per step, peak "
+          f"{s2['bf16']['peak']:.2f} GiB, against the f32 step's "
+          f"{s2['f32']['ms']:.3f} ms, {s2['f32']['peak']:.2f} GiB "
+          f"({s2['f32']['ms'] / s2['bf16']['ms']:.3f}x); idle "
+          f"{s2['bf16']['idle']:.3f} / {s2['f32']['idle']:.3f}; top kernels "
+          f"bf16: {s2['bf16']['top']}; f32: {s2['f32']['top']}; losses "
+          "bf16 / f32 "
+          + ", ".join(f"{k} {s2['bf16']['metrics'][k]:.4e} / "
+                      f"{s2['f32']['metrics'][k]:.4e}"
+                      for k in sorted(s2["f32"]["metrics"]))
+          + f"; masters and statistics f32 [{card}]", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2744,6 +3239,17 @@ def main() -> None:
                                                    conv_cudnn))
     k2_ms = time_ms(torch, lambda: rk.msfcn_fused_apply(folded_main, iv),
                     iters=50)
+    # what the operator's per-call rebuild and check of its 27 weight
+    # tensors costs: the same launches on a head checked once, and the
+    # check alone on the host
+    iv_c = iv.contiguous()  # as the operator's caller passes it
+    once_ms = time_ms(torch, lambda: rk.msfcn_head_cuda(folded_main, iv_c),
+                      iters=50)
+    head_ts = rk.head_tensors(folded_main)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        rk.head_from_tensors(head_ts).kernel_args(iv.device)
+    check_us = (time.perf_counter() - t0) / 200 * 1e6
     lib_err = float((rk.msfcn_chain(folded_main, iv, conv_cudnn)
                      - ref).abs().max())
     with torch.profiler.profile(
@@ -2759,9 +3265,11 @@ def main() -> None:
         and re.search(r"head_[a-z]+", e.key))
     print(f"  reward-head launches under the profiler (per head): "
           f"{per_launch} [{card}]", flush=True)
-    print(f"phase timing kernel: whole head {k_ms * 1e3:.1f} us (again "
-          f"{k2_ms * 1e3:.1f} us) in {rk.LAUNCHES_PER_HEAD} launches, max|d| "
-          f"{err:.3e}; plain {p_ms * 1e3:.1f} us; whole head on cuDNN "
+    print(f"phase timing kernel: whole head through the operator "
+          f"{k_ms * 1e3:.1f} us (again {k2_ms * 1e3:.1f} us) in "
+          f"{rk.LAUNCHES_PER_HEAD} launches, max|d| {err:.3e}; on a head "
+          f"checked once {once_ms * 1e3:.1f} us, the per-call rebuild and "
+          f"check alone {check_us:.1f} us of host time; plain {p_ms * 1e3:.1f} us; whole head on cuDNN "
           f"{lib_ms * 1e3:.1f} us (max|d| {lib_err:.3e}), its {len(layers)} "
           f"convolutions alone {conv_ms * 1e3:.1f} us; bound "
           f"{bound_ms * 1e3:.2f} us by {head_bound_by} ({flops / 1e9:.3f} "
@@ -2844,6 +3352,11 @@ def main() -> None:
     branch_launches = branches_path(torch, dev, card)
     walls["phases 20-22"] = (time.perf_counter() - t_start
                              - sum(walls.values()))
+    # 23-28. the runtime: the serving variants, the export, the reference
+    # import, the server, the bf16 training steps
+    runtime_launches = runtime_path(torch, dev, card, cfg, state)
+    walls["phases 23-28"] = (time.perf_counter() - t_start
+                             - sum(walls.values()))
     print("wall time by phase group: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
     for d in (stage1_dir, ssc_dir):
@@ -2858,6 +3371,8 @@ def main() -> None:
         k["stage01_launches"] = n
     for k, n in zip(mdp_kernels, branch_launches):
         k["branch_launches"] = n
+    for k, n in zip(mdp_kernels, runtime_launches["bf16 stage-3 step"]):
+        k["bf16_train_launches"] = n
 
     print(json.dumps({"kernels": [{
         "name": "msfcn_head",
@@ -2872,8 +3387,14 @@ def main() -> None:
         "bound_by": head_bound_by,
         "library_ms": lib_ms,
         "library_conv_only_ms": conv_ms,
+        "checked_once_ms": once_ms,
         "stage01_launches": stage01_launches[2],
         "branch_launches": branch_launches[2],
+        "serving_launches": {k: v for k, v in runtime_launches.items()
+                             if k in dict(SERVING_VARIANTS)},
+        "export_reload_launches": runtime_launches["export reload"],
+        "serve_launches": runtime_launches["serve"],
+        "bf16_train_launches": runtime_launches["bf16 stage-3 step"][2],
     }] + mdp_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

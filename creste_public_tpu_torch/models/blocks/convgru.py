@@ -31,7 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from creste_public_tpu_torch.models.blocks.convnets import BatchNorm
+from creste_public_tpu_torch.models.blocks.convnets import (
+    BatchNorm,
+    Conv2d,
+    Linear,
+)
 from creste_public_tpu_torch.ops.warp import (
     affine_warp,
     noisify_affine,
@@ -44,12 +48,12 @@ PoseNoise = Union[torch.Generator,
                   Sequence[tuple[torch.Tensor, torch.Tensor]], None]
 
 
-def _conv(in_ch: int, out_ch: int, kernel: Sequence[int]) -> nn.Conv2d:
+def _conv(in_ch: int, out_ch: int, kernel: Sequence[int]) -> Conv2d:
     """flax ``nn.Conv(padding="SAME")`` at an odd kernel."""
     kh, kw = (int(k) for k in kernel)
     if kh % 2 == 0 or kw % 2 == 0:
         raise NotImplementedError(f"ConvGRU kernel {kernel}: odd sizes only")
-    return nn.Conv2d(in_ch, out_ch, (kh, kw), padding=(kh // 2, kw // 2))
+    return Conv2d(in_ch, out_ch, (kh, kw), padding=(kh // 2, kw // 2))
 
 
 class ConvGRUCell(nn.Module):
@@ -133,8 +137,8 @@ class ConvGRU(nn.Module):
             if len(self.hidden_dims) != 1:
                 raise ValueError("use_z supports a single recurrent layer")
             hdim = self.hidden_dims[0]
-            self.z_map_0 = nn.Linear(1, hdim)
-            self.z_map_2 = nn.Linear(hdim, hdim)
+            self.z_map_0 = Linear(1, hdim)
+            self.z_map_2 = Linear(hdim, hdim)
 
     def forward(self, x: torch.Tensor, hidden: Sequence[Any] | None = None,
                 pose: torch.Tensor | None = None, noise: PoseNoise = None
@@ -219,7 +223,7 @@ class MergeUnit(nn.Module):
         rnn_in = cfg.get("rnn_input_channels", None)
         self.pre_rnn = rnn_in is not None
         if self.pre_rnn:
-            self.pre_rnn_conv = nn.Conv2d(in_ch, int(rnn_in), 1, bias=False)
+            self.pre_rnn_conv = Conv2d(in_ch, int(rnn_in), 1, bias=False)
             self.pre_rnn_bn = BatchNorm(int(rnn_in))
             in_ch = int(rnn_in)
         self.rnn_cfg = cfg.get("rnn_config", None)

@@ -6,6 +6,14 @@ so that ``weights.from_jax_variables`` maps a flax tree by a short rule
 table. Every BatchNorm follows ``nn.Module.train()``/``.eval()``: batch
 statistics with a staged running-stat update in training, the running
 statistics in eval (see ``BatchNorm``).
+
+Mixed precision follows flax: a conv or dense layer (``Conv2d``,
+``Linear``) computes in the promotion of its input's and its weights'
+dtypes, so bf16-rounded weights read an f32 input in f32 and a bf16 input
+in bf16; every BatchNorm normalises in f32 and returns its input's dtype.
+After ``fold_batch_norms`` a BatchNorm is, in eval, the deploy-time
+``x * w + b`` in its input's dtype (the JAX package's
+``folded_inference_bn``).
 """
 from __future__ import annotations
 
@@ -17,10 +25,43 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def promoted(*tensors: torch.Tensor | None) -> list[torch.Tensor | None]:
+    """``tensors`` in the promotion of their dtypes, as flax's layers
+    compute (None passes through; a tensor of that dtype already is not
+    touched)."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        if t is not None:
+            dt = torch.promote_types(dt, t.dtype)
+    return [t if t is None or t.dtype == dt else t.to(dt) for t in tensors]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``promote_types(input, weight, bias)``, as
+    flax's ``nn.Conv`` does (``F.conv2d`` refuses mixed dtypes). The same
+    parameters and state_dict keys as ``nn.Conv2d``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*promoted(x, self.weight, self.bias))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``promote_types(input, weight, bias)``, as
+    flax's ``nn.Dense`` does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(*promoted(x, self.weight, self.bias))
+
+
 class BatchNorm(nn.Module):
     """The JAX package's ``batch_norm`` (flax ``nn.BatchNorm``) over dim 1.
 
-    eval: ``(x - running_mean) / sqrt(running_var + eps) * weight + bias``.
+    eval: ``(x - running_mean) / sqrt(running_var + eps) * weight + bias``,
+    in f32, cast back to the input's dtype; once ``fold_batch_norms`` has
+    set ``folded`` (the JAX package's ``FoldedBatchNorm``), ``x * w + b``
+    in the input's dtype (one ``addcmul``) from the (w, b) it kept in that
+    dtype. The state_dict is the same either way, so one checkpoint drives
+    both.
     train: normalises with the batch's statistics over every dim but 1,
     computed as flax computes them (``use_fast_variance``): f32
     ``E[x]`` and the biased ``E[x^2] - E[x]^2`` clipped at 0, then
@@ -43,6 +84,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.folded = False
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -50,6 +92,12 @@ class BatchNorm(nn.Module):
         self.staged: tuple[torch.Tensor, torch.Tensor] | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training and self.folded:
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            name = _dtype_name(x.dtype)
+            w, b = getattr(self, f"fold_w_{name}"), getattr(self,
+                                                            f"fold_b_{name}")
+            return torch.addcmul(b.view(shape), x, w.view(shape))
         if not self.training:
             return F.batch_norm(x.float(), self.running_mean,
                                 self.running_var, self.weight, self.bias,
@@ -67,6 +115,36 @@ class BatchNorm(nn.Module):
             self.staged = (m * old[0] + (1 - m) * mean,
                            m * old[1] + (1 - m) * var)
         return y.to(x.dtype)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def fold_batch_norms(module: nn.Module,
+                     dtype: torch.dtype = torch.float32) -> nn.Module:
+    """Switches every BatchNorm in ``module`` to its folded eval form
+    (``BatchNorm``'s ``folded``): ``w = weight * rsqrt(running_var + eps)``
+    and ``b = bias - running_mean * w``, computed now in f32 from the
+    loaded statistics (fold after loading the weights), are kept as the
+    non-persistent buffers ``fold_w_<dtype>``, ``fold_b_<dtype>`` in each
+    dtype a BatchNorm can read: f32 (the f32 islands of a bf16 graph) and
+    ``dtype``, the stream's. Training mode is unaffected. Returns
+    ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            with torch.no_grad():
+                w = m.weight.float() * torch.rsqrt(m.running_var.float()
+                                                   + m.eps)
+                b = m.bias.float() - m.running_mean.float() * w
+            for dt in dict.fromkeys((torch.float32, dtype)):
+                name = _dtype_name(dt)
+                m.register_buffer(f"fold_w_{name}", w.to(dt),
+                                  persistent=False)
+                m.register_buffer(f"fold_b_{name}", b.to(dt),
+                                  persistent=False)
+            m.folded = True
+    return module
 
 
 @torch.no_grad()
@@ -110,8 +188,8 @@ class ConvLayer(nn.Module):
         super().__init__()
         if use_norm and norm_type != "batch_norm":
             raise NotImplementedError(f"norm type {norm_type}")
-        self.Conv_0 = nn.Conv2d(in_ch, features, kernel, stride,
-                                padding=kernel // 2, bias=use_bias)
+        self.Conv_0 = Conv2d(in_ch, features, kernel, stride,
+                             padding=kernel // 2, bias=use_bias)
         if use_norm:
             self.BatchNorm_0 = BatchNorm(features)
         self.use_norm = use_norm
@@ -140,7 +218,7 @@ class MultiLayerConv(nn.Module):
         self.norm = cfg.get("norm_type", None) == "batch_norm"
         self.n = len(kernels)
         for i, k in enumerate(kernels):
-            self.add_module(f"Conv_{i}", nn.Conv2d(
+            self.add_module(f"Conv_{i}", Conv2d(
                 dims[i], dims[i + 1], k, strides[i], padding=paddings[i]))
             if self.norm:
                 self.add_module(f"BatchNorm_{i}", BatchNorm(dims[i + 1]))
@@ -169,7 +247,7 @@ class MLP(nn.Module):
         super().__init__()
         self.n = len(dims)
         for i, d in enumerate(dims):
-            self.add_module(f"Dense_{i}", nn.Linear(in_dim, d))
+            self.add_module(f"Dense_{i}", Linear(in_dim, d))
             in_dim = d
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,11 @@ In training (``.train()``) the residual blocks apply drop-connect at rate
 ``DROP_CONNECT_RATE * idx / n_blocks`` (effnet.py:45,170 of the JAX
 package). The masks come from what the caller passes as ``drop_connect``
 (see ``drop_connect_mask``).
+
+With a ``compute_dtype`` (the opt-in bf16 mode) the stream is cast to it
+after the stem's BN + SiLU: the stem reads the f32 RGBD, whose mm-scale
+depth channel bf16 would quantise, in f32 (its bf16-rounded weights
+promote), and every layer after it computes in the stream dtype.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from torch import nn
 
 from creste_public_tpu_torch.models.blocks.convnets import (
     BatchNorm,
+    Conv2d,
     resize_bilinear,
 )
 
@@ -87,7 +93,7 @@ def static_same_pad(in_hw: tuple[int, int], k: int, s: int):
     )
 
 
-class PaddedConv2d(nn.Conv2d):
+class PaddedConv2d(Conv2d):
     """Bias-free conv with explicit (possibly asymmetric) padding."""
 
     def __init__(self, cin, cout, k, s, pad, groups=1):
@@ -116,16 +122,16 @@ class MBConvBlock(nn.Module):
         c = in_ch * expand
         self.expand = expand != 1
         if self.expand:
-            self.expand_conv = nn.Conv2d(in_ch, c, 1, bias=False)
+            self.expand_conv = Conv2d(in_ch, c, 1, bias=False)
             self.bn0 = BatchNorm(c, _EFF_EPS, _EFF_MOMENTUM)
         self.depthwise_conv = PaddedConv2d(
             c, c, kernel, stride, static_same_pad(nominal_hw, kernel, stride),
             groups=c)
         self.bn1 = BatchNorm(c, _EFF_EPS, _EFF_MOMENTUM)
         n_sq = max(1, int(in_ch * SE_RATIO))
-        self.se_reduce = nn.Conv2d(c, n_sq, 1)
-        self.se_expand = nn.Conv2d(n_sq, c, 1)
-        self.project_conv = nn.Conv2d(c, out_ch, 1, bias=False)
+        self.se_reduce = Conv2d(c, n_sq, 1)
+        self.se_expand = Conv2d(n_sq, c, 1)
+        self.project_conv = Conv2d(c, out_ch, 1, bias=False)
         self.bn2 = BatchNorm(out_ch, _EFF_EPS, _EFF_MOMENTUM)
         self.residual = stride == 1 and in_ch == out_ch
 
@@ -143,7 +149,7 @@ class MBConvBlock(nn.Module):
             if self.training and self.drop_rate > 0:
                 keep = 1.0 - self.drop_rate
                 x = x * drop_connect_mask(drop_connect, x.shape[0], keep,
-                                          x.device) / keep
+                                          x.device).to(x.dtype) / keep
             x = x + inp
         return x
 
@@ -153,13 +159,17 @@ class EfficientNetB0Trunk(nn.Module):
 
     Endpoints follow efficientnet_pytorch.extract_endpoints: the tensor
     before each spatial reduction, plus the final block output, giving
-    reduction_1..5 with channels (16, 24, 40, 112, 320).
+    reduction_1..5 with channels (16, 24, 40, 112, 320). ``compute_dtype``
+    (None, or e.g. ``torch.bfloat16``) is the stream's dtype after the
+    stem.
     """
 
     def __init__(self, in_channels: int = 4,
                  image_size: Sequence[int] = (512, 612),
-                 stage_repeats: int | None = None):
+                 stage_repeats: int | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.conv_stem = PaddedConv2d(
             in_channels, 32, 3, 2, static_same_pad(tuple(image_size), 3, 2))
         self.bn0 = BatchNorm(32, _EFF_EPS, _EFF_MOMENTUM)
@@ -180,6 +190,8 @@ class EfficientNetB0Trunk(nn.Module):
     def forward(self, x: torch.Tensor, drop_connect: DropConnect = None
                 ) -> dict[str, torch.Tensor]:
         x = F.silu(self.bn0(self.conv_stem(x)))
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         endpoints: dict[str, torch.Tensor] = {}
         prev = x
         for idx in range(self.n_blocks):
@@ -198,9 +210,9 @@ class Up(nn.Module):
 
     def __init__(self, in_ch: int, features: int):
         super().__init__()
-        self.conv_0 = nn.Conv2d(in_ch, features, 3, padding=1, bias=False)
+        self.conv_0 = Conv2d(in_ch, features, 3, padding=1, bias=False)
         self.bn_0 = BatchNorm(features)
-        self.conv_1 = nn.Conv2d(features, features, 3, padding=1, bias=False)
+        self.conv_1 = Conv2d(features, features, 3, padding=1, bias=False)
         self.bn_1 = BatchNorm(features)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -217,10 +229,11 @@ class EffNet(nn.Module):
 
     def __init__(self, in_channels: int = 4, out_channels: int = 256,
                  image_size: Sequence[int] = (512, 612), downsample: int = 4,
-                 stage_repeats: int | None = None):
+                 stage_repeats: int | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.trunk = EfficientNetB0Trunk(in_channels, image_size,
-                                         stage_repeats)
+                                         stage_repeats, compute_dtype)
         channels = [320, 112, 40, 24, 16, in_channels]
         scale = 32 // downsample
         self.n_up = 0
@@ -230,7 +243,7 @@ class EffNet(nn.Module):
             self.n_up += 1
             C += channels[self.n_up]
             self.add_module(f"up{self.n_up}", Up(C, C))
-        self.conv = nn.Conv2d(C, out_channels, 1)
+        self.conv = Conv2d(C, out_channels, 1)
 
     def forward(self, x: torch.Tensor, drop_connect: DropConnect = None):
         endpoints = self.trunk(x, drop_connect)

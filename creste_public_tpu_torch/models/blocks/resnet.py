@@ -19,6 +19,7 @@ from torch import nn
 
 from creste_public_tpu_torch.models.blocks.convnets import (
     BatchNorm,
+    Conv2d,
     resize_bilinear,
 )
 from creste_public_tpu_torch.models.blocks.effnet import Up
@@ -29,14 +30,14 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_ch: int, features: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, features, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(in_ch, features, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm(features)
-        self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(features, features, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm(features)
         self.down = stride != 1 or in_ch != features
         if self.down:
-            self.down_conv = nn.Conv2d(in_ch, features, 1, stride,
-                                       bias=False)
+            self.down_conv = Conv2d(in_ch, features, 1, stride,
+                                    bias=False)
             self.down_bn = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -53,9 +54,9 @@ class DeconvHead(nn.Module):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.up1 = Up(in_ch, 256)
-        self.up2_conv = nn.Conv2d(256, 128, 3, padding=1, bias=False)
+        self.up2_conv = Conv2d(256, 128, 3, padding=1, bias=False)
         self.up2_bn = BatchNorm(128)
-        self.proj = nn.Conv2d(128, out_ch, 1)
+        self.proj = Conv2d(128, out_ch, 1)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor):
         x = self.up1(x1, x2)
@@ -90,7 +91,7 @@ class InpaintingResNet18MultiHead(nn.Module):
         self.num_classes = [int(n) for n in num_classes]
         self.output_prefix = list(output_prefix)
         self.merged_heads = merged_heads
-        self.conv1 = nn.Conv2d(num_input_features, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(num_input_features, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm(64)
         self.layer1_0 = BasicBlock(64, 64)
         self.layer1_1 = BasicBlock(64, 64)
@@ -100,16 +101,16 @@ class InpaintingResNet18MultiHead(nn.Module):
         self.layer3_1 = BasicBlock(256, 256)
         n = len(self.num_classes)
         if merged_heads:
-            self.mh_conv0 = nn.Conv2d(256 + 64, 256 * n, 3, padding=1,
-                                      bias=False)
+            self.mh_conv0 = Conv2d(256 + 64, 256 * n, 3, padding=1,
+                                   bias=False)
             self.mh_bn0 = BatchNorm(256 * n)
-            self.mh_conv1 = nn.Conv2d(256 * n, 256 * n, 3, padding=1,
-                                      groups=n, bias=False)
+            self.mh_conv1 = Conv2d(256 * n, 256 * n, 3, padding=1,
+                                   groups=n, bias=False)
             self.mh_bn1 = BatchNorm(256 * n)
-            self.mh_up2 = nn.Conv2d(256 * n, 128 * n, 3, padding=1, groups=n,
-                                    bias=False)
+            self.mh_up2 = Conv2d(256 * n, 128 * n, 3, padding=1, groups=n,
+                                 bias=False)
             self.mh_up2_bn = BatchNorm(128 * n)
-            self.mh_proj = nn.Conv2d(128 * n, sum(self.num_classes), 1)
+            self.mh_proj = Conv2d(128 * n, sum(self.num_classes), 1)
         else:
             for i, c in enumerate(self.num_classes):
                 self.add_module(f"head_{i}", DeconvHead(256 + 64, c))

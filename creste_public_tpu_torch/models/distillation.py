@@ -19,6 +19,7 @@ from torch import nn
 
 from creste_public_tpu_torch.models.blocks.convnets import (
     BatchNorm,
+    Conv2d,
     MultiLayerConv,
 )
 from creste_public_tpu_torch.models.blocks.effnet import DropConnect
@@ -44,7 +45,7 @@ class DistillationBackbone(nn.Module):
         fdn = int(cfg["fdn_embed_dim"])
         self.learnable_pe_map = nn.Parameter(torch.zeros(
             1, fdn // 2, int(pe_cfg["height"]), int(pe_cfg["width"])))
-        self.pe_head_conv = nn.Conv2d(fdn // 2, fdn, 1)
+        self.pe_head_conv = Conv2d(fdn // 2, fdn, 1)
         self.pe_head_bn = (BatchNorm(fdn) if pe_cfg.get("use_norm", False)
                            else None)
         if (cfg.get("multiview_distillation", False)

@@ -17,7 +17,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from creste_public_tpu_torch.models.blocks.convnets import eval_form
+from creste_public_tpu_torch.models.blocks.convnets import Linear, eval_form
 from creste_public_tpu_torch.models.blocks.effnet import DropConnect
 from creste_public_tpu_torch.models.blocks.vin import VIN
 from creste_public_tpu_torch.models.terrainnet import TerrainNet
@@ -42,15 +42,24 @@ def gaussian_2d(goal_xy: torch.Tensor, sigma: float, H: int,
     return g[..., None]
 
 
+def backbone_cfg_with_dtype(cfg: Any) -> Any:
+    """The TerrainNet config with a top-level ``compute_dtype`` threaded
+    down into it (TerrainNet and DepthCompletion read the knob from their
+    own top level); shared by ``MaxEntIRL`` and the fused deployment graph
+    (``runtime.export``)."""
+    vb = cfg["vision_backbone"]
+    if cfg.get("compute_dtype") and not vb.get("compute_dtype"):
+        vb = dict(vb, compute_dtype=cfg["compute_dtype"])
+    return vb
+
+
 class MaxEntIRL(nn.Module):
     def __init__(self, cfg: Any):
         super().__init__()
-        if cfg.get("compute_dtype"):
-            raise NotImplementedError("MaxEntIRL with a compute_dtype")
         head_cfg = cfg["traversability_head"]
         if head_cfg["value_iterator"] != "VIN":
             raise NotImplementedError(head_cfg["value_iterator"])
-        self.backbone = TerrainNet(cfg["vision_backbone"])
+        self.backbone = TerrainNet(backbone_cfg_with_dtype(cfg))
         self.traversability_head = VIN(head_cfg["net_kwargs"]["reward_cfg"],
                                        head_cfg["net_kwargs"]["qvalue_cfg"])
         self.map_size = tuple(cfg.get("map_size", [64, 128]))
@@ -62,7 +71,7 @@ class MaxEntIRL(nn.Module):
         self.goal_cfg = cfg.get("goal_kwargs", {})
         # flax creates the fc parameters only where the rollout calls it
         if self.solve_mdp and self.policy_method == "fc":
-            self.fc = nn.Linear(8, 8, bias=False)
+            self.fc = Linear(8, 8, bias=False)
         H, W = self.map_size
         fov = geo.create_trapezoidal_fov_mask(H * 2, W, 70, 70, 0, 100)
         self.register_buffer("fov_mask", torch.from_numpy(fov[:H, :W].copy()),

@@ -9,6 +9,15 @@ convolutions on tensor cores in 3xTF32, with the 2x2 maxpool, the bilinear
 upsample and the concat folded into them and no PyTorch op between them.
 On CPU tensors the same function runs its plain PyTorch version. Inference
 only: no backward.
+
+The head is also the operator ``creste::msfcn_head`` (``torch.library``),
+so that ``torch.export`` traces a graph through it and a reloaded program
+calls it: its CUDA implementation is the kernel's launch, its CPU
+implementation the plain version, and its fake implementation gives the
+output's shape. The folded weights cross the operator's boundary as a list
+of tensors (``head_tensors``). Importing this module registers the
+operator. Weights rounded to bf16 fold in f32 from their rounded values,
+and the kernel reads its input in f32.
 """
 from __future__ import annotations
 
@@ -151,6 +160,40 @@ def fold_msfcn_params(msfcn: MultiScaleFCN) -> FoldedHead:
                   for i in range(msfcn.n_trunk)],
         "postpool": stack("postpool", msfcn.n_postpool),
     })
+
+
+def head_tensors(folded: Mapping[str, list[Layer]]) -> list[torch.Tensor]:
+    """The tensors of a head with the layers of ``HEAD``, in the order
+    ``creste::msfcn_head`` takes them: each layer's HWIO kernel, a and b, in
+    ``HEAD``'s order (prepool, skip, trunk, postpool), then the packed
+    weights of the six tensor-core layers."""
+    layers = [ly for chain in HEAD for ly in folded[chain]]
+    if len(layers) != sum(len(v) for v in HEAD.values()):
+        raise ValueError(f"the head has {len(layers)} layers; the operator "
+                         f"takes {sum(len(v) for v in HEAD.values())}")
+    return ([t for ly in layers for t in (ly["kernel"], ly["a"], ly["b"])]
+            + [ly["packed"] for ly in layers[:6]])
+
+
+def head_from_tensors(tensors: list[torch.Tensor]) -> FoldedHead:
+    """The ``FoldedHead`` that ``head_tensors`` flattened (the same
+    tensors, not copies)."""
+    n = sum(len(v) for v in HEAD.values())
+    if len(tensors) != 3 * n + 6:
+        raise ValueError(f"the operator takes {3 * n + 6} tensors, got "
+                         f"{len(tensors)}")
+    chains, i = {}, 0
+    for chain, want in HEAD.items():
+        chains[chain] = []
+        for (_, _, _, pre) in want:
+            ly = {"kernel": tensors[3 * i], "a": tensors[3 * i + 1],
+                  "b": tensors[3 * i + 2], "pre_relu": pre,
+                  "post_relu": True}
+            if i < 6:
+                ly["packed"] = tensors[3 * n + i]
+            chains[chain].append(ly)
+            i += 1
+    return FoldedHead(chains)
 
 
 def conv_affine_plain(x: torch.Tensor, layer: Layer) -> torch.Tensor:
@@ -300,10 +343,35 @@ def msfcn_head_cuda(folded: FoldedHead, x: torch.Tensor) -> torch.Tensor:
 msfcn_head_cuda.launches = 0
 
 
+@torch.library.custom_op("creste::msfcn_head", mutates_args=(),
+                         device_types="cpu")
+def msfcn_head_op(x: torch.Tensor, weights: list[torch.Tensor]
+                  ) -> torch.Tensor:
+    """``creste::msfcn_head``: the folded head (``head_tensors``) on x
+    [B, H, W, Ci] f32 -> [B, H, W, 1] f32, NHWC. On the CPU the plain
+    version."""
+    return msfcn_plain(head_from_tensors(list(weights)), x)
+
+
+@msfcn_head_op.register_kernel("cuda")
+def _msfcn_head_cuda_op(x: torch.Tensor, weights: list[torch.Tensor]
+                        ) -> torch.Tensor:
+    return msfcn_head_cuda(head_from_tensors(list(weights)), x)
+
+
+@msfcn_head_op.register_fake
+def _msfcn_head_fake(x: torch.Tensor, weights: list[torch.Tensor]
+                     ) -> torch.Tensor:
+    return x.new_empty((*x.shape[:3], 1), dtype=torch.float32)
+
+
 def msfcn_fused_apply(folded: FoldedHead, x: torch.Tensor) -> torch.Tensor:
-    """Folded inference MultiScaleFCN: x [B, H, W, C] -> [B, H, W, 1] NHWC.
-    ``folded`` comes from ``fold_msfcn_params``. CUDA tensors go through the
-    kernel, CPU tensors through the plain version."""
-    if x.device.type == "cpu":
-        return msfcn_plain(folded, x)
-    return msfcn_head_cuda(folded, x.float().contiguous())
+    """Folded inference MultiScaleFCN: x [B, H, W, C] -> [B, H, W, 1] NHWC,
+    read in f32. ``folded`` comes from ``fold_msfcn_params``. One call of
+    the operator ``creste::msfcn_head``, as the deployment graph makes it:
+    CUDA tensors go through the kernel, CPU tensors through the plain
+    version, any other device raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x must be a CPU or CUDA tensor, got {x.device}")
+    return torch.ops.creste.msfcn_head(x.float().contiguous(),
+                                       head_tensors(folded))

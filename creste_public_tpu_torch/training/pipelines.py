@@ -9,6 +9,12 @@ epoch-scheduled backbone freeze, for the four stages: ``depth`` (0),
 ``distillation`` (1), ``ssc`` (2) and ``traversability`` (3); and for
 sequence-chunked stage-2 training ``make_temporal_train_step`` with the
 ConvGRU hidden state carried between chunks, and ``init_temporal_hidden``.
+
+With a model config's ``compute_dtype`` (``"bfloat16"``) a step runs the
+mixed-precision forward of ``mixed_precision_forward``: the optimizer's
+master parameters stay f32, bf16 copies of them drive the forward and carry
+the gradient back, and the outputs, the losses and the BatchNorm
+statistics are f32 (pipelines.py:85-150 of the JAX package).
 """
 from __future__ import annotations
 
@@ -24,11 +30,13 @@ from creste_public_tpu_torch.losses.supcon import PrioritySource
 from creste_public_tpu_torch.models.blocks.convnets import eval_form
 from creste_public_tpu_torch.models.blocks.effnet import DropConnect
 from creste_public_tpu_torch.models.depth_completion import (
+    DepthCompletion,
     DepthCompletionModel,
 )
 from creste_public_tpu_torch.models.distillation import DistillationBackbone
 from creste_public_tpu_torch.models.lfd import MaxEntIRL
 from creste_public_tpu_torch.models.terrainnet import TerrainNet
+from creste_public_tpu_torch.runtime.precision import batch_norm_keys
 from creste_public_tpu_torch.training import optim
 from creste_public_tpu_torch.training.state import (
     GradTransform,
@@ -113,17 +121,50 @@ def loss_aux(stage: str, model: nn.Module,
         "rng": priorities}
 
 
+def mixed_precision_forward(stage: str, model: nn.Module
+                            ) -> Callable[..., dict]:
+    """The forward a training step calls: ``model`` itself, or, when the
+    model was built with a ``compute_dtype`` (its ``DepthCompletion``'s),
+    a call through ``torch.func.functional_call`` with bf16 copies
+    (``p.to(dtype)``, so the gradient reaches the f32 master) of the
+    parameters that ``precision.cast_state`` casts: for stage 3 only the
+    frozen backbone's (its forward carries no gradient; the reward net,
+    VI, SVF and the penalty stay f32), for the other stages every one. The
+    input is not cast (the EffNet stem reads it in f32); the float outputs
+    come back f32, and the BatchNorms stage f32 statistics."""
+    dtype = next((m.compute_dtype for m in model.modules()
+                  if isinstance(m, DepthCompletion)), None)
+    if dtype is None:
+        return model
+    keep = batch_norm_keys(model.state_dict())
+    names = [n for n, p in model.named_parameters()
+             if n not in keep and p.is_floating_point()
+             and (stage != "traversability" or n.startswith("backbone."))]
+
+    def forward(*args, **kwargs) -> dict:
+        params = dict(model.named_parameters())
+        cast = {n: params[n].to(dtype) for n in names}
+        out = torch.func.functional_call(model, cast, args, kwargs)
+        return {k: v.float() if isinstance(v, torch.Tensor)
+                and v.is_floating_point() else v for k, v in out.items()}
+
+    return forward
+
+
 def make_loss_closure(stage: str, model: nn.Module,
                       loss_manager: LossManager,
                       task: str | None = None) -> Callable[..., Any]:
     """loss_and_metrics(batch, drop_connect, priorities=None) -> (total,
     metrics), with the model in whatever mode the caller set
-    (``train_step`` sets training) and the stage's ``loss_aux``."""
+    (``train_step`` sets training) and the stage's ``loss_aux``; in the
+    model's ``compute_dtype`` where it has one
+    (``mixed_precision_forward``)."""
+    forward = mixed_precision_forward(stage, model)
 
     def loss_and_metrics(batch: dict, drop_connect: DropConnect,
                          priorities: PrioritySource = None):
-        outputs = model(*model_inputs(stage, batch),
-                        drop_connect=drop_connect)
+        outputs = forward(*model_inputs(stage, batch),
+                          drop_connect=drop_connect)
         td = merge_tensor_dict(batch, outputs, task)
         aux = loss_aux(stage, model, priority_source(drop_connect,
                                                      priorities))

@@ -55,6 +55,55 @@ def test_reward_kernel_matches_plain_on_card(cuda, shape):
 
 
 @pytest.mark.gpu
+def test_reward_op_launches_the_kernel(cuda, tmp_path):
+    """``creste::msfcn_head`` on CUDA tensors is the kernel: the same output
+    as ``msfcn_head_cuda`` bit for bit, in four launches; and a fused tiny
+    deployment graph exported with ``torch.export`` and reloaded calls it
+    (four launches per frame), equal to the eager graph bit for bit."""
+    from creste_public_tpu_torch.models.lfd import MaxEntIRL
+    from creste_public_tpu_torch.runtime.compile import example_inputs
+    from creste_public_tpu_torch.runtime.export import (
+        build_inference_fn,
+        export_inference_graph,
+        load_exported,
+    )
+
+    folded = _reward_head(cuda)
+    x = torch.randn(1, 64, 128, 40,
+                    generator=torch.Generator().manual_seed(1)).to(cuda)
+    rk.msfcn_head_cuda.launches = 0
+    got = torch.ops.creste.msfcn_head(x, rk.head_tensors(folded))
+    torch.cuda.synchronize()
+    assert rk.msfcn_head_cuda.launches == 4
+    assert torch.equal(got, rk.msfcn_head_cuda(folded, x))
+
+    cfg = dict(presets.tiny_traversability_config().to_dict(),
+               solve_mdp=False)
+    model = weights.init_weights(MaxEntIRL(cfg), 0)
+    weights.jitter_reward_head_bns(model.traversability_head.r, 1)
+    rgbd, p2p = example_inputs(64, 80, depth_mm=3000.0)
+    fn = build_inference_fn(cfg, model.state_dict(), "cuda")
+    path = str(tmp_path / "g.pt2")
+    xs = (torch.from_numpy(rgbd).to(cuda), torch.from_numpy(p2p).to(cuda))
+    # the splat's index_add_ is atomic: compare with deterministic
+    # algorithms, and export under them (a program keeps the cuDNN
+    # settings it was traced under)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        export_inference_graph(fn.graph, rgbd, p2p, path)
+        module = load_exported(path).module()
+        with torch.no_grad():
+            eager = fn(*xs)
+            rk.msfcn_head_cuda.launches = 0
+            out = module(*xs)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert rk.msfcn_head_cuda.launches == 4
+    assert all(torch.equal(out[k], eager[k]) for k in eager)
+
+
+@pytest.mark.gpu
 def test_reward_kernel_rejects_bad_input(cuda):
     folded = _reward_head(cuda)
     with pytest.raises(ValueError, match="contiguous"):

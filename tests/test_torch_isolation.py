@@ -12,7 +12,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from flax.traverse_util import flatten_dict
+from flax.traverse_util import flatten_dict, unflatten_dict
 
 from creste_public_tpu.config import presets as jpresets
 from creste_public_tpu.models.lfd import MaxEntIRL as JMaxEntIRL
@@ -70,6 +70,21 @@ def test_branch_modules_are_checked(rel_path):
     test_source_imports(path)
 
 
+# the runtime slice's modules: the same checks, and each imports without
+# starting anything (the entry points run only under __main__)
+RUNTIME_MODULES = ("runtime/precision.py", "runtime/export.py",
+                   "runtime/benchmark.py", "runtime/compile.py",
+                   "runtime/serve.py", "runtime/parity_check.py",
+                   "training/torch_import.py")
+
+
+@pytest.mark.parametrize("rel_path", RUNTIME_MODULES)
+def test_runtime_modules_are_checked(rel_path):
+    path = PKG / rel_path
+    assert path in set(PKG.rglob("*.py"))
+    test_source_imports(path)
+
+
 def _production_tree(**overrides) -> dict:
     """The production MaxEntIRL variable tree (shapes only). Parameter
     shapes do not depend on the image size, so the abstract init traces a
@@ -108,6 +123,25 @@ def test_weight_import_covers_production_tree():
         model.load_state_dict(from_jax_variables(missing), strict=True)
     with pytest.raises(ValueError, match="no rule"):
         from_jax_variables({"params/x/embedding": np.zeros(3)})
+
+
+def test_reference_import_covers_production_tree():
+    """The reference-style state_dict of the production tree (the JAX
+    package's ``export_torch_style``) imports into the port with no key
+    unmatched and loads strictly: the importer's rules cover every tensor
+    of the deployment graph."""
+    from creste_public_tpu.training.torch_import import export_torch_style
+    from creste_public_tpu_torch.training.torch_import import (
+        import_reference_state_dict,
+    )
+
+    flat = _production_tree()
+    ref = export_torch_style(unflatten_dict(flat, sep="/"))
+    state, unmatched = import_reference_state_dict(ref)
+    assert unmatched == []
+    cfg = presets.traversability_model_config().to_dict()
+    cfg["solve_mdp"] = False
+    MaxEntIRL(cfg).load_state_dict(state, strict=True)
 
 
 def test_weight_import_covers_terrainnet_tree():

@@ -124,8 +124,10 @@ def test_tiny_presets_match_config_shapes():
     assert out["exp_svf"].shape == out["state_preds_grid"].shape == (2, Hm,
                                                                      Wm)
     assert out["state_preds"].shape == (2, cfg["action_horizon"], 2)
-    with pytest.raises(NotImplementedError):
-        MaxEntIRL(dict(cfg, compute_dtype="bfloat16"))
+    # the opt-in bf16 stream builds and reaches the backbone's trunk
+    m16 = MaxEntIRL(dict(cfg, compute_dtype="bfloat16"))
+    assert m16.backbone.depthcomp.depthcomp.vision_backbone.effnet.trunk \
+        .compute_dtype == torch.bfloat16
 
 
 def _rel(got, ref) -> float:

@@ -602,9 +602,9 @@ def test_unported_options_raise():
                      {"device": "cpu", "devices": 2})
     with pytest.raises(ValueError, match="Unknown stage"):
         pipelines.build_model("stereo", {})
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        pipelines.build_model("traversability", dict(
-            GROUPS["model"]["traversability/tiny"],
-            compute_dtype="bfloat16"))
+    # a compute_dtype is ported (the mixed-precision step): it builds
+    model = pipelines.build_model("traversability", dict(
+        GROUPS["model"]["traversability/tiny"], compute_dtype="bfloat16"))
+    assert model.backbone.depthcomp.depthcomp.compute_dtype == torch.bfloat16
     with pytest.raises(NotImplementedError):
         build_dataset({"name": "coda"})
