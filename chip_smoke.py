@@ -165,6 +165,28 @@ Phases, each printing one line before the final one:
     and statistics, ms per step and peak for both.
 28. bf16 stage-2 step: the same at B=8 for the stage-2 preset (the whole
     model in bf16 from f32 masters), ms per step and peak beside f32.
+29. stage-3 data-parallel step (run last): two spawned ranks in a gloo
+    group over CUDA tensors, both on the one card (NCCL refuses two ranks
+    on one GPU), at the production preset, global B=10 (5 per rank),
+    seeded weights, fed drop-connect masks per rank: one VI and one SVF
+    launch per rank, no reward-head launch; parameters and running
+    statistics bit-equal across the ranks after the step; the reduced
+    gradient, the running statistics and the metrics against the serial
+    emulation (tests/test_torch_dp_ranks.py: each rank's rows through the
+    same closure, the ranks' gradients and statistics averaged, one Adam
+    step) within a bar set from the emulation's own spread on the card,
+    which the control (the one-process B=10 step) must exceed; ms per
+    step on each rank, two ranks sharing one card.
+30. stage-2 data-parallel step: the same at global B=8 with the six
+    losses and fed SupCon priorities, SupCon's anchors on each rank
+    contrasted with the features gathered from both; no kernel launch.
+31. multi-task augmented training: python -m torch.distributed.run
+    --standalone --nproc_per_node=1 -m creste_public_tpu_torch.train_ssc
+    trainer=smoke (NCCL at world size 1) with two tasks, joint and depth,
+    at the synthetic_ssc widths and do_augmentation: each task's step
+    lines carry the JAX CLI's keys, finite losses, the checkpoint
+    restores; the augmented loader's batches bit-equal in thread and
+    process mode, and its samples/s in each; the loop's ms per step.
 
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
@@ -3029,6 +3051,387 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
     return launches
 
 
+# --- phases 29-31: data-parallel steps, multi-task augmented training ---
+
+DP_WORLD = 2
+DP_MASKS = 24  # fed drop-connect masks per rank (9 drawn per forward)
+DP_TIMED_STEPS = 3
+# the two-rank step against its serial emulation: a bar of DP_SPREAD_RATIO
+# times the emulation's own spread on the card (two runs of it: the splat's
+# index_add_ adds with atomics), floored at DP_FLOOR, capped at SSC_GRAD_CAP
+DP_SPREAD_RATIO = 4.0
+DP_FLOOR = 1e-5
+MT_VAL_LENGTH = 8
+MT_STEPS = 4  # joint, depth, joint, depth (the depth loader restarts)
+# the metrics keys of each task's step lines: the JAX CLI's, which
+# tests/test_torch_multitask.py checks these against
+MULTITASK_KEYS = {
+    "joint": frozenset({
+        "CrossEntropy/joint/acc", "CrossEntropy/joint/cls_loss",
+        "CrossEntropyDepth/depth/acc", "CrossEntropyDepth/depth/cls_loss",
+        "MSELoss/loss", "SmoothL1/val", "SmoothL1Depth/depth/reg_loss",
+        "SupPixelConLoss/joint/3d_sam_label/supcon/img_loss",
+        "SupPixelConLoss/joint/3d_sam_label/supcon/sem_loss", "epoch",
+        "grad_norm", "loss", "step", "wall_s"}),
+    "depth": frozenset({
+        "CrossEntropyDepth/depth/acc", "CrossEntropyDepth/depth/cls_loss",
+        "MSELoss/loss", "SmoothL1Depth/depth/reg_loss", "epoch",
+        "grad_norm", "loss", "step", "wall_s"}),
+}
+
+
+def dp_ranks_module():
+    """tests/test_torch_dp_ranks.py (the data-parallel step, its serial
+    emulation, fed masks), loaded from its path: a ``tests`` package of
+    the machine's site-packages may shadow the repo's."""
+    import importlib.util
+
+    name = "chip_smoke_dp_ranks"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tests",
+            "test_torch_dp_ranks.py"))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def _dp_rank(rank: int, world: int, init_file: str, case_file: str,
+             out_dir: str, device_type: str = "cuda") -> None:
+    """One rank of phases 29-30, spawned: a gloo group over CUDA tensors,
+    both ranks on the one card (NCCL refuses two ranks on one GPU). One
+    checked step with the launches counted, then DP_TIMED_STEPS timed
+    ones."""
+    import torch
+    import torch.distributed as dist
+
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
+    from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
+    from creste_public_tpu_torch.parallel import shard_batch
+    from creste_public_tpu_torch.training import pipelines
+    from creste_public_tpu_torch.training.loop import to_device
+
+    ranks = dp_ranks_module()
+    Feeder, build, grads_of = ranks.Feeder, ranks.build, ranks.grads_of
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = device_type == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        c = torch.load(case_file, weights_only=False)
+        model, lm, state = build(c["stage"], c["cfg"], c["weights"],
+                                 device=dev)
+        step = pipelines.make_train_step(c["stage"], model, lm,
+                                         task=c["task"],
+                                         group=dist.group.WORLD)
+        rows = to_device(shard_batch(c["batch"], rank, world), dev)
+        pri = (None if c["pri"] is None
+               else torch.from_numpy(c["pri"][rank]))
+        sync()
+        value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+        rk.msfcn_head_cuda.launches = 0
+        metrics = step(state, rows, Feeder(c["masks"][rank]), priorities=pri)
+        sync()
+        out = dict(launches=(value_iteration_cuda.launches,
+                             expected_svf_cuda.launches,
+                             rk.msfcn_head_cuda.launches),
+                   grads={k: v.cpu() for k, v in grads_of(model).items()},
+                   state={k: v.to("cpu", copy=True) for k, v in
+                          model.state_dict().items()},
+                   metrics={k: float(v) for k, v in metrics.items()})
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED_STEPS):
+            step(state, rows, Feeder(c["masks"][rank]), priorities=pri)
+        sync()
+        dist.barrier()
+        out["ms"] = (time.perf_counter() - t0) / DP_TIMED_STEPS * 1e3
+        out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                           if cuda else 0.0)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_gaps(torch, got: dict, want: dict) -> float:
+    """The largest over modules of |got - want| / |want| over each module's
+    tensors together (a conv's weight and bias, a BatchNorm's scale and
+    bias; each running mean or variance on its own)."""
+    groups: dict = {}
+    for k in want:
+        groups.setdefault(k if "running" in k else k.rsplit(".", 1)[0],
+                          []).append(k)
+    worst = 0.0
+    for keys in groups.values():
+        num = sum(float(((got[k].double().cpu() - want[k].double().cpu())
+                         ** 2).sum()) for k in keys)
+        den = sum(float((want[k].double().cpu() ** 2).sum()) for k in keys)
+        if den > 0:
+            worst = max(worst, (num / den) ** 0.5)
+    return worst
+
+
+def dp_step_phase(torch, dev, card: str, phase: int, stage: str) -> dict:
+    """Phase 29 (stage 3) or 30 (stage 2): the two-rank step at the
+    production preset against its serial emulation and the one-process
+    control."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from creste_public_tpu_torch import weights
+    from creste_public_tpu_torch.config.groups import compose_cli
+    from creste_public_tpu_torch.data.dataloader import (
+        EpochLoader,
+        build_dataset,
+    )
+    from creste_public_tpu_torch.training import pipelines
+    from creste_public_tpu_torch.training.loop import to_device
+
+    ranks_mod = dp_ranks_module()
+    Feeder, build, grads_of = (ranks_mod.Feeder, ranks_mod.build,
+                               ranks_mod.grads_of)
+    make_masks = ranks_mod.make_masks
+    serial_emulation = ranks_mod.serial_emulation
+
+    if stage == "traversability":
+        root, model_name, ds_name, task = (
+            "traversability", TRAIN_MODEL, TRAIN_DATASET, None)
+    else:
+        root, model_name, ds_name, task = (
+            "ssc_sam", SSC_MODEL, SSC_DATASET, "joint")
+    cfg = compose_cli(root, [f"model={model_name}", f"dataset={ds_name}"])
+    model_cfg = cfg["model"].to_dict()
+    B = int(model_cfg["batch_size"])  # the global batch: the preset's
+    batch = next(iter(EpochLoader(build_dataset(cfg["dataset"], "train"), B,
+                                  shuffle=False, num_workers=4).epoch(0)))
+    b = B // DP_WORLD
+    case = dict(stage=stage, cfg=model_cfg, task=task, batch=batch,
+                weights=weights.init_weights(pipelines.build_model(
+                    stage, model_cfg), SEED).state_dict(),
+                masks=[make_masks(DP_MASKS, b, seed=60 + r)
+                       for r in range(DP_WORLD)], pri=None)
+    if stage == "ssc":
+        n = batch["3d_sam_label"][:b].size
+        case["pri"] = [np.random.default_rng(70 + r).uniform(size=n).astype(
+            np.float32) for r in range(DP_WORLD)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    case_file = os.path.join(tmp, "case.pt")
+    torch.save(case, case_file)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.start_processes(_dp_rank, args=(DP_WORLD, os.path.join(
+        tmp, "rendezvous"), case_file, tmp, dev.type), nprocs=DP_WORLD,
+        join=True,
+        daemon=False, start_method="spawn")
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_WORLD)]
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    want_launches = (1, 1, 0) if stage == "traversability" else (0, 0, 0)
+    for r, res in enumerate(ranks):
+        # (a CPU rehearsal launches no kernel: the wrappers' plain path)
+        if dev.type == "cuda" and tuple(res["launches"]) != want_launches:
+            fail(f"phase {phase}: rank {r} launched VI, SVF and the "
+                 f"reward-head kernel {res['launches']} times, not "
+                 f"{want_launches}")
+    r0, r1 = ranks
+    split = [k for k, v in r0["state"].items()
+             if not torch.equal(v, r1["state"][k])]
+    if split:
+        fail(f"phase {phase}: the ranks' states differ after the step at "
+             f"{split[:3]}")
+    bad = [k for k, v in r0["metrics"].items() if not np.isfinite(v)]
+    if bad or r0["metrics"] != r1["metrics"]:
+        fail(f"phase {phase}: the ranks' metrics are not finite and equal")
+
+    # the spread of the emulation on the card, the bar, the comparison
+    emus = [serial_emulation(stage, model_cfg, case["weights"], batch,
+                             case["masks"], case["pri"], task, DP_WORLD,
+                             device=dev) for _ in range(2)]
+    stats = [k for k in r0["state"] if "running" in k]
+    spread = max(dp_gaps(torch, emus[1]["grads"], emus[0]["grads"]),
+                 dp_gaps(torch, {k: emus[1]["state"][k] for k in stats},
+                         {k: emus[0]["state"][k] for k in stats}))
+    bar = min(max(DP_SPREAD_RATIO * spread, DP_FLOOR), SSC_GRAD_CAP)
+    emu = emus[0]
+    if emu["grads"].keys() != r0["grads"].keys():
+        fail(f"phase {phase}: the emulation's gradients are not the ranks'")
+    g_gap = dp_gaps(torch, r0["grads"], emu["grads"])
+    s_gap = dp_gaps(torch, {k: r0["state"][k] for k in stats},
+                    {k: emu["state"][k] for k in stats})
+    m_gap = max(abs(r0["metrics"][k] - v) / max(abs(v), 1e-12)
+                for k, v in emu["metrics"].items() if "supcon" not in k)
+    # the control: one process, the whole batch (BatchNorms over it)
+    model, lm, state = build(stage, model_cfg, case["weights"], device=dev)
+    step = pipelines.make_train_step(stage, model, lm, task=task)
+    whole = [np.concatenate(m) for m in zip(*case["masks"])]
+    pri = (None if case["pri"] is None
+           else torch.from_numpy(np.concatenate(case["pri"])))
+    step(state, to_device(batch, dev), Feeder(whole), priorities=pri)
+    c_gap = dp_gaps(torch, grads_of(model), emu["grads"])
+    del model, state, emus, emu
+    for what, gap in (("gradient", g_gap), ("running statistics", s_gap),
+                      ("metrics", m_gap)):
+        if gap > bar:
+            fail(f"phase {phase}: the two-rank step's {what} differ from the "
+                 f"serial emulation by {gap:.3e} > the bar {bar:.3e}")
+    if c_gap <= bar:
+        fail(f"phase {phase}: the one-process B={B} control reads "
+             f"{c_gap:.3e}, inside the bar {bar:.3e}")
+    name = {29: "stage-3 data-parallel step",
+            30: "stage-2 data-parallel step"}[phase]
+    print(f"phase {phase} {name}: ok, 2 ranks (gloo over CUDA tensors, "
+          f"both on the one card) at global B={B} ({b} per rank), "
+          f"launches per rank VI / SVF / reward head {want_launches}; "
+          f"parameters and running statistics bit-equal across ranks; "
+          f"against the serial emulation: gradient {g_gap:.3e}, running "
+          f"statistics {s_gap:.3e}, metrics {m_gap:.3e} <= bar {bar:.3e} "
+          f"({DP_SPREAD_RATIO:g} x the emulation's own spread {spread:.3e}, "
+          f"floor {DP_FLOOR:g}, cap {SSC_GRAD_CAP:g}); control (one process, "
+          f"B={B}) {c_gap:.3e}; loss {r0['metrics']['loss']:.6e}", flush=True)
+    print(f"  timing phase {phase}: {r0['ms']:.1f} / {r1['ms']:.1f} ms per "
+          f"step on ranks 0 / 1, two ranks sharing one card (not a scaling "
+          f"number); peak {r0['peak_gib']:.2f} GiB per rank; the ranks' "
+          f"processes took {ranks_s:.1f} s with start-up [{card}]",
+          flush=True)
+    return dict(launches=[list(r["launches"]) for r in ranks],
+                ms=[r0["ms"], r1["ms"]])
+
+
+def multitask_phase(torch, dev, card: str) -> dict:
+    """Phase 31: the stage-2 command under torchrun at world size 1 (NCCL),
+    two tasks, augmentation; the loader's modes."""
+    import shutil
+    import tempfile
+
+    from creste_public_tpu_torch.config.groups import GROUPS, compose_cli
+    from creste_public_tpu_torch.data.augment import augment_sample
+    from creste_public_tpu_torch.data.dataloader import (
+        EpochLoader,
+        build_dataset,
+    )
+    from creste_public_tpu_torch.training import checkpoint as ckpt
+    from creste_public_tpu_torch.training import pipelines
+
+    B = int(compose_cli("ssc_sam", [f"model={SSC_MODEL}"])["model"][
+        "batch_size"])
+    shape = {k: v for k, v in GROUPS["dataset"][SSC_DATASET]["train"].items()
+             if k != "length"}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mt_")
+    ckpt_dir = os.path.join(tmp, "mt")
+    args = ["trainer=smoke", f"model={SSC_MODEL}",
+            "dataset=synthetic_tiny_multitask", "dataset.do_augmentation=true",
+            f"trainer.max_steps={MT_STEPS}", f"trainer.ckpt_dir={ckpt_dir}",
+            "trainer.verbose=false"]
+    lengths = {"joint": 2 * B, "depth": B}
+    for task, n in lengths.items():
+        for split, length in (("train", n), ("val", MT_VAL_LENGTH)):
+            for k, v in dict(shape, length=length, horizon=50).items():
+                v = "[" + ", ".join(map(str, v)) + "]" if isinstance(
+                    v, list) else v
+                args.append(f"dataset.tasks.{task}.{split}.{k}={v}")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", "-m", "creste_public_tpu_torch.train_ssc",
+           *args]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    run_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"phase 31: the torchrun command exited {r.returncode}: "
+             f"{r.stderr[-3000:]}")
+    rows = [json.loads(line) for line in open(os.path.join(
+        ckpt_dir, "metrics.jsonl"))]
+    train_rows = [row for row in rows if "split" not in row]
+    tasks = ["joint", "depth"] * (MT_STEPS // 2)
+    if [row.get("split") for row in rows] != [None] * MT_STEPS + [
+            "train_epoch", "val"]:
+        fail(f"phase 31: metrics.jsonl holds {[r.get('split') for r in rows]}")
+    for row, task in zip(train_rows, tasks):
+        if set(row) != MULTITASK_KEYS[task]:
+            fail(f"phase 31: a {task} step logged {sorted(row)}, not the "
+                 "JAX CLI's keys")
+    for row in rows:
+        if not all(np.isfinite(v) for v in row.values()
+                   if isinstance(v, float)):
+            fail(f"phase 31: a non-finite value in {row}")
+    path = ckpt.latest_checkpoint(ckpt_dir)
+    if path is None or os.path.basename(path) != f"step_{MT_STEPS}":
+        fail(f"phase 31: the latest checkpoint is {path}")
+    model_cfg = compose_cli("ssc_sam", [f"model={SSC_MODEL}"])["model"]
+    _, _, fresh = pipelines.init_stage("ssc", model_cfg, seed=SEED + 1,
+                                       device=dev)
+    saved = ckpt.load_state_file(path)
+    ckpt.restore_checkpoint(path, fresh)
+    if fresh.step != MT_STEPS or any(
+            not torch.equal(v.cpu(), saved["model"][k])
+            for k, v in fresh.model.state_dict().items()):
+        fail("phase 31: the checkpoint does not restore")
+    del fresh
+    walls = [row["wall_s"] for row in train_rows]
+    loop_ms = (walls[-1] - walls[0]) / (len(walls) - 1) * 1e3
+
+    # the loader with augmentation, thread and process mode: the batches
+    # bit-equal, samples/s of an epoch after a warm-up epoch
+    ds_cfg = dict(name="synthetic", train=dict(shape, length=lengths[
+        "joint"]))
+    got, rate = {}, {}
+    for mode in ("thread", "process"):
+        loader = EpochLoader(build_dataset(ds_cfg, "train"), B, seed=0,
+                             transform=augment_sample, worker_mode=mode)
+        try:
+            list(loader.epoch(0))
+            t1 = time.perf_counter()
+            got[mode] = list(loader.epoch(1))
+            rate[mode] = lengths["joint"] / (time.perf_counter() - t1)
+        finally:
+            loader.close()
+    if len(got["thread"]) != len(got["process"]) or not got["thread"]:
+        fail("phase 31: the two modes gave different numbers of batches")
+    for a, b in zip(got["thread"], got["process"]):
+        try:
+            np.testing.assert_equal(a, b)
+        except AssertionError as e:
+            fail(f"phase 31: process-mode batches differ from thread "
+                 f"mode's: {str(e)[:300]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 31 multi-task augmented training: ok, torchrun "
+          f"--nproc_per_node=1 (NCCL, world size 1) -m "
+          f"creste_public_tpu_torch.train_ssc at B={B}, tasks joint "
+          f"({lengths['joint']} samples) and depth ({lengths['depth']}), "
+          f"do_augmentation: {MT_STEPS} steps "
+          f"{' '.join(tasks)} with the JAX CLI's keys per task, losses "
+          + ", ".join(f"{row['loss']:.6e}" for row in train_rows)
+          + f", val loss {rows[-1]['loss']:.6e}; step_{MT_STEPS} restores; "
+          f"the command took {run_s:.1f} s; process-mode batches equal "
+          f"thread mode's bit for bit", flush=True)
+    print(f"  timing phase 31: the loop's {loop_ms:.0f} ms per step (from "
+          f"metrics.jsonl's wall_s, 0.1 s resolution, steps 1-{MT_STEPS}); "
+          f"the augmented loader at 512x612: {rate['thread']:.2f} samples/s "
+          f"in thread mode, {rate['process']:.2f} in process mode (4 "
+          f"workers, {os.cpu_count()} host cores) [{card}]", flush=True)
+    return dict(loop_ms=loop_ms, rate=rate)
+
+
+def dp_path(torch, dev, card: str) -> dict:
+    """Phases 29-31."""
+    return {"stage-3 dp": dp_step_phase(torch, dev, card, 29,
+                                        "traversability"),
+            "stage-2 dp": dp_step_phase(torch, dev, card, 30, "ssc"),
+            "multitask": multitask_phase(torch, dev, card)}
+
+
 def main() -> None:
     import torch
 
@@ -3357,6 +3760,11 @@ def main() -> None:
     runtime_launches = runtime_path(torch, dev, card, cfg, state)
     walls["phases 23-28"] = (time.perf_counter() - t_start
                              - sum(walls.values()))
+    # 29-31. data parallelism (two ranks on the one card), multi-task
+    # augmented training under torchrun
+    dp = dp_path(torch, dev, card)
+    walls["phases 29-31"] = (time.perf_counter() - t_start
+                             - sum(walls.values()))
     print("wall time by phase group: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
     for d in (stage1_dir, ssc_dir):
@@ -3373,6 +3781,12 @@ def main() -> None:
         k["branch_launches"] = n
     for k, n in zip(mdp_kernels, runtime_launches["bf16 stage-3 step"]):
         k["bf16_train_launches"] = n
+    # launches per rank of one data-parallel step (phases 29, 30)
+    for i, k in enumerate(mdp_kernels):
+        k["dp_stage3_launches_per_rank"] = [r[i] for r in
+                                            dp["stage-3 dp"]["launches"]]
+        k["dp_stage2_launches_per_rank"] = [r[i] for r in
+                                            dp["stage-2 dp"]["launches"]]
 
     print(json.dumps({"kernels": [{
         "name": "msfcn_head",
@@ -3395,6 +3809,10 @@ def main() -> None:
         "export_reload_launches": runtime_launches["export reload"],
         "serve_launches": runtime_launches["serve"],
         "bf16_train_launches": runtime_launches["bf16 stage-3 step"][2],
+        "dp_stage3_launches_per_rank": [r[2] for r in
+                                        dp["stage-3 dp"]["launches"]],
+        "dp_stage2_launches_per_rank": [r[2] for r in
+                                        dp["stage-2 dp"]["launches"]],
     }] + mdp_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

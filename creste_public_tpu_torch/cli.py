@@ -5,55 +5,113 @@ creste_public_tpu_torch.train_ssc trainer=smoke model.batch_size=4 ...``
 (or ``train_depth``, ``train_pefree``, ``train_traversability``) composes
 the stage's root config from the plain-dict groups of ``config.groups``
 (group selections + dotted overrides) and runs the stage's training loop
-on the synthetic dataset. The port has no ``JAX_PLATFORMS``:
+on the synthetic dataset: one dataset, or with ``dataset.tasks`` several
+named ones cycled to the longest (``MultiTaskIterator``), augmented with
+``dataset.do_augmentation``. The port has no ``JAX_PLATFORMS``:
 ``trainer.device`` (default ``cuda``) picks the device, and
 ``trainer.device=cpu`` runs on the CPU.
+
+``trainer.devices=N`` trains data-parallel on N cards (``null``: every card
+of the launch): the command starts one process per card itself, or, under
+``torchrun``, joins the launch's group (``parallel.launch``). A command
+that starts its ranks returns None; the ranks' state is in the
+checkpoints.
 """
 from __future__ import annotations
 
 import sys
 
+import torch.distributed as dist
+
 from creste_public_tpu_torch.config.config import Config
 from creste_public_tpu_torch.config.groups import compose_cli
-from creste_public_tpu_torch.data.dataloader import EpochLoader, build_dataset
+from creste_public_tpu_torch.data.dataloader import (
+    EpochLoader,
+    MultiTaskIterator,
+    build_dataset,
+)
+from creste_public_tpu_torch.parallel import launch as pl
 from creste_public_tpu_torch.training.loop import run_training
 from creste_public_tpu_torch.training.optim import LOAD_SETTING_FROZEN
 from creste_public_tpu_torch.training.state import TrainState
 
 
-def launch(root: str, argv: list[str] | None = None) -> TrainState:
+def launch(root: str, argv: list[str] | None = None) -> TrainState | None:
     argv = sys.argv[1:] if argv is None else argv
     return train_from_config(compose_cli(root, argv))
 
 
-def train_from_config(cfg: Config) -> TrainState:
+def train_from_config(cfg: Config) -> TrainState | None:
+    """Train ``cfg``: in this process, in the ``torchrun`` group it was
+    launched in, or, when ``trainer.devices`` asks for more than one card
+    outside a launch, in as many spawned ranks (then None)."""
+    tcfg = Config(cfg["trainer"])
+    device = tcfg.get("device", "cuda")
+    made = pl.join_launch(device)
+    world = pl.requested_devices(tcfg)
+    if not dist.is_initialized() and world > 1:
+        pl.spawn(train_from_config, world, device, cfg)
+        return None
+    try:
+        return _train(cfg)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _train(cfg: Config) -> TrainState:
     stage = cfg["stage"]
     model_cfg = Config(cfg["model"])
     ds_cfg = Config(cfg["dataset"])
     tcfg = Config(cfg["trainer"])
     task = cfg.get("task", None)
-    if "tasks" in ds_cfg:
-        raise NotImplementedError("multi-task datasets are not ported yet")
-    if ds_cfg.get("do_augmentation", False):
-        raise NotImplementedError("augmentation is not ported yet")
+    rank, world = ((dist.get_rank(), dist.get_world_size())
+                   if dist.is_initialized() else (0, 1))
 
     batch = int(model_cfg.get("batch_size", 4))
     workers = int(tcfg.get("num_workers", 4))
     worker_mode = str(tcfg.get("loader_worker_mode", "thread"))
-    train_ds = build_dataset(ds_cfg, "train")
-    val_ds = build_dataset(ds_cfg, "val")
-    train_loader = EpochLoader(train_ds, batch, shuffle=True,
-                               seed=int(tcfg.get("seed", 0)),
-                               num_workers=workers, worker_mode=worker_mode)
-    val_loader = EpochLoader(val_ds, batch, shuffle=False, drop_last=False,
-                             num_workers=workers, worker_mode=worker_mode)
-    if len(train_loader) == 0:
-        raise ValueError(
-            f"train loader yields no batches: batch_size={batch} > "
-            f"dataset length {len(train_ds)} with drop_last — lower "
-            "model.batch_size or enlarge the dataset/split"
-        )
-    tcfg["steps_per_epoch"] = max(len(train_loader), 1)
+    transform = None
+    if ds_cfg.get("do_augmentation", False):
+        from creste_public_tpu_torch.data.augment import augment_sample
+
+        transform = augment_sample
+
+    def train_loader(sub: Config) -> EpochLoader:
+        return EpochLoader(build_dataset(sub, "train"), batch, shuffle=True,
+                           seed=int(tcfg.get("seed", 0)),
+                           transform=transform, num_workers=workers,
+                           worker_mode=worker_mode, rank=rank,
+                           world_size=world)
+
+    def val_loader(sub: Config) -> EpochLoader:
+        return EpochLoader(build_dataset(sub, "val"), batch, shuffle=False,
+                           drop_last=False, num_workers=workers,
+                           worker_mode=worker_mode, rank=rank,
+                           world_size=world)
+
+    if "tasks" in ds_cfg:
+        # named task datasets cycled to the longest (the reference's
+        # CombinedLoader, dataloader.py:352-368); validation on the first
+        # task's split
+        loaders = {name: train_loader(Config(sub))
+                   for name, sub in ds_cfg["tasks"].items()}
+        train_factory = MultiTaskIterator(loaders).epoch
+        val = val_loader(Config(next(iter(ds_cfg["tasks"].values()))))
+        tcfg["steps_per_epoch"] = max(
+            max(len(ld) for ld in loaders.values()) * len(loaders), 1)
+    else:
+        loaders = {None: train_loader(ds_cfg)}
+        train_factory = loaders[None].epoch
+        val = val_loader(ds_cfg)
+        if len(loaders[None]) == 0:
+            raise ValueError(
+                f"train loader yields no batches: batch_size={batch} > "
+                f"dataset length {len(loaders[None].dataset)} with "
+                "drop_last — lower model.batch_size or enlarge the "
+                "dataset/split"
+            )
+        tcfg["steps_per_epoch"] = max(len(loaders[None]), 1)
 
     load_weights = None
     load_setting = model_cfg.get("load_setting", "strict")
@@ -71,7 +129,11 @@ def train_from_config(cfg: Config) -> TrainState:
     else:
         frozen_pred = LOAD_SETTING_FROZEN.get(load_setting)
 
-    return run_training(
-        stage, model_cfg, train_loader.epoch, lambda: val_loader.epoch(0),
-        trainer_cfg=tcfg, task=task, load_weights=load_weights,
-        frozen_pred=frozen_pred)
+    try:
+        return run_training(
+            stage, model_cfg, train_factory, lambda: val.epoch(0),
+            trainer_cfg=tcfg, task=task, load_weights=load_weights,
+            frozen_pred=frozen_pred)
+    finally:
+        for ld in [*loaders.values(), val]:
+            ld.close()

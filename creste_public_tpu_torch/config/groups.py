@@ -9,7 +9,7 @@ card's machine have no YAML): the roots ``depth.yaml``,
 ``model/traversability/{terrainnet_maxentirlcf_msfcn_sam2dynsemelev,tiny}``,
 ``trainer/{smoke,standard,standard_single}`` and
 ``dataset/{synthetic_pefree,synthetic_ssc,synthetic_traversability,
-synthetic_tiny}``. The model files are the presets
+synthetic_tiny,synthetic_tiny_multitask}``. The model files are the presets
 (``presets.distillation_model_config``, ``presets.terrainnet_model_config``
 and ``presets.traversability_model_config`` at their published shapes, and
 at the tiny shapes with the full trunk and ``batch_size`` 2; the stage-0
@@ -59,6 +59,10 @@ def _trainer(**kw) -> dict:
            "freeze_backbone_epochs": 0}
     cfg.update(kw)
     return cfg
+
+
+_TINY_SHAPE = dict(image_size=[64, 80], ds=4, fdn_dim=16, grid=32,
+                   map_range=1.6, horizon=10)
 
 
 def _synthetic(train_length: int, val_length: int, **shape) -> dict:
@@ -122,9 +126,10 @@ GROUPS = {
         "synthetic_traversability": _synthetic(
             32, 8, image_size=[512, 612], ds=4, fdn_dim=128, grid=256,
             map_range=12.8, horizon=50),
-        "synthetic_tiny": _synthetic(
-            4, 2, image_size=[64, 80], ds=4, fdn_dim=16, grid=32,
-            map_range=1.6, horizon=10),
+        "synthetic_tiny": _synthetic(4, 2, **_TINY_SHAPE),
+        "synthetic_tiny_multitask": {"name": "synthetic", "tasks": {
+            "joint": _synthetic(4, 2, **_TINY_SHAPE),
+            "depth": _synthetic(2, 2, **_TINY_SHAPE)}},
     },
     "model": {
         "distillation/depth_only": _depth_only(),

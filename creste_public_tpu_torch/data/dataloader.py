@@ -1,14 +1,15 @@
-"""Host-side data pipeline: dataset construction and the prefetching epoch
-loader.
+"""Host-side data pipeline: dataset construction, the prefetching epoch
+loader, multi-task cycling.
 
-A copy of ``build_dataset`` and ``EpochLoader`` (thread mode) of
-``creste_public_tpu/data/dataloader.py``: numpy batches, collated on the
-host and prefetched by a background thread while the card runs the previous
-step, with the same per-epoch seeded shuffle, so that both packages give the
-same batches bit for bit, and ``SequenceChunkLoader``, the temporal
-mini-sequence batches. The CODa reader, augmentation (with its per-sample
-rng), the process-pool workers and ``MultiTaskIterator`` are not ported
-yet.
+A copy of ``build_dataset``, ``EpochLoader``, ``SequenceChunkLoader`` and
+``MultiTaskIterator`` of ``creste_public_tpu/data/dataloader.py``: numpy
+batches, collated on the host and prefetched by a background thread while
+the card runs the previous step, with the same per-epoch seeded shuffle and
+the same per-sample augmentation generator (``_sample_rng``), so that both
+packages give the same batches bit for bit, in either worker mode (threads,
+or a persistent pool of spawned processes). Under data parallelism each
+rank's loader fetches only that rank's rows of every global batch
+(``rank``, ``world_size``). The CODa reader is not ported yet.
 """
 from __future__ import annotations
 
@@ -16,14 +17,41 @@ import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 import numpy as np
 
 from creste_public_tpu_torch.data.synthetic import SyntheticCodaDataset, collate
+from creste_public_tpu_torch.parallel.mesh import pad_to_multiple, shard_batch
 
 
 _PREFETCH = 2  # collated batches kept ready ahead of the consumer
+
+
+def _sample_rng(seed: int, epoch: int, j: int) -> np.random.Generator:
+    """The augmentation generator of sample ``j`` in ``epoch``: the one
+    derivation both worker modes use, so that their batches are equal bit
+    for bit."""
+    return np.random.default_rng((seed + epoch) * 1_000_003 + int(j))
+
+
+# the state of a process-pool worker (spawned: the module is imported anew
+# in each worker)
+_WORKER: dict = {}
+
+
+def _proc_init(dataset, transform, seed):
+    _WORKER.update(dataset=dataset, transform=transform, seed=seed)
+
+
+def _proc_fetch(job):
+    """Fetch and transform one sample inside a worker process."""
+    epoch, j = job
+    s = _WORKER["dataset"][int(j)]
+    tf = _WORKER["transform"]
+    if tf is not None:
+        s = tf(s, _sample_rng(_WORKER["seed"], epoch, j))
+    return s
 
 
 def build_dataset(ds_cfg: Any, split: str = "train"):
@@ -43,24 +71,70 @@ def build_dataset(ds_cfg: Any, split: str = "train"):
 class EpochLoader:
     """Shuffled, collated, background-prefetched epoch iterator: one
     producer thread keeps ``_PREFETCH`` collated batches ready, fetching the
-    samples of a batch on ``num_workers`` threads."""
+    samples of a batch on ``num_workers`` threads (``worker_mode="thread"``)
+    or through a persistent pool of ``num_workers`` spawned processes
+    (``"process"``: the dataset and ``transform`` must pickle).
+    ``transform(sample, rng)`` (augmentation) gets the sample's own
+    generator, ``_sample_rng(seed, epoch, j)``.
+
+    With ``world_size`` > 1 the loader is rank ``rank``'s: ``batch_size``
+    is the global batch, whose samples every rank orders alike, and it
+    fetches only its rows of each (a last partial batch padded first by
+    repeating its own samples, as ``pad_to_multiple`` pads the collated
+    batch)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True,
-                 num_workers: int = 4, worker_mode: str = "thread"):
-        if worker_mode != "thread":
-            raise NotImplementedError(
-                f"worker_mode {worker_mode!r}: only 'thread' is ported")
+                 transform: Callable | None = None,
+                 num_workers: int = 4, worker_mode: str = "thread",
+                 rank: int = 0, world_size: int = 1):
+        if worker_mode not in ("thread", "process"):
+            raise ValueError(f"worker_mode: {worker_mode!r}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.transform = transform
         self.num_workers = max(1, int(num_workers))
+        self.worker_mode = worker_mode
+        self.rank = rank
+        self.world_size = world_size
+        self._pool = None
+
+    def _process_pool(self):
+        if self._pool is None:
+            import multiprocessing as mp
+
+            self._pool = mp.get_context("spawn").Pool(
+                self.num_workers, initializer=_proc_init,
+                initargs=(self.dataset, self.transform, self.seed))
+        return self._pool
+
+    def close(self) -> None:
+        """Terminate the persistent process pool (no-op in thread mode)."""
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
+            self._pool = None
+
+    def __del__(self):  # best-effort cleanup
+        try:
+            self.close()
+        except Exception:
+            pass
 
     def __len__(self) -> int:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def rows(self, idxs: list[int]) -> list[int]:
+        """This rank's samples of a global batch of samples ``idxs``."""
+        if self.world_size == 1:
+            return idxs
+        padded = pad_to_multiple({"i": np.asarray(idxs)}, self.world_size)
+        return [int(j) for j in shard_batch(padded, self.rank,
+                                            self.world_size)["i"]]
 
     def epoch(self, epoch: int = 0) -> Iterator[dict]:
         n = len(self.dataset)
@@ -74,7 +148,10 @@ class EpochLoader:
         error: list[BaseException] = []
 
         def fetch_one(j: int) -> dict:
-            return self.dataset[int(j)]
+            s = self.dataset[int(j)]
+            if self.transform is not None:
+                s = self.transform(s, _sample_rng(self.seed, epoch, j))
+            return s
 
         def put(item) -> bool:
             """Bounded put that gives up once the consumer has left the
@@ -87,20 +164,28 @@ class EpochLoader:
                     continue
             return False
 
+        def fetch_batch(pool, idxs):
+            if self.worker_mode == "process":
+                return self._process_pool().map(
+                    _proc_fetch, [(epoch, j) for j in idxs])
+            if pool is not None:
+                return list(pool.map(fetch_one, idxs))
+            return [fetch_one(j) for j in idxs]
+
         def produce():
             # a producer failure reaches the consumer instead of ending the
             # epoch early
             pool_cm = (ThreadPoolExecutor(self.num_workers)
-                       if self.num_workers > 1 else nullcontext())
+                       if self.worker_mode == "thread"
+                       and self.num_workers > 1 else nullcontext())
             try:
                 with pool_cm as pool:
                     for i in range(0, end, self.batch_size):
                         if stop.is_set():
                             return
-                        idxs = [int(j) for j in order[i:i + self.batch_size]]
-                        samples = (list(pool.map(fetch_one, idxs)) if pool
-                                   else [fetch_one(j) for j in idxs])
-                        if not put(collate(samples)):
+                        idxs = self.rows(
+                            [int(j) for j in order[i:i + self.batch_size]])
+                        if not put(collate(fetch_batch(pool, idxs))):
                             return
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 error.append(e)
@@ -178,3 +263,29 @@ class SequenceChunkLoader:
                                              for seq in frames])
                 batch["bos"] = np.full((len(starts),), c == 0)
                 yield batch
+
+
+class MultiTaskIterator:
+    """Cycle named task loaders to the longest one (the reference's
+    CombinedLoader ``max_size_cycle``, dataloader.py:352-368): per round
+    one batch of each task in order, a shorter task's loader restarted on
+    the epoch ``epoch + 1000 + count`` (its count-th restart). Yields
+    ``(task, batch)``."""
+
+    def __init__(self, loaders: dict[str, EpochLoader]):
+        self.loaders = loaders
+
+    def epoch(self, epoch: int = 0) -> Iterator[tuple[str, dict]]:
+        iters = {k: v.epoch(epoch) for k, v in self.loaders.items()}
+        longest = max(len(v) for v in self.loaders.values())
+        counts = dict.fromkeys(iters, 0)
+        for _ in range(longest):
+            for task in list(iters):
+                try:
+                    batch = next(iters[task])
+                except StopIteration:
+                    iters[task] = self.loaders[task].epoch(
+                        epoch + 1000 + counts[task])
+                    counts[task] += 1
+                    batch = next(iters[task])
+                yield task, batch

@@ -333,7 +333,9 @@ class FocalLoss(Loss):
 class SupPixelConLoss(Loss):
     """SAM-instance pixel contrastive loss on the anchor view (reference
     loss_utils.py:203-286). ``aux["rng"]`` is the sampling's priority
-    source (``supcon.priorities``)."""
+    source (``supcon.priorities``); under data parallelism ``aux["group"]``
+    is the ranks' process group, whose features every rank's anchors are
+    contrasted with."""
 
     def __init__(self, config):
         super().__init__(config)
@@ -342,8 +344,6 @@ class SupPixelConLoss(Loss):
         self.max_samples = int(config.get("max_samples", 2048))
 
     def loss(self, td, aux):
-        if aux.get("axis_name", None) is not None:
-            raise NotImplementedError("SupCon across devices")
         preds = td[self.config["pred_key"]]  # [BV, H, W, Z]
         gt = td[self.config["lab_key"]]  # [B, H, W, C] or [B, H, W]
         fov = td[self.config.get("mask_key", "inputs/fov_mask")]
@@ -379,7 +379,8 @@ class SupPixelConLoss(Loss):
               if self.class_weights is not None else None)
         loss = multi_pos_con_loss(flat_feats[idx], flat_labels[idx],
                                   sel_valid, temperature=temp,
-                                  class_weights=cw)
+                                  class_weights=cw,
+                                  group=aux.get("group", None))
         task = self.config.get("task", "3d_ssc")
         key = self.config.get("lab_key", "x/x").split("/")[-1]
         return {f"{task}/{key}/supcon/sem_loss": loss,

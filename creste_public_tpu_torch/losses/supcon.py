@@ -5,9 +5,9 @@ Counterpart of ``creste_public_tpu/losses/supcon.py`` (reference
 loss_utils.py:203-286 and supcon_loss.py:56-116): labels made distinct per
 batch element, up to min(median class count, 1000) samples per class drawn
 into a static budget of ``max_samples`` slots with a validity mask, and the
-soft cross-entropy against the normalised positive distribution. Only the
-single-device branch is ported: the cross-rank ``all_gather`` comes with
-data parallelism.
+soft cross-entropy against the normalised positive distribution. Under
+data parallelism the anchors of each rank are contrasted with the features
+of every rank (``multi_pos_con_loss``'s ``group``).
 
 Given the same priorities the selection equals the JAX package's to the
 bit. Torch cannot reproduce ``jax.random.uniform``'s bits, so a priority
@@ -21,6 +21,14 @@ from typing import Union
 
 import torch
 import torch.nn.functional as F
+
+from creste_public_tpu_torch.parallel import (
+    Group,
+    all_gather_rows,
+    all_gather_with_grad,
+    rank,
+    world_size,
+)
 
 PrioritySource = Union[torch.Generator, torch.Tensor, None]
 
@@ -126,20 +134,33 @@ def capped_class_sample(labels: torch.Tensor, valid: torch.Tensor,
 
 def multi_pos_con_loss(feats: torch.Tensor, labels: torch.Tensor,
                        valid: torch.Tensor, temperature: float = 0.1,
-                       class_weights: torch.Tensor | None = None
-                       ) -> torch.Tensor:
-    """Multi-positive contrastive loss over [M, Z] features, [M] labels and
-    [M] slot validity (single device)."""
+                       class_weights: torch.Tensor | None = None,
+                       group: Group = None) -> torch.Tensor:
+    """Multi-positive contrastive loss of this rank's [M, Z] features, [M]
+    labels and [M] slot validity as anchors against the features of every
+    rank of ``group`` (gathered with a gradient, labels and validity
+    without one, as the JAX package's ``axis_name``); ``group=None``: this
+    process's features only."""
     # rsqrt(sumsq + eps): the norm's gradient at a zero vector would be NaN
     feats = feats * torch.rsqrt((feats * feats).sum(-1, keepdim=True)
                                 + 1e-12)
     M = feats.shape[0]
-    logits_mask = 1.0 - torch.eye(M, device=feats.device)
-    pair_valid = valid[:, None] & valid[None, :]
-    mask = ((labels[:, None] == labels[None, :]).float() * logits_mask
+    if group is not None:
+        all_feats = all_gather_with_grad(feats, group)  # [D * M, Z]
+        all_labels = all_gather_rows(labels, group)
+        all_valid = all_gather_rows(valid, group)
+    else:
+        all_feats, all_labels, all_valid = feats, labels, valid
+
+    # self-exclusion at this rank's diagonal block
+    self_idx = torch.arange(M, device=feats.device) + rank(group) * M
+    logits_mask = torch.ones(M, world_size(group) * M, device=feats.device)
+    logits_mask[torch.arange(M, device=feats.device), self_idx] = 0.0
+    pair_valid = valid[:, None] & all_valid[None, :]
+    mask = ((labels[:, None] == all_labels[None, :]).float() * logits_mask
             * pair_valid)
 
-    logits = feats @ feats.T / temperature
+    logits = feats @ all_feats.T / temperature
     logits = logits - (1.0 - logits_mask) * 1e9
     logits = logits - (~pair_valid).float() * 1e9
     logits = logits - logits.max(dim=-1, keepdim=True).values.detach()

@@ -1,9 +1,9 @@
 """Training loop: epochs, validation, checkpoints, metrics log, profiling.
 
-Counterpart of ``creste_public_tpu/training/loop.py`` on one device. The
-loop moves each host batch to the device, runs the stage's training step
-with a generator derived from ``(seed, step)`` (the drop-connect masks,
-then stage 2's SupCon priorities), logs every
+Counterpart of ``creste_public_tpu/training/loop.py``. The loop moves each
+host batch to the device, runs the stage's training step with a generator
+derived from ``(seed, step, rank)`` (the drop-connect masks, then stage
+2's SupCon priorities), logs every
 ``log_every_n_steps`` steps and once per epoch to ``ckpt_dir/
 metrics.jsonl`` (the JAX loop's keys), validates in eval mode every
 ``check_val_every_n_epoch`` epochs, keeps the top-k checkpoints by
@@ -18,12 +18,20 @@ step multiplies the backbone's gradients (``pipelines.backbone_freeze_gate``).
 Resume (``resume=true``) is position-faithful, as in the JAX loop: the
 epoch and the batches to skip in it follow from the restored step (the
 loaders shuffle with a per-epoch seed), and the per-step generator depends
-only on ``(seed, step)``, so a resumed run replays the batch order and the
+only on ``(seed, step, rank)``, so a resumed run replays the batch order and the
 drop-connect masks of an uninterrupted one.
 
-The JAX loop's ``_pad_to_multiple`` pads the last batch to a multiple of
-the mesh's devices; on one device every batch size divides, so the port has
-none. Data parallelism, multi-task loaders and validation images are not
+Items of ``(task, batch)`` (``data.dataloader.MultiTaskIterator``) take
+one step each with that task's losses (a step function per task).
+
+Data parallelism: ``trainer.devices`` ranks (``None``: the launch's world
+size), one process each in a ``torch.distributed`` group
+(``parallel.launch``). Each rank's data yields its rows of every global
+batch (``EpochLoader(rank=, world_size=)``; validation batches padded by
+``pad_to_multiple``); the state is broadcast from rank 0 once after
+init, graft and resume; the step means the gradients, the running
+statistics and the metrics over the ranks, validation the metrics; only
+rank 0 writes checkpoints and ``metrics.jsonl``. Validation images are not
 ported yet and raise.
 """
 from __future__ import annotations
@@ -38,11 +46,19 @@ from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from creste_public_tpu_torch import parallel
 from creste_public_tpu_torch.losses.manager import LossManager
+from creste_public_tpu_torch.parallel import (
+    Group,
+    broadcast_module,
+    launched_world,
+    rank_device,
+)
 from creste_public_tpu_torch.training import checkpoint as ckpt
 from creste_public_tpu_torch.training import pipelines
-from creste_public_tpu_torch.training.state import TrainState
+from creste_public_tpu_torch.training.state import TrainState, mean_metrics
 from creste_public_tpu_torch.utils.device import resolve_device
 from creste_public_tpu_torch.utils.logging import MetricLogger
 
@@ -75,12 +91,31 @@ class TopKCheckpoints:
             shutil.rmtree(stale, ignore_errors=True)
 
 
-def step_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of step ``step``: its drop-connect masks, then its
-    SupCon priorities."""
-    state = np.random.SeedSequence((int(seed), int(step))).generate_state(
-        1, np.uint64)[0]
+def step_generator(seed: int, step: int, rank: int = 0) -> torch.Generator:
+    """The CPU generator of step ``step`` on rank ``rank``: its drop-connect
+    masks, then its SupCon priorities. Rank 0's is the single-device one,
+    each other rank draws its own (the JAX step's ``fold_in`` of the
+    device index)."""
+    entropy = (int(seed), int(step)) + ((int(rank),) if rank else ())
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(state))
+
+
+def data_parallel_group(tcfg: Any) -> Group:
+    """The ranks' process group of a run that asks for
+    ``trainer.devices`` cards (``None``: the launch's world size), or
+    None for a single-device run outside any group. Raises when the
+    process is not in a group of that many ranks."""
+    have = launched_world() if dist.is_initialized() else 1
+    want = tcfg.get("devices", None)
+    want = have if want is None else int(want)
+    if want != have:
+        raise ValueError(
+            f"trainer.devices={want} needs a process group of {want} ranks "
+            f"and this process is in one of {have}: run the training command "
+            f"with trainer.devices={want} (it starts one process per card), "
+            f"or launch it with torchrun --nproc_per_node={want}")
+    return dist.group.WORLD if dist.is_initialized() else None
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
@@ -95,12 +130,14 @@ EVAL_SEED = 1
 
 
 def make_eval_step(stage: str, model, loss_manager: LossManager,
-                   task: str | None = None) -> Callable[[dict], dict]:
+                   task: str | None = None,
+                   group: Group = None) -> Callable[[dict], dict]:
     """eval_fn(batch) -> {name: float}: the model in eval mode, the losses
     (stage 3 with the penalty's eval-form ``reward_fn``, stage 2 with
     SupCon's priorities from a generator seeded ``EVAL_SEED`` for each
-    batch), ``loss`` the sum of the weighted losses, then the scalar
-    metadata."""
+    batch, gathered over the ranks of ``group``), ``loss`` the sum of the
+    weighted losses, then the scalar metadata; each the mean over the
+    ranks."""
 
     def eval_fn(batch: dict) -> dict[str, float]:
         model.eval()
@@ -108,12 +145,15 @@ def make_eval_step(stage: str, model, loss_manager: LossManager,
             outputs = model(*pipelines.model_inputs(stage, batch))
         td = pipelines.merge_tensor_dict(batch, outputs, task)
         aux = pipelines.loss_aux(stage, model,
-                                 torch.Generator().manual_seed(EVAL_SEED))
+                                 torch.Generator().manual_seed(EVAL_SEED),
+                                 group)
         loss_dict, meta = loss_manager(td, aux)
         metrics = {k: w * v for k, (w, v) in loss_dict.items()}
         metrics["loss"] = sum(metrics.values())
         metrics.update({k: v for k, v in meta.items() if v.ndim == 0})
-        return {k: float(v.detach()) for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        mean_metrics(metrics, group)
+        return {k: float(v) for k, v in metrics.items()}
 
     return eval_fn
 
@@ -139,14 +179,17 @@ def run_training(
     frozen_pred: Callable[[str], bool] | None = None,
 ) -> TrainState:
     """Train a stage on ``trainer_cfg["device"]`` (default ``"cuda"``;
-    raises without a card unless ``"cpu"`` is asked for). ``train_data``
-    is an iterable of host batches or an epoch -> iterable factory.
+    raises without a card unless ``"cpu"`` is asked for; each rank of a
+    data-parallel run on ``cuda:LOCAL_RANK``). ``train_data`` is an
+    iterable of host batches or of ``(task, batch)`` items, or an epoch ->
+    iterable factory; under data parallelism it yields this rank's rows.
     Returns the final TrainState."""
     tcfg = trainer_cfg or {}
     dev = resolve_device(tcfg.get("device", "cuda"))
-    n_devices = tcfg.get("devices", None)
-    if n_devices is not None and int(n_devices) > 1:
-        raise NotImplementedError("data-parallel training is not ported yet")
+    group = data_parallel_group(tcfg)
+    if group is not None:
+        dev = rank_device(dev)
+    rank = parallel.rank(group)
     if tcfg.get("log_val_images", False):
         raise NotImplementedError("validation images are not ported yet")
     max_epochs = int(tcfg.get("max_epochs", 1))
@@ -176,25 +219,38 @@ def run_training(
         frozen_pred=frozen_pred, device=dev)
     if load_weights is not None:
         state = load_weights(state)
-    step_fn = pipelines.make_train_step(
-        stage, model, lm, task=task,
-        freeze_backbone_schedule=freeze_epochs > 0)
-    eval_fn = make_eval_step(stage, model, lm, task=task)
+    # one step function per task: each computes only its task's losses
+    step_fns: dict = {}
+
+    def get_step(task_name):
+        if task_name not in step_fns:
+            step_fns[task_name] = pipelines.make_train_step(
+                stage, model, lm, task=task_name,
+                freeze_backbone_schedule=freeze_epochs > 0, group=group)
+        return step_fns[task_name]
+
+    eval_fn = make_eval_step(stage, model, lm, task=task, group=group)
 
     if tcfg.get("resume", False):
+        if group is not None:
+            dist.barrier(group)
         latest = ckpt.latest_checkpoint(ckpt_dir)
         if latest is not None:
             state = ckpt.restore_checkpoint(latest, state)
             print(f"resumed from {latest} (step {state.step})")
+    # every rank starts from rank 0's parameters and statistics
+    broadcast_module(model, group)
     start_step = state.step
 
+    main_rank = rank == 0
     topk = TopKCheckpoints(
         ckpt_dir, tcfg.get("monitor_metric", "loss"),
         tcfg.get("monitor_mode", "min"), int(tcfg.get("save_top_k", 5)))
-    logger = MetricLogger(os.path.join(ckpt_dir, "metrics.jsonl"),
-                          stdout=bool(tcfg.get("verbose", True)))
+    logger = MetricLogger(
+        os.path.join(ckpt_dir, "metrics.jsonl") if main_rank else None,
+        stdout=main_rank and bool(tcfg.get("verbose", True)))
     ckpt_every = int(tcfg.get("ckpt_every_n_steps", 0))
-    profile_dir = tcfg.get("profile_dir", None)
+    profile_dir = tcfg.get("profile_dir", None) if main_rank else None
     profile_start = int(tcfg.get("profile_start", 5))
     profile_steps = int(tcfg.get("profile_steps", 5))
     prof = None
@@ -207,7 +263,11 @@ def run_training(
             # the batches of the resumed epoch already trained
             for _ in range(start_step % steps_per_epoch):
                 next(batches, None)
-        for batch in batches:
+        for item in batches:
+            if isinstance(item, tuple) and isinstance(item[0], str):
+                batch_task, batch = item
+            else:
+                batch_task, batch = task, item
             if freeze_epochs > 0:
                 bsz = len(batch["image"])
                 batch = dict(batch, _backbone_unfrozen=np.full(
@@ -218,9 +278,10 @@ def run_training(
                     *([torch.profiler.ProfilerActivity.CUDA]
                       if dev.type == "cuda" else [])])
                 prof.start()
-            metrics = step_fn(state, to_device(batch, dev),
-                              step_generator(seed, state.step))
-            if ckpt_every and state.step % ckpt_every == 0:
+            metrics = get_step(batch_task)(
+                state, to_device(batch, dev),
+                step_generator(seed, state.step, rank))
+            if main_rank and ckpt_every and state.step % ckpt_every == 0:
                 ckpt.save_checkpoint(ckpt_dir, state.step, state)
             if prof is not None and (
                     state.step >= profile_start + profile_steps):
@@ -247,15 +308,17 @@ def run_training(
             val_metrics = run_validation(eval_fn, list(val_data()), dev)
             val_metrics.update(step=state.step, epoch=epoch, split="val")
             logger.log(val_metrics)
-            topk.maybe_save(state, state.step, val_metrics)
-        else:
+            if main_rank:
+                topk.maybe_save(state, state.step, val_metrics)
+        elif main_rank:
             topk.maybe_save(state, state.step, summary)
         if 0 < max_steps <= state.step:
             break
 
     if prof is not None:
         _stop_profile(prof, profile_dir, dev)
-    ckpt.save_checkpoint(ckpt_dir, state.step, state)
+    if main_rank:
+        ckpt.save_checkpoint(ckpt_dir, state.step, state)
     return state
 
 

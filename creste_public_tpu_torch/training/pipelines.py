@@ -36,6 +36,7 @@ from creste_public_tpu_torch.models.depth_completion import (
 from creste_public_tpu_torch.models.distillation import DistillationBackbone
 from creste_public_tpu_torch.models.lfd import MaxEntIRL
 from creste_public_tpu_torch.models.terrainnet import TerrainNet
+from creste_public_tpu_torch.parallel import Group
 from creste_public_tpu_torch.runtime.precision import batch_norm_keys
 from creste_public_tpu_torch.training import optim
 from creste_public_tpu_torch.training.state import (
@@ -101,7 +102,8 @@ def priority_source(drop_connect: DropConnect,
 
 
 def loss_aux(stage: str, model: nn.Module,
-             priorities: PrioritySource | dict = None) -> dict:
+             priorities: PrioritySource | dict = None,
+             group: Group = None) -> dict:
     """The ``aux`` a stage's losses read: stage 3 the IRL penalty's
     ``reward_fn`` (``model.reward``: the reward net in its eval form, on
     the running statistics from before the step, pipelines.py:154-160 of
@@ -109,16 +111,19 @@ def loss_aux(stage: str, model: nn.Module,
     it needs (``{"rng": priorities}``, or ``priorities`` itself when it is
     a dict of such entries: fed priorities for SupCon under ``rng`` and
     for VICReg under ``vicreg_rng``); stages 0 and 1 nothing (no loss of
-    theirs draws at random)."""
+    theirs draws at random). Under data parallelism every stage's ``aux``
+    also holds the ranks' ``group`` (the JAX package's ``axis_name``,
+    which SupCon gathers over)."""
+    aux = {} if group is None else {"group": group}
     if stage == "traversability":
-        return {"reward_fn": model.reward}
+        return dict(aux, reward_fn=model.reward)
     if stage != "ssc":
-        return {}
+        return aux
     if priorities is None:
         raise ValueError("stage 2 needs SupCon's priorities: give the step a "
                          "torch.Generator or pass priorities=")
-    return dict(priorities) if isinstance(priorities, dict) else {
-        "rng": priorities}
+    return dict(aux, **(priorities if isinstance(priorities, dict)
+                        else {"rng": priorities}))
 
 
 def mixed_precision_forward(stage: str, model: nn.Module
@@ -153,10 +158,12 @@ def mixed_precision_forward(stage: str, model: nn.Module
 
 def make_loss_closure(stage: str, model: nn.Module,
                       loss_manager: LossManager,
-                      task: str | None = None) -> Callable[..., Any]:
+                      task: str | None = None,
+                      group: Group = None) -> Callable[..., Any]:
     """loss_and_metrics(batch, drop_connect, priorities=None) -> (total,
     metrics), with the model in whatever mode the caller set
-    (``train_step`` sets training) and the stage's ``loss_aux``; in the
+    (``train_step`` sets training) and the stage's ``loss_aux`` (with the
+    ranks' ``group`` under data parallelism); in the
     model's ``compute_dtype`` where it has one
     (``mixed_precision_forward``)."""
     forward = mixed_precision_forward(stage, model)
@@ -167,7 +174,7 @@ def make_loss_closure(stage: str, model: nn.Module,
                           drop_connect=drop_connect)
         td = merge_tensor_dict(batch, outputs, task)
         aux = loss_aux(stage, model, priority_source(drop_connect,
-                                                     priorities))
+                                                     priorities), group)
         loss_dict, meta = loss_manager(td, aux)
         return LossManager.total(loss_dict), loss_metrics(loss_dict, meta)
 
@@ -215,14 +222,15 @@ def backbone_freeze_gate(grads: dict[str, torch.Tensor],
 
 def make_train_step(stage: str, model: nn.Module, loss_manager: LossManager,
                     task: str | None = None,
-                    freeze_backbone_schedule: bool = False
-                    ) -> Callable[..., dict]:
+                    freeze_backbone_schedule: bool = False,
+                    group: Group = None) -> Callable[..., dict]:
     """step(state, batch, drop_connect, priorities=None) -> metrics
     (``state.train_step`` over this stage's loss closure). ``batch`` holds
-    tensors on the model's device. With ``freeze_backbone_schedule`` every
-    batch carries the ``_backbone_unfrozen`` gate
-    (``backbone_freeze_gate``)."""
-    loss_fn = make_loss_closure(stage, model, loss_manager, task)
+    tensors on the model's device (this rank's rows under data
+    parallelism, with ``group`` the ranks' process group). With
+    ``freeze_backbone_schedule`` every batch carries the
+    ``_backbone_unfrozen`` gate (``backbone_freeze_gate``)."""
+    loss_fn = make_loss_closure(stage, model, loss_manager, task, group)
     transform: GradTransform | None = (
         backbone_freeze_gate if freeze_backbone_schedule else None)
 
@@ -230,15 +238,17 @@ def make_train_step(stage: str, model: nn.Module, loss_manager: LossManager,
              priorities: PrioritySource = None) -> dict:
         closure: LossClosure = functools.partial(loss_fn,
                                                  priorities=priorities)
-        return train_step(state, closure, batch, drop_connect, transform)
+        return train_step(state, closure, batch, drop_connect, transform,
+                          group)
 
     return step
 
 
 def make_temporal_train_step(model: nn.Module, loss_manager: LossManager,
-                             task: str | None = None) -> Callable[..., Any]:
+                             task: str | None = None,
+                             group: Group = None) -> Callable[..., Any]:
     """The sequence-chunked stage-2 step (``make_temporal_train_step`` of
-    the JAX package on one device): step(state, batch, hidden, bos,
+    the JAX package): step(state, batch, hidden, bos,
     drop_connect, priorities=None, pose_noise=None) -> (state, metrics,
     new_hidden). The model reads the chunk's ``image`` and ``p2p`` [B, T,
     ...] and its ``pose`` (with ``use_pose``), and no movability mask;
@@ -247,7 +257,10 @@ def make_temporal_train_step(model: nn.Module, loss_manager: LossManager,
     graph (the reference's detached cross-chunk state). Pose noise comes
     from ``pose_noise``, else from the step's generator after the
     drop-connect masks, as SupCon's priorities do. The metrics are the
-    JAX step's: the weighted losses, the scalar metadata and ``loss``."""
+    JAX step's: the weighted losses, the scalar metadata and ``loss``.
+    Under data parallelism (``group``) ``batch`` and ``hidden`` are this
+    rank's rows: the hidden state stays per rank, the gradients, running
+    statistics and metrics are means over the ranks."""
 
     def loss_fn(batch: dict, drop_connect: DropConnect,
                 priorities: PrioritySource | dict, pose_noise, hidden,
@@ -259,7 +272,7 @@ def make_temporal_train_step(model: nn.Module, loss_manager: LossManager,
         carry["hidden"] = outputs["temporal_hidden"]
         td = merge_tensor_dict(batch, outputs, task)
         loss_dict, meta = loss_manager(td, loss_aux(
-            "ssc", model, priority_source(drop_connect, priorities)))
+            "ssc", model, priority_source(drop_connect, priorities), group))
         return LossManager.total(loss_dict), loss_metrics(loss_dict, meta)
 
     def step(state: TrainState, batch: dict, hidden, bos: bool,
@@ -271,7 +284,8 @@ def make_temporal_train_step(model: nn.Module, loss_manager: LossManager,
         closure: LossClosure = functools.partial(
             loss_fn, priorities=priorities, pose_noise=pose_noise,
             hidden=hidden, bos=bool(bos), carry=carry)
-        metrics = train_step(state, closure, batch, drop_connect)
+        metrics = train_step(state, closure, batch, drop_connect,
+                             group=group)
         del metrics["grad_norm"]
         return state, metrics, carry["hidden"]
 

@@ -85,6 +85,19 @@ def test_runtime_modules_are_checked(rel_path):
     test_source_imports(path)
 
 
+# the data-parallel slice's modules
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
+                    "parallel/launch.py", "data/augment.py",
+                    "utils/image_stack.py")
+
+
+@pytest.mark.parametrize("rel_path", PARALLEL_MODULES)
+def test_parallel_modules_are_checked(rel_path):
+    path = PKG / rel_path
+    assert path in set(PKG.rglob("*.py"))
+    test_source_imports(path)
+
+
 def _production_tree(**overrides) -> dict:
     """The production MaxEntIRL variable tree (shapes only). Parameter
     shapes do not depend on the image size, so the abstract init traces a

@@ -341,8 +341,22 @@ def test_sup_pixel_con_loss_and_grad_match_jax(weights, tmp_path,
     d = np.abs(ttd[key].grad.numpy() - want_g).max()
     assert d <= GRAD_RTOL * np.abs(want_g).max(), d
     assert np.abs(want_g).max() > 0
-    with pytest.raises(NotImplementedError, match="across devices"):
-        manager.make_loss(cfg)(ttd, {"rng": None, "axis_name": "data"})
+    # across devices (tests/test_torch_supcon_gather.py gathers over
+    # ranks): a group of one rank gives the single-device loss and gradient
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        g1 = {k: v.detach().clone().requires_grad_(k == key)
+              for k, v in ttd.items()}
+        one = manager.LossManager.total(manager.make_loss(cfg)(
+            g1, {"rng": torch.from_numpy(pri), "group": dist.group.WORLD})[0])
+        one.backward()
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(one.detach(), total.detach())
+    assert torch.equal(g1[key].grad, ttd[key].grad)
 
 
 def test_loss_manager_stage2_preset_matches_jax(monkeypatch):

@@ -451,8 +451,15 @@ def test_epoch_loader_matches_jax_bit_for_bit():
                 else:
                     np.testing.assert_array_equal(x[k], y[k], err_msg=k)
                     assert x[k].dtype == y[k].dtype
-    with pytest.raises(NotImplementedError):
-        EpochLoader(build_dataset(cfg, "train"), 2, worker_mode="process")
+    # the process-pool workers give the same batches
+    proc = EpochLoader(build_dataset(cfg, "train"), 2, seed=5, num_workers=2,
+                       worker_mode="process")
+    try:
+        for x, y in zip(proc.epoch(1), ref.epoch(1)):
+            for k in y:
+                np.testing.assert_equal(x[k], y[k], err_msg=k)
+    finally:
+        proc.close()
 
 
 def _tiny_cfg(stage_repeats=2):
@@ -597,9 +604,9 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    with pytest.raises(NotImplementedError, match="validation images"):
         run_training("traversability", _tiny_cfg(), [], None,
-                     {"device": "cpu", "devices": 2})
+                     {"device": "cpu", "log_val_images": True})
     with pytest.raises(ValueError, match="Unknown stage"):
         pipelines.build_model("stereo", {})
     # a compute_dtype is ported (the mixed-precision step): it builds
