@@ -2,6 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (creste_public_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 32-34   # phase 1 and the chosen groups
+
+With no argument it runs every phase, as below. ``--phases A-B[,C-D]``
+runs the build and the phase groups holding those phases, with the groups
+they need first (``NEEDS``), and prints no kernels line.
 
 Phases, each printing one line before the final one:
 
@@ -187,6 +192,30 @@ Phases, each printing one line before the final one:
     lines carry the JAX CLI's keys, finite losses, the checkpoint
     restores; the augmented loader's batches bit-equal in thread and
     process mode, and its samples/s in each; the loop's ms per step.
+32. CODa reader (run last): a UT CODa tree of 12 frames (two sequences)
+    at 1024x1224 in a temporary directory (JPEG, 16-bit PNG depth, the
+    ROS-style calibration in flow style, dense poses, splits, SAM, dynamic
+    and elevation maps, DINO features [128,153,128], movability masks,
+    counterfactual pickles), read at image_size 512x612 by
+    build_dataset({"name": "coda", ...}): every sample has the keys,
+    shapes and dtypes of the synthetic dataset's stage-3 contract, a
+    point planted in front of the camera comes back through p2p, the
+    expert path starts at the grid centre; the reader's samples/s in
+    thread mode with 4 workers.
+33. stage 3 on CODa: train_traversability.main(trainer=smoke dataset=coda
+    visualize=effnet_distillation) at the production preset, B=4, 2
+    training batches and 1 validation batch, the stage-2 checkpoint of
+    phase 13 grafted: finite losses, one VI and one SVF launch per
+    training step, per validation batch and for the validation images'
+    forward, no reward-head launch, the eight PNGs of the JAX package's
+    render_stage_outputs with its shapes, none constant; a B=4 step's
+    time, the loop's ms per step, the images' and the renders' times.
+34. secondary models and the repaired options, each on the card and on
+    the CPU from the same seeded weights and input, to SECONDARY_RTOL:
+    FoundationBackbone at the JAX VisionTransformer's defaults (ViT-B/14,
+    grid 37) on 2 frames of 512x612, MSNet2D at the JAX test's config on
+    a 512x608 stereo pair, a group_norm ConvLayer and a ConvGRU with
+    kernel (2, 2).
 
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
@@ -3432,43 +3461,435 @@ def dp_path(torch, dev, card: str) -> dict:
             "multitask": multitask_phase(torch, dev, card)}
 
 
-def main() -> None:
-    import torch
+CODA_SEQS = ("0", "1")
+CODA_FRAMES = 6  # per sequence: 5 train + 1 val, 12 frames in all
+CODA_NATIVE_HW = (1024, 1224)
+CODA_IMAGE_SIZE = (512, 612)
+CODA_GRID, CODA_MAP_RANGE, CODA_HORIZON, CODA_FDIM = 256, 12.8, 50, 128
+CODA_B = 4
+CODA_WORKERS = 4
+CODA_POINT = (5.0, 0.7, -0.3)  # a LiDAR point planted in front of the camera
+CODA_P2P_RTOL = 1e-5
+# the shapes of the JAX package's render_stage_outputs at the production
+# stage-3 preset (depth 128x153 beside the 512x612 label, grid 256, reward
+# 64x128)
+CODA_TAG_SHAPES = {
+    "depth/pred_vs_gt": (512, 767, 3),
+    "bev/sam_pred_vs_gt": (256, 514, 3),
+    "bev/dynamic_pred_vs_gt": (256, 514, 3),
+    "bev/elevation_pred": (256, 512, 3),
+    "bev/elevation_3d": (320, 640, 3),
+    "irl/reward_with_expert": (64, 128, 3),
+    "irl/expected_svf": (64, 128, 3),
+    "irl/policy": (64, 128, 3),
+}
+SECONDARY_RTOL = 1e-4
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
 
+def coda_tree_module():
+    """tests/test_torch_coda_tree.py (the synthesized CODa tree), loaded
+    from its path as dp_ranks_module loads its module."""
+    import importlib.util
+
+    name = "chip_smoke_coda_tree"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tests",
+            "test_torch_coda_tree.py"))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def coda_config(root: str) -> dict:
+    return {"name": "coda", "root": root, "views": 1, "ds": 4,
+            "grid": CODA_GRID, "map_range": CODA_MAP_RANGE,
+            "horizon": CODA_HORIZON, "image_size": list(CODA_IMAGE_SIZE),
+            "use_movability": True}
+
+
+def coda_reader_phase(torch, dev, card: str, root: str) -> dict:
+    """Phase 32: a CODa tree at the native 1024x1224 and the reader at
+    512x612 against the synthetic dataset's stage-3 contract."""
+    from creste_public_tpu_torch.config.groups import GROUPS
+    from creste_public_tpu_torch.data.coda_dataset import CodaDataset
+    from creste_public_tpu_torch.data.dataloader import (
+        EpochLoader,
+        build_dataset,
+    )
+
+    tree = coda_tree_module()
+    t0 = time.perf_counter()
+    splits = tree.write_coda_tree(
+        root, seqs=CODA_SEQS, frames=CODA_FRAMES, H=CODA_NATIVE_HW[0],
+        W=CODA_NATIVE_HW[1], grid=CODA_GRID, fdim=CODA_FDIM, styles=("ros",),
+        legacy_elevation=(), labels3d=False, scans=False, missing_sam=None,
+        feat_hw=(CODA_IMAGE_SIZE[0] // 4, -(-CODA_IMAGE_SIZE[1] // 4)))
+    write_s = time.perf_counter() - t0
+    cfg = coda_config(root)
+    ds = build_dataset(cfg, "train")
+    if not isinstance(ds, CodaDataset) or len(ds) != len(splits["train"]):
+        fail(f"phase 32: build_dataset gave {type(ds).__name__} of "
+             f"{len(ds)} samples")
+    synth = build_dataset(GROUPS["dataset"][TRAIN_DATASET], "train")[0]
+
+    def layout(s):
+        return {k: layout(v) if isinstance(v, dict) else
+                (tuple(v.shape), str(v.dtype)) for k, v in s.items()}
+
+    want = layout(synth)
+    val = build_dataset(cfg, "val")
+    for i, s in enumerate([ds[i] for i in range(len(ds))]
+                          + [val[i] for i in range(len(val))]):
+        if layout(s) != want:
+            fail(f"phase 32: sample {i} has {layout(s)}, not the synthetic "
+                 f"stage-3 contract {want}")
+        if not all(np.isfinite(v).all() for k, v in s.items()
+                   if not isinstance(v, dict)):
+            fail(f"phase 32: sample {i} has non-finite values")
+    s = ds[0]
+    # the planted point, projected with the calibration's native
+    # intrinsics, back through p2p at the feature resolution (512x612 / 4)
+    cal = tree.calibration(*CODA_NATIVE_HW)
+    P = np.reshape(cal["extrinsics"]["projection_matrix"]["data"], (3, 4))
+    uvz = P @ np.array([*CODA_POINT, 1.0])
+    z = uvz[2]
+    scale = CODA_IMAGE_SIZE[0] / CODA_NATIVE_HW[0] / 4
+    pix = np.array([uvz[0] * scale, uvz[1] * scale, z, 1.0])
+    back = s["p2p"][0].astype(np.float64) @ pix
+    err = float(np.abs(back[:3] - CODA_POINT).max())
+    if err > CODA_P2P_RTOL * max(np.abs(CODA_POINT)):
+        fail(f"phase 32: p2p sends the planted point to {back[:3]}, not "
+             f"{CODA_POINT}")
+    start = s["traversability_label"][0, :2, 2]
+    if not np.array_equal(start, [CODA_GRID // 2] * 2):
+        fail(f"phase 32: the expert path starts at {start}, not the grid "
+             "centre")
+    loader = EpochLoader(ds, CODA_B, num_workers=CODA_WORKERS)
+    try:
+        list(loader.epoch(0))
+        t0 = time.perf_counter()
+        n = sum(len(b["image"]) for b in loader.epoch(1))
+        rate = n / (time.perf_counter() - t0)
+    finally:
+        loader.close()
+    print(f"phase 32 CODa reader: ok, {len(CODA_SEQS) * CODA_FRAMES} frames "
+          f"of {CODA_NATIVE_HW[0]}x{CODA_NATIVE_HW[1]} written in "
+          f"{write_s:.1f} s (calibration in the ROS flow style); "
+          f"{len(ds)} train + {len(val)} val samples at "
+          f"{CODA_IMAGE_SIZE[0]}x{CODA_IMAGE_SIZE[1]} with the synthetic "
+          f"stage-3 contract's {len(want)} keys, shapes and dtypes; the "
+          f"planted point back through p2p within {err:.2e} m; the expert "
+          f"path starts at {start.tolist()}", flush=True)
+    print(f"  timing phase 32: the CODa reader at "
+          f"{CODA_IMAGE_SIZE[0]}x{CODA_IMAGE_SIZE[1]} (JPEG + PNG decode, "
+          f"resize, labels): {rate:.2f} samples/s in thread mode, "
+          f"{CODA_WORKERS} workers, {os.cpu_count()} host cores [{card}]",
+          flush=True)
+    return dict(rate=rate)
+
+
+def coda_train_phase(torch, dev, card: str, root: str,
+                     ssc_dir: str | None) -> dict:
+    """Phase 33: stage 3 through train_traversability.main on the CODa
+    tree, with validation images; returns the VI, SVF and reward-head
+    launches of the run."""
+    import shutil
+    import tempfile
+
+    from PIL import Image
+
+    from creste_public_tpu_torch import train_traversability
+    from creste_public_tpu_torch.config.groups import compose_cli
+    from creste_public_tpu_torch.data.dataloader import build_dataset
+    from creste_public_tpu_torch.data.synthetic import collate
+    from creste_public_tpu_torch.losses.manager import LossManager
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
+    from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
+    from creste_public_tpu_torch.training import pipelines
+    from creste_public_tpu_torch.training.loop import (
+        step_generator,
+        to_device,
+    )
+    from creste_public_tpu_torch.training.visual_log import (
+        log_visuals,
+        render_stage_outputs,
+    )
+    from creste_public_tpu_torch.utils.logging import MetricLogger
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_coda_")
+    ckpt_dir, vis_dir = (os.path.join(tmp, d) for d in ("ckpt", "vis"))
+    cfg = coda_config(root)
+    argv = ["trainer=smoke", f"model={TRAIN_MODEL}", "dataset=coda",
+            "visualize=effnet_distillation", *(
+                f"dataset.{k}={v}" for k, v in cfg.items() if k not in (
+                    "name", "image_size")),
+            "dataset.image_size=[{}, {}]".format(*CODA_IMAGE_SIZE),
+            f"model.batch_size={CODA_B}", f"trainer.ckpt_dir={ckpt_dir}",
+            f"visualize.save_dir={vis_dir}", "trainer.verbose=false",
+            f"trainer.num_workers={CODA_WORKERS}"]
+    if ssc_dir is not None:
+        argv.append(f"model.weights_path={ssc_dir}")
+    torch.cuda.synchronize()
+    value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = 0
+    t0 = time.perf_counter()
+    state = train_traversability.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = (value_iteration_cuda.launches, expected_svf_cuda.launches,
+                rk.msfcn_head_cuda.launches)
+    rows = [json.loads(line) for line in open(os.path.join(
+        ckpt_dir, "metrics.jsonl"))]
+    train_rows = [r for r in rows if "split" not in r]
+    if state.step != 2 or [r.get("split") for r in rows] != [
+            None, None, "train_epoch", "val"]:
+        fail(f"phase 33: {state.step} steps, metrics.jsonl holds "
+             f"{[r.get('split') for r in rows]}")
+    for r in rows:
+        if not all(np.isfinite(v) for v in r.values()
+                   if isinstance(v, float)):
+            fail(f"phase 33: a non-finite value in {r}")
+    n_val = -(-len(build_dataset(cfg, "val")) // CODA_B)
+    # one VI and one SVF solve per training step, per validation batch and
+    # for the validation images' forward; no reward-head launch (train mode
+    # cannot fold BN, and the images' forward is the eval-mode model)
+    want = state.step + n_val + 1
+    if launches != (want, want, 0):
+        fail(f"phase 33: VI, SVF and reward-head launches {launches} for "
+             f"{state.step} steps, {n_val} validation batch(es) and one "
+             "visuals forward")
+    written = sorted(os.listdir(vis_dir))
+    tags = {f"{t.replace('/', '_')}_{state.step}.png": t
+            for t in CODA_TAG_SHAPES}
+    if set(written) != set(tags):
+        fail(f"phase 33: the visuals directory holds {written}, not "
+             f"{sorted(tags)}")
+    for name, tag in tags.items():
+        img = np.asarray(Image.open(os.path.join(vis_dir, name)))
+        if img.shape != CODA_TAG_SHAPES[tag] or img.dtype != np.uint8:
+            fail(f"phase 33: {name} is {img.shape} {img.dtype}, not JAX's "
+                 f"{CODA_TAG_SHAPES[tag]} uint8")
+        if img.min() == img.max():
+            fail(f"phase 33: {name} is constant")
+    walls = [r["wall_s"] for r in train_rows]
+    loop_ms = (walls[-1] - walls[0]) / (len(walls) - 1) * 1e3
+    steps = state.step
+    # the step, the validation images and the renders, each timed on its
+    # own, from the trained state on a CODa batch
+    model_cfg = compose_cli("traversability", argv)["model"]
+    train = build_dataset(cfg, "train")
+    batch = collate([train[i] for i in range(CODA_B)])
+    batch_d = to_device(batch, dev)
+    step = pipelines.make_train_step("traversability", state.model,
+                                     LossManager(model_cfg))
+    times = []
+    for i in range(4):
+        start_ev, end_ev = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(2))
+        start_ev.record()
+        step(state, batch_d, step_generator(SEED, state.step))
+        end_ev.record()
+        torch.cuda.synchronize()
+        times.append(start_ev.elapsed_time(end_ev))
+    step_ms = statistics.median(times[1:])
+    val_batch = collate([build_dataset(cfg, "val")[0]])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    images = log_visuals("traversability", state.model, val_batch,
+                         MetricLogger(None, stdout=False), state.step)
+    torch.cuda.synchronize()
+    visuals_s = time.perf_counter() - t1
+    state.model.eval()
+    with torch.no_grad():
+        out = state.model(*pipelines.model_inputs(
+            "traversability", to_device(val_batch, dev)))
+    outputs = {k: v.float().cpu().numpy() for k, v in out.items()
+               if isinstance(v, torch.Tensor)}
+    t1 = time.perf_counter()
+    render_stage_outputs("traversability", outputs, val_batch)
+    render_s = time.perf_counter() - t1
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 33 stage 3 on CODa: ok, train_traversability.main("
+          f"dataset=coda visualize=effnet_distillation) at B={CODA_B}, "
+          f"{CODA_IMAGE_SIZE[0]}x{CODA_IMAGE_SIZE[1]}, "
+          + ("the stage-2 checkpoint grafted" if ssc_dir else
+             "no stage-2 graft (phase 13 not run)")
+          + f": {steps} steps + {n_val} validation batch(es) in "
+          f"{run_s:.1f} s, losses "
+          + ", ".join(f"{r['loss']:.6e}" for r in train_rows)
+          + f", val loss {rows[-1]['loss']:.6e}; VI / SVF / reward-head "
+          f"launches {launches}; {len(tags)} PNGs with JAX's tags and "
+          "shapes, none constant", flush=True)
+    print(f"  timing phase 33: a B={CODA_B} training step on a CODa batch "
+          f"{step_ms:.1f} ms (CUDA events, median of 3 after a warm-up: "
+          + ", ".join(f"{t:.1f}" for t in times[1:])
+          + f"); the loop's {loop_ms:.0f} ms per step (from metrics.jsonl's "
+          f"wall_s, 0.1 s resolution, with its loader); the validation "
+          f"images (eval forward at B=1, {len(images)} renders, PNGs) "
+          f"{visuals_s * 1e3:.0f} ms, the renders alone "
+          f"{render_s * 1e3:.0f} ms [{card}]", flush=True)
+    return dict(launches=launches, loop_ms=loop_ms, step_ms=step_ms)
+
+
+def secondary_phase(torch, dev, card: str) -> dict:
+    """Phase 34: the secondary models and the two repaired options, each
+    on the card and on the CPU from the same seeded weights and input."""
+    from creste_public_tpu_torch import weights
+    from creste_public_tpu_torch.models.blocks.convgru import ConvGRU
+    from creste_public_tpu_torch.models.blocks.convnets import ConvLayer
+    from creste_public_tpu_torch.models.foundation import FoundationBackbone
+    from creste_public_tpu_torch.models.stereodepth import MSNet2D
+
+    g = torch.Generator().manual_seed(SEED + 34)
+    H, W = CODA_IMAGE_SIZE
+    disc = {"mode": "UD", "num_bins": 64, "depth_min": 300,
+            "depth_max": 25600}
+    foundation = FoundationBackbone({
+        # the JAX VisionTransformer's defaults (embed 768, depth 12, 12
+        # heads, patch 14, grid 37); the 512x612 frames resized down to
+        # 490x588 (35x42 patches), the features up to 128x153
+        "vision_backbone": {"backbone_cfgs": {
+            "input_shape": [490, 588], "output_shape": [H // 4, W // 4]}},
+        "depth_head": {"dims": [768, 64], "kernels": [3], "paddings": [1],
+                       "norm_type": "batch_norm"},
+        "discretize": disc})
+    # the hourglass halves the features twice and adds the skips back, so
+    # the JAX model (and the port) needs a width that 16 divides: 608, not
+    # 612 (at 612 flax's add raises on (.., 78, ..) + (.., 77, ..))
+    Ws = W // 16 * 16
+    msnet = MSNet2D({
+        "cams": 2,
+        "vision_backbone": {
+            "class_name": "DepthCompletion", "name": "efficientnet-b0",
+            "input_type": "rgb", "return_feats": True,
+            "effnet_cfgs": {"in_channels": 3, "out_channels": 32,
+                            "downsample": 4, "image_size": [H, Ws]}},
+        "costvolume_trunk": {"squeeze_dim": 16, "num_groups": 1,
+                             "volume_size": 8, "hg_size": 8},
+        "depth_head": {"dims": [8, 16], "kernels": [3], "paddings": [1],
+                       "norm_type": "batch_norm"},
+        "discretize": dict(disc, num_bins=16)})
+    gn = ConvLayer(64, 64, 3, 1, use_norm=True, norm_type="group_norm")
+    gru = ConvGRU(16, [32], (2, 2))
+    cases = [
+        ("FoundationBackbone (ViT-B/14, 2 frames)", foundation,
+         (torch.rand((1, 2, H, W, 4), generator=g),)),
+        (f"MSNet2D (one {H}x{Ws} stereo pair)", msnet,
+         (torch.rand((1, 2, H, Ws, 3), generator=g),)),
+        (f"ConvLayer group_norm [2,64,{H // 4},{W // 4}]", gn,
+         (torch.randn((2, 64, H // 4, W // 4), generator=g),)),
+        ("ConvGRU kernel (2, 2) [2,3,64,64,16]", gru,
+         (torch.randn((2, 3, 64, 64, 16), generator=g),)),
+    ]
+    worst = {}
+    for name, model, args in cases:
+        weights.init_weights(model, SEED)
+        with torch.no_grad():
+            for pname, p in model.named_parameters():
+                if pname.endswith(("ls1", "ls2", "GroupNorm_0.weight")):
+                    p.copy_(1.0 + 0.3 * torch.randn(p.shape, generator=g))
+                elif pname.endswith(("pos_embed", "cls_token")):
+                    p.copy_(0.02 * torch.randn(p.shape, generator=g))
+        model.eval()
+        with torch.no_grad():
+            ref = model(*args)
+            model.to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = model(*(a.to(dev) for a in args))
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t0) * 1e3
+        if not isinstance(ref, dict):
+            ref, got = {"out": ref[0] if isinstance(ref, tuple) else ref}, {
+                "out": got[0] if isinstance(got, tuple) else got}
+        gaps = {}
+        for k, r in ref.items():
+            if k.endswith("_bins"):
+                continue
+            c = got[k].float().cpu()
+            if c.shape != r.shape or not bool(torch.isfinite(c).all()):
+                fail(f"phase 34: {name} {k} is {tuple(c.shape)} or "
+                     "non-finite on the card")
+            gaps[k] = float((c - r).abs().max() / r.abs().max().clamp_min(
+                1e-30))
+        k, gap = max(gaps.items(), key=lambda kv: kv[1])
+        worst[name] = gap
+        print(f"  phase 34 {name}: card vs CPU max|d|/max|ref| "
+              + ", ".join(f"{kk} {v:.3e}" for kk, v in gaps.items())
+              + f"; first call on the card {card_ms:.1f} ms [{card}]",
+              flush=True)
+        if gap > SECONDARY_RTOL:
+            fail(f"phase 34: {name} {k} on the card differs from the CPU "
+                 f"by {gap:.3e} > {SECONDARY_RTOL}")
+        model.cpu()
+    print(f"phase 34 secondary models and repaired options: ok, "
+          f"{len(cases)} modules card vs CPU, worst "
+          f"{max(worst.values()):.3e} <= {SECONDARY_RTOL}", flush=True)
+    return worst
+
+
+def coda_path(torch, dev, card: str, ssc_dir: str | None) -> dict:
+    """Phases 32-34."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_coda_tree_")
+    try:
+        reader = coda_reader_phase(torch, dev, card, root)
+        trained = coda_train_phase(torch, dev, card, root, ssc_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(reader, launches=trained["launches"], train=trained,
+                secondary=secondary_phase(torch, dev, card))
+
+
+# the phase groups in the order they run (phase 1, the build, always runs),
+# and the groups each needs run before it
+PHASE_GROUPS = ((2, 4), (5, 8), (16, 19), (13, 15), (9, 12), (20, 22),
+                (23, 28), (29, 31), (32, 34))
+NEEDS = {(13, 15): ((16, 19),), (9, 12): ((5, 8), (13, 15)),
+         (23, 28): ((2, 4),)}
+
+
+def selected_groups(argv: list[str]) -> set[tuple[int, int]] | None:
+    """``--phases A-B[,C-D...]`` (or ``--phases=...``): the phase groups
+    that hold any of those phases, with the groups they need; None (every
+    phase) without arguments."""
+    if not argv:
+        return None
+    spec = argv[0].split("=", 1)[1] if argv[0].startswith("--phases=") else (
+        argv[1] if argv[0] == "--phases" and len(argv) == 2 else None)
+    if spec is None or len(argv) > (1 if "=" in argv[0] else 2):
+        fail(f"usage: chip_smoke.py [--phases A-B[,C-D...]], not {argv}")
+    phases = set()
+    for part in spec.split(","):
+        lo, _, hi = part.partition("-")
+        phases.update(range(int(lo), int(hi or lo) + 1))
+    want = {g for g in PHASE_GROUPS if phases & set(range(g[0], g[1] + 1))}
+    stack = list(want)
+    while stack:
+        for need in NEEDS.get(stack.pop(), ()):
+            if need not in want:
+                want.add(need)
+                stack.append(need)
+    return want
+
+
+def head_path(torch, dev, card: str) -> dict:
+    """Phases 2-4: the reward-head kernel against its plain version, the
+    production deployment graph (main path), card vs CPU, and timing.
+    Returns the production config, its seeded state and the head kernel's
+    numbers for the kernels line."""
     from creste_public_tpu_torch import weights
     from creste_public_tpu_torch.config import presets
     from creste_public_tpu_torch.models.blocks.convnets import MultiScaleFCN
     from creste_public_tpu_torch.models.blocks.vin import build_input_view
     from creste_public_tpu_torch.models.lfd import MaxEntIRL
-    from creste_public_tpu_torch.ops import _build
     from creste_public_tpu_torch.ops import reward_kernel as rk
     from creste_public_tpu_torch.runtime.export import build_inference_fn
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    card = card.splitlines()[0]
-    print(f"setup: torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)} ({card}); TF32 off for "
-          "cuDNN convolutions and matmuls", flush=True)
-
-    # 1. build
-    t_start = t0 = time.perf_counter()
-    report = _build.build()
-    for name, r in report.items():
-        ptxas = [ln.strip() for ln in r["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"build: {name} {r['seconds']:.1f} s; ptxas: {ptxas}",
-              flush=True)
-    print(f"phase build: ok, {len(report)} source(s) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # 2. kernel check: the whole head, kernel vs plain
     cfg = presets.traversability_model_config().to_dict()
@@ -3729,46 +4150,109 @@ def main() -> None:
           f"ms/frame = {1e3 / frame_tf32_ms:.2f} Hz with cuDNN TF32 on; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB [{card}]", flush=True)
+    return dict(cfg=cfg, state=state, launches=launches, err=err, ms=k_ms,
+                plain_ms=p_ms, bound_ms=bound_ms, bound_by=head_bound_by,
+                library_ms=lib_ms, conv_ms=conv_ms, once_ms=once_ms)
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
+    want = selected_groups(sys.argv[1:])
+
+    def run(group: tuple[int, int]) -> bool:
+        return want is None or group in want
+
+    from creste_public_tpu_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    card = card.splitlines()[0]
+    print(f"setup: torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} ({card}); TF32 off for "
+          "cuDNN convolutions and matmuls", flush=True)
+
+    # 1. build
+    t_start = t0 = time.perf_counter()
+    report = _build.build()
+    for name, r in report.items():
+        ptxas = [ln.strip() for ln in r["log"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"build: {name} {r['seconds']:.1f} s; ptxas: {ptxas}",
+              flush=True)
+    print(f"phase build: ok, {len(report)} source(s) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 2-4. the reward-head kernel and the deployment graph
+    head = head_path(torch, dev, card) if run((2, 4)) else None
+    walls = {"phases 1-4": time.perf_counter() - t_start}
+
+    def done(group: tuple[int, int]) -> None:
+        walls[f"phases {group[0]}-{group[1]}"] = (
+            time.perf_counter() - t_start - sum(walls.values()))
 
     # 5-8. the MDP kernels, the stage-3 objective, card vs CPU, timing
-    walls = {"phases 1-4": time.perf_counter() - t_start}
-    mdp_kernel_checks(torch, dev)
-    objective_ms, mdp_kernels = mdp_path(torch, dev, card)
-    walls["phases 5-8"] = time.perf_counter() - t_start - sum(walls.values())
-
+    if run((5, 8)):
+        mdp_kernel_checks(torch, dev)
+        objective_ms, mdp_kernels = mdp_path(torch, dev, card)
+        done((5, 8))
     # 16-19. the stage-0 and stage-1 trainers through their entry points;
     # 13-15. the stage-2 trainer, which grafts the stage-1 checkpoint, and
-    # whose checkpoint the stage-3 trainer (9-12) then grafts
+    # whose checkpoint the stage-3 trainers (9-12, 33) then graft
     import shutil
 
-    stage1_dir, stage01 = stage01_path(torch, dev, card)
-    walls["phases 16-19"] = (time.perf_counter() - t_start
-                             - sum(walls.values()))
-    ssc_dir = ssc_path(torch, dev, card, stage1_dir)
-    walls["phases 13-15"] = (time.perf_counter() - t_start
-                             - sum(walls.values()))
-    train = train_path(torch, dev, card, objective_ms, ssc_dir)
-    walls["phases 9-12"] = (time.perf_counter() - t_start
-                            - sum(walls.values()))
+    stage1_dir = ssc_dir = None
+    if run((16, 19)):
+        stage1_dir, stage01 = stage01_path(torch, dev, card)
+        done((16, 19))
+    if run((13, 15)):
+        ssc_dir = ssc_path(torch, dev, card, stage1_dir)
+        done((13, 15))
+    if run((9, 12)):
+        train = train_path(torch, dev, card, objective_ms, ssc_dir)
+        done((9, 12))
     # 20-22. the movability and temporal branches, merged heads, the last
     # losses (no kernel on their paths)
-    branch_launches = branches_path(torch, dev, card)
-    walls["phases 20-22"] = (time.perf_counter() - t_start
-                             - sum(walls.values()))
+    if run((20, 22)):
+        branch_launches = branches_path(torch, dev, card)
+        done((20, 22))
     # 23-28. the runtime: the serving variants, the export, the reference
     # import, the server, the bf16 training steps
-    runtime_launches = runtime_path(torch, dev, card, cfg, state)
-    walls["phases 23-28"] = (time.perf_counter() - t_start
-                             - sum(walls.values()))
+    if run((23, 28)):
+        runtime_launches = runtime_path(torch, dev, card, head["cfg"],
+                                        head["state"])
+        done((23, 28))
     # 29-31. data parallelism (two ranks on the one card), multi-task
     # augmented training under torchrun
-    dp = dp_path(torch, dev, card)
-    walls["phases 29-31"] = (time.perf_counter() - t_start
-                             - sum(walls.values()))
+    if run((29, 31)):
+        dp = dp_path(torch, dev, card)
+        done((29, 31))
+    # 32-34. the CODa reader, stage 3 on CODa with validation images, the
+    # secondary models and the repaired options
+    if run((32, 34)):
+        coda = coda_path(torch, dev, card, ssc_dir)
+        done((32, 34))
     print("wall time by phase group: " + ", ".join(
-        f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
+        f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
     for d in (stage1_dir, ssc_dir):
-        shutil.rmtree(os.path.dirname(d), ignore_errors=True)
+        if d is not None:
+            shutil.rmtree(os.path.dirname(d), ignore_errors=True)
+    if want is not None:
+        print(f"kernels line: not printed, --phases ran only "
+              f"{sorted(want)}", flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     for k, name in zip(mdp_kernels, ("vi", "svf")):
         k["train_steps"] = train["train_steps"]
         k["train_launches"] = train[name]
@@ -3787,21 +4271,24 @@ def main() -> None:
                                             dp["stage-3 dp"]["launches"]]
         k["dp_stage2_launches_per_rank"] = [r[i] for r in
                                             dp["stage-2 dp"]["launches"]]
+    # phase 33's run: training steps, validation batches, visuals forward
+    for k, n in zip(mdp_kernels, coda["launches"]):
+        k["coda_launches"] = n
 
     print(json.dumps({"kernels": [{
         "name": "msfcn_head",
         "route": "cuda",
         "source": "creste_public_tpu_torch/csrc/msfcn_chain.cu",
         "replaces": "creste_public_tpu/ops/reward_pallas.py:83",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": bound_ms,
-        "bound_by": head_bound_by,
-        "library_ms": lib_ms,
-        "library_conv_only_ms": conv_ms,
-        "checked_once_ms": once_ms,
+        "launches": head["launches"],
+        "max_abs_err": head["err"],
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library_conv_only_ms": head["conv_ms"],
+        "checked_once_ms": head["once_ms"],
         "stage01_launches": stage01_launches[2],
         "branch_launches": branch_launches[2],
         "serving_launches": {k: v for k, v in runtime_launches.items()
@@ -3813,6 +4300,7 @@ def main() -> None:
                                         dp["stage-3 dp"]["launches"]],
         "dp_stage2_launches_per_rank": [r[2] for r in
                                         dp["stage-2 dp"]["launches"]],
+        "coda_launches": coda["launches"][2],
     }] + mdp_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,14 @@ creste_public_tpu_torch.train_ssc trainer=smoke model.batch_size=4 ...``
 (or ``train_depth``, ``train_pefree``, ``train_traversability``) composes
 the stage's root config from the plain-dict groups of ``config.groups``
 (group selections + dotted overrides) and runs the stage's training loop
-on the synthetic dataset: one dataset, or with ``dataset.tasks`` several
-named ones cycled to the longest (``MultiTaskIterator``), augmented with
-``dataset.do_augmentation``. The port has no ``JAX_PLATFORMS``:
+on the synthetic or the CODa dataset: one dataset, or with
+``dataset.tasks`` several named ones cycled to the longest
+(``MultiTaskIterator``), augmented with ``dataset.do_augmentation``. The port has no ``JAX_PLATFORMS``:
 ``trainer.device`` (default ``cuda``) picks the device, and
-``trainer.device=cpu`` runs on the CPU.
+``trainer.device=cpu`` runs on the CPU. ``dataset=coda dataset.root=DIR``
+reads a UT CODa directory tree (``data.coda_dataset``), and
+``visualize=effnet_distillation`` writes the validation images as PNGs
+under ``visualize.save_dir``.
 
 ``trainer.devices=N`` trains data-parallel on N cards (``null``: every card
 of the launch): the command starts one process per card itself, or, under
@@ -67,6 +70,13 @@ def _train(cfg: Config) -> TrainState:
     task = cfg.get("task", None)
     rank, world = ((dist.get_rank(), dist.get_world_size())
                    if dist.is_initialized() else (0, 1))
+    # the optional visualize group (reference configs/visualize/*) turns on
+    # the validation images (training/visual_log.py)
+    if "visualize" in cfg:
+        vz = Config(cfg["visualize"])
+        tcfg["log_val_images"] = True
+        if vz.get("save_dir"):
+            tcfg["visuals_dir"] = vz["save_dir"]
 
     batch = int(model_cfg.get("batch_size", 4))
     workers = int(tcfg.get("num_workers", 4))

@@ -8,8 +8,9 @@ card's machine have no YAML): the roots ``depth.yaml``,
 ``model/ssc_sam/{terrainnet_supcon_sam2dynelev_jointdinopretrain,tiny}``,
 ``model/traversability/{terrainnet_maxentirlcf_msfcn_sam2dynsemelev,tiny}``,
 ``trainer/{smoke,standard,standard_single}`` and
-``dataset/{synthetic_pefree,synthetic_ssc,synthetic_traversability,
-synthetic_tiny,synthetic_tiny_multitask}``. The model files are the presets
+``dataset/{coda,synthetic_pefree,synthetic_ssc,synthetic_traversability,
+synthetic_tiny,synthetic_tiny_multitask}`` and
+``visualize/effnet_distillation``. The model files are the presets
 (``presets.distillation_model_config``, ``presets.terrainnet_model_config``
 and ``presets.traversability_model_config`` at their published shapes, and
 at the tiny shapes with the full trunk and ``batch_size`` 2; the stage-0
@@ -118,6 +119,10 @@ ROOTS = {
 
 GROUPS = {
     "dataset": {
+        # the UT CODa on-disk layout (README.md:78-108 of the reference)
+        "coda": {"name": "coda", "root": "data/creste", "views": 1, "ds": 4,
+                 "grid": 256, "map_range": 12.8,
+                 "split_dir": "data/creste/splits"},
         "synthetic_pefree": _synthetic(
             32, 8, image_size=[512, 612], ds=4, fdn_dim=128),
         "synthetic_ssc": _synthetic(
@@ -151,6 +156,13 @@ GROUPS = {
                           save_top_k=1, ckpt_dir="/tmp/creste_tpu_smoke"),
         "standard": _trainer(),
         "standard_single": _trainer(devices=1),
+    },
+    # turns on the validation images (training/visual_log.py), written
+    # as PNGs under save_dir
+    "visualize": {
+        "effnet_distillation": {
+            "save_dir": "./postprocess/distillation_outputs",
+            "every_n_epochs": 1, "max_samples": 1},
     },
 }
 

@@ -9,7 +9,8 @@ the same per-sample augmentation generator (``_sample_rng``), so that both
 packages give the same batches bit for bit, in either worker mode (threads,
 or a persistent pool of spawned processes). Under data parallelism each
 rank's loader fetches only that rank's rows of every global batch
-(``rank``, ``world_size``). The CODa reader is not ported yet.
+(``rank``, ``world_size``). ``build_dataset`` gives the synthetic
+dataset or the on-disk CODa reader (``data.coda_dataset``).
 """
 from __future__ import annotations
 
@@ -55,8 +56,8 @@ def _proc_fetch(job):
 
 
 def build_dataset(ds_cfg: Any, split: str = "train"):
-    """Dataset factory by config name: 'synthetic' ('coda' is not ported
-    yet)."""
+    """Dataset factory by config name: 'synthetic' | 'coda' (the whole
+    dataset config goes to the reader, which picks its split's list)."""
     name = ds_cfg.get("name", "synthetic")
     if name == "synthetic":
         return SyntheticCodaDataset(
@@ -64,7 +65,9 @@ def build_dataset(ds_cfg: Any, split: str = "train"):
             seed={"train": 0, "val": 1, "test": 2}.get(split, 0),
         )
     if name == "coda":
-        raise NotImplementedError("the CODa dataset is not ported yet")
+        from creste_public_tpu_torch.data.coda_dataset import CodaDataset
+
+        return CodaDataset(ds_cfg, split=split)
     raise ValueError(f"Unknown dataset: {name}")
 
 

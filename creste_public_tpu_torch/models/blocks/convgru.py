@@ -35,6 +35,7 @@ from creste_public_tpu_torch.models.blocks.convnets import (
     BatchNorm,
     Conv2d,
     Linear,
+    SameConv2d,
 )
 from creste_public_tpu_torch.ops.warp import (
     affine_warp,
@@ -49,10 +50,12 @@ PoseNoise = Union[torch.Generator,
 
 
 def _conv(in_ch: int, out_ch: int, kernel: Sequence[int]) -> Conv2d:
-    """flax ``nn.Conv(padding="SAME")`` at an odd kernel."""
+    """flax ``nn.Conv(padding="SAME")``: an odd kernel pads ``k // 2`` on
+    both sides of its axis; an even one pads as lax does, ``(k - 1) // 2``
+    before and ``k // 2`` after (``SameConv2d``)."""
     kh, kw = (int(k) for k in kernel)
     if kh % 2 == 0 or kw % 2 == 0:
-        raise NotImplementedError(f"ConvGRU kernel {kernel}: odd sizes only")
+        return SameConv2d(in_ch, out_ch, (kh, kw))
     return Conv2d(in_ch, out_ch, (kh, kw), padding=(kh // 2, kw // 2))
 
 

@@ -45,6 +45,34 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(*promoted(x, self.weight, self.bias))
 
 
+def same_padding(size: int, kernel: int, stride: int = 1) -> tuple[int, int]:
+    """lax's ``"SAME"`` padding of one axis: ``ceil(size / stride)`` outputs,
+    the total padding that needs split with the smaller half before (an
+    even kernel at stride 1 pads ``(k-1)//2`` before and ``k//2`` after)."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(Conv2d):
+    """``Conv2d`` with flax's ``padding="SAME"`` at any kernel and stride:
+    the padding of ``same_padding``, which is uneven for an even kernel or
+    a stride that does not divide the input, applied with ``F.pad`` before
+    a convolution with ``padding=0``. The same parameters and state_dict
+    keys as ``nn.Conv2d``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel, stride=1,
+                 bias: bool = True):
+        super().__init__(in_ch, out_ch, kernel, stride, padding=0, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        top, bottom = same_padding(x.shape[-2], kh, sh)
+        left, right = same_padding(x.shape[-1], kw, sw)
+        if top or bottom or left or right:
+            x = F.pad(x, (left, right, top, bottom))
+        return super().forward(x)
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` computing in ``promote_types(input, weight, bias)``, as
     flax's ``nn.Dense`` does."""
@@ -117,6 +145,45 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups)`` over dim 1 (its ``scale`` is
+    ``weight``): per sample and group of ``C / num_groups`` channels, the
+    mean and the biased ``E[x^2] - E[x]^2`` clipped at 0 over the group's
+    channels and every spatial position (flax's ``use_fast_variance``), in
+    at least f32, then ``(x - mean) * (rsqrt(var + eps) * weight) + bias``,
+    returned in the promotion of the input's and the weights' dtypes, as
+    flax returns it. ``eps`` 1e-6 is flax's default (torch's
+    ``nn.GroupNorm`` has 1e-5). No running statistics: train and eval are
+    one computation."""
+
+    def __init__(self, num_groups: int, num_features: int,
+                 eps: float = 1e-6):
+        super().__init__()
+        if num_features % num_groups:
+            raise ValueError(f"Number of groups ({num_groups}) does not "
+                             f"divide the number of channels "
+                             f"({num_features}).")
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C = x.shape[:2]
+        G = self.num_groups
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        g = xf.reshape(B, G, -1)
+        mean = g.mean(-1)
+        var = torch.clamp((g * g).mean(-1) - mean * mean, min=0.0)
+        shape = (B, C) + (1,) * (x.dim() - 2)
+        mean = mean.repeat_interleave(C // G, 1).view(shape)
+        var = var.repeat_interleave(C // G, 1).view(shape)
+        pshape = (1, C) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight.view(pshape)
+        y = (xf - mean) * mul + self.bias.view(pshape)
+        return y.to(torch.promote_types(x.dtype, self.weight.dtype))
+
+
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
@@ -179,26 +246,34 @@ def eval_form(module: nn.Module) -> Iterator[nn.Module]:
 
 
 class ConvLayer(nn.Module):
-    """conv(k, s, pad k//2) [+ BN] [+ ReLU] (reference conv.py:63-85)."""
+    """conv(k, s, pad k//2) [+ BN | GN] [+ ReLU] (reference conv.py:63-85).
+
+    ``norm_type`` "batch_norm" (``BatchNorm_0``) or "group_norm"
+    (``GroupNorm_0``, flax's ``nn.GroupNorm(num_groups=2)``); any other
+    raises ``ValueError``, as the JAX module does when it is called."""
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3,
                  stride: int = 1, use_norm: bool = False,
                  norm_type: str = "batch_norm", relu: bool = True,
                  use_bias: bool = False):
         super().__init__()
-        if use_norm and norm_type != "batch_norm":
-            raise NotImplementedError(f"norm type {norm_type}")
         self.Conv_0 = Conv2d(in_ch, features, kernel, stride,
                              padding=kernel // 2, bias=use_bias)
+        self.norm = None
         if use_norm:
-            self.BatchNorm_0 = BatchNorm(features)
-        self.use_norm = use_norm
+            if norm_type == "batch_norm":
+                self.norm, self.BatchNorm_0 = "BatchNorm_0", BatchNorm(features)
+            elif norm_type == "group_norm":
+                self.norm, self.GroupNorm_0 = "GroupNorm_0", GroupNorm(
+                    2, features)
+            else:
+                raise ValueError(f"Unknown norm type: {norm_type}")
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.Conv_0(x)
-        if self.use_norm:
-            x = self.BatchNorm_0(x)
+        if self.norm is not None:
+            x = getattr(self, self.norm)(x)
         return F.relu(x) if self.relu else x
 
 
@@ -267,6 +342,19 @@ def resize_bilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     """
     return F.interpolate(x, size=tuple(int(s) for s in size),
                          mode="bilinear", align_corners=False)
+
+
+def resize_bilinear_antialiased(x: torch.Tensor,
+                                size: Sequence[int]) -> torch.Tensor:
+    """Bilinear resize of NCHW ``x`` to ``size`` that equals
+    ``jax.image.resize(..., "bilinear")`` in both directions: upsampling
+    as ``resize_bilinear``, and downsampling with the triangle kernel
+    widened by ``in / out`` and renormalised, which is JAX's antialiasing
+    and ``F.interpolate(antialias=True)``'s alike
+    (``tests/test_torch_secondary_models.py`` holds it to JAX to 1e-6 at
+    scales 0.3 to 2)."""
+    return F.interpolate(x, size=tuple(int(s) for s in size),
+                         mode="bilinear", align_corners=False, antialias=True)
 
 
 def upsample_bilinear(x: torch.Tensor, scale: float) -> torch.Tensor:

@@ -145,6 +145,12 @@ def fold_msfcn_params(msfcn: MultiScaleFCN) -> FoldedHead:
     on the module's device. Returns them as a read-only ``FoldedHead``."""
 
     def stack(name, n):
+        for i in range(n):
+            if getattr(msfcn, f"{name}_{i}").norm != "BatchNorm_0":
+                raise ValueError(
+                    f"{name}_{i}: only a BatchNorm folds into the fused "
+                    "head (the JAX package's fold_msfcn_params reads "
+                    "BatchNorm_0 alike, reward_pallas.py:53)")
         return [_fold(getattr(msfcn, f"{name}_{i}").Conv_0,
                       getattr(msfcn, f"{name}_{i}").BatchNorm_0, False,
                       name in _TENSOR_CORE_CHAINS)

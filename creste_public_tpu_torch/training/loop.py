@@ -59,6 +59,7 @@ from creste_public_tpu_torch.parallel import (
 from creste_public_tpu_torch.training import checkpoint as ckpt
 from creste_public_tpu_torch.training import pipelines
 from creste_public_tpu_torch.training.state import TrainState, mean_metrics
+from creste_public_tpu_torch.training.visual_log import log_visuals
 from creste_public_tpu_torch.utils.device import resolve_device
 from creste_public_tpu_torch.utils.logging import MetricLogger
 
@@ -190,8 +191,6 @@ def run_training(
     if group is not None:
         dev = rank_device(dev)
     rank = parallel.rank(group)
-    if tcfg.get("log_val_images", False):
-        raise NotImplementedError("validation images are not ported yet")
     max_epochs = int(tcfg.get("max_epochs", 1))
     max_steps = int(tcfg.get("max_steps", -1))
     log_every = int(tcfg.get("log_every_n_steps", 10))
@@ -305,9 +304,17 @@ def run_training(
         logger.log(summary)
 
         if val_data is not None and (epoch + 1) % val_every == 0:
-            val_metrics = run_validation(eval_fn, list(val_data()), dev)
+            val_batches = list(val_data())
+            val_metrics = run_validation(eval_fn, val_batches, dev)
             val_metrics.update(step=state.step, epoch=epoch, split="val")
             logger.log(val_metrics)
+            if main_rank and tcfg.get("log_val_images", False) and (
+                    val_batches):
+                vb = val_batches[0]
+                vb = vb[1] if isinstance(vb, tuple) else vb
+                log_visuals(stage, model, vb, logger, state.step,
+                            out_dir=tcfg.get("visuals_dir", os.path.join(
+                                ckpt_dir, "visuals")))
             if main_rank:
                 topk.maybe_save(state, state.step, val_metrics)
         elif main_rank:

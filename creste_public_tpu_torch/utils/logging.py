@@ -2,7 +2,9 @@
 
 A copy of the JAX package's ``utils/logging.MetricLogger`` (one JSON object
 per ``log`` call, the same keys), without its optional TensorBoard and W&B
-sinks.
+sinks. ``log_image`` has the JAX signature; as in the JAX training loop,
+which opens its logger without a TensorBoard directory, it writes nothing
+(the loop's validation images are kept as PNGs, ``training/visual_log``).
 """
 from __future__ import annotations
 
@@ -30,3 +32,6 @@ class MetricLogger:
                 if isinstance(v, (int, float)) and k not in ("step", "epoch")
             ][:8]
             print(f"[step {step}] " + " ".join(keys), flush=True)
+
+    def log_image(self, tag: str, image, step: int = 0) -> None:
+        """An HWC uint8/float image for TensorBoard: no sink here."""

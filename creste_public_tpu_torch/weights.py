@@ -7,13 +7,17 @@ state_dict key by one rule table:
                         kernel becomes (C, 1, kh, kw), as groups=C wants)
   params/<path>/kernel  2-D (in, out) -> <path>.weight (out, in)
   params/<path>/bias    -> <path>.bias
-  params/<path>/scale   -> <path>.weight            (BatchNorm)
+  params/<path>/scale   -> <path>.weight  (BatchNorm, GroupNorm, LayerNorm)
   batch_stats/<path>/mean -> <path>.running_mean
   batch_stats/<path>/var  -> <path>.running_var
   params/<path>/learnable_pe_map  NHWC [1, h, w, C] -> <path>.learnable_pe_map
                         NCHW [1, C, h, w]   (the PE-free distillation map)
   params/<path>/log_var -> <path>.log_var   (the decoder's learnable loss
                         weight)
+  params/<path>/{cls_token,pos_embed,ls1,ls2} -> <path>.<leaf>, as stored
+                        (the ViT's tokens, position table and LayerScale)
+  params/<path>/GroupNorm_0/{scale,bias} -> <path>.GroupNorm_0.{weight,bias}
+                        (by the scale and bias rules above)
 
 A grouped conv's HWIO kernel [kh, kw, in / groups, out] becomes torch's
 [out, in / groups, kh, kw] by the same transpose (the merged decoder heads'
@@ -35,6 +39,7 @@ _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 _PE_MAP = "learnable_pe_map"
 _LOG_VAR = "log_var"
+_AS_STORED = {"cls_token", "pos_embed", "ls1", "ls2"}
 
 
 def from_jax_variables(flat: Mapping[str, np.ndarray]
@@ -60,6 +65,8 @@ def from_jax_variables(flat: Mapping[str, np.ndarray]
             arr, name = arr.transpose(0, 3, 1, 2), _PE_MAP
         elif coll == "params" and leaf == _LOG_VAR and arr.ndim == 1:
             name = _LOG_VAR
+        elif coll == "params" and leaf in _AS_STORED:
+            name = leaf
         elif coll == "batch_stats" and leaf in _STAT_LEAVES:
             name = _STAT_LEAVES[leaf]
         else:

@@ -26,7 +26,8 @@ from creste_public_tpu_torch.weights import from_jax_variables
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "creste_public_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "creste_public_tpu", "yaml")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "creste_public_tpu", "yaml",
+             "matplotlib")
 
 
 def test_import_pulls_in_no_jax():
@@ -93,6 +94,23 @@ PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
 
 @pytest.mark.parametrize("rel_path", PARALLEL_MODULES)
 def test_parallel_modules_are_checked(rel_path):
+    path = PKG / rel_path
+    assert path in set(PKG.rglob("*.py"))
+    test_source_imports(path)
+
+
+# the CODa reader's, the validation images' and the secondary models'
+# modules
+CODA_MODULES = ("data/coda_constants.py", "data/taxonomy.py", "data/calib.py",
+                "data/native_io.py", "data/coda_dataset.py",
+                "utils/colormaps.py", "utils/visualization.py",
+                "training/visual_log.py", "models/stereodepth.py",
+                "models/foundation.py", "models/blocks/vit.py",
+                "models/blocks/cnnmlp.py")
+
+
+@pytest.mark.parametrize("rel_path", CODA_MODULES)
+def test_coda_modules_are_checked(rel_path):
     path = PKG / rel_path
     assert path in set(PKG.rglob("*.py"))
     test_source_imports(path)
@@ -294,3 +312,49 @@ def test_weight_import_covers_terrainnet_branch_trees():
     assert tuple(w.shape) == (96, 96, 3, 3)
     assert tuple(sd["bevclassifier.mh_conv1.weight"].shape) == (768, 256, 3,
                                                                 3)
+
+
+def _secondary_trees():
+    """(name, flat flax tree, port module) of each secondary model: the
+    FoundationBackbone at the JAX ViT's defaults (embed 768, depth 12, 12
+    heads, patch 14, grid 37), MSNet2D and CnnMLP at the JAX tests'
+    configs."""
+    from creste_public_tpu.models.blocks.cnnmlp import CnnMLP as JCnnMLP
+    from creste_public_tpu.models.foundation import FoundationBackbone as JF
+    from creste_public_tpu.models.stereodepth import MSNet2D as JMSNet2D
+    from creste_public_tpu_torch.models.blocks.cnnmlp import CnnMLP
+    from creste_public_tpu_torch.models.foundation import FoundationBackbone
+    from creste_public_tpu_torch.models.stereodepth import MSNet2D
+    from tests.test_torch_secondary_models import CNNMLP, FOUNDATION, MSNET
+
+    found = {**FOUNDATION, "vision_backbone": {"backbone_cfgs": {
+        "input_shape": [518, 518], "output_shape": [128, 128]}},
+        "depth_head": dict(FOUNDATION["depth_head"], dims=[768, 16])}
+    cases = [("foundation", JF(found), (np.zeros((1, 1, 64, 80, 4)),),
+              lambda: FoundationBackbone(found)),
+             ("msnet2d", JMSNet2D(MSNET), (np.zeros((1, 2, 64, 80, 3)),),
+              lambda: MSNet2D(MSNET)),
+             ("cnnmlp", JCnnMLP(CNNMLP),
+              ({"a": np.zeros((1, 8, 8, 2)), "b": np.zeros((1, 8, 8, 4))},),
+              lambda: CnnMLP(CNNMLP))]
+    for name, jm, args, make in cases:
+        tree = jax.eval_shape(lambda: jm.init(
+            {"params": jax.random.PRNGKey(0)}, *args))
+        flat = {k: np.zeros(v.shape, np.float32)
+                for k, v in flatten_dict(dict(tree), sep="/").items()}
+        yield name, flat, make
+
+
+@pytest.mark.parametrize("case", ["foundation", "msnet2d", "cnnmlp"])
+def test_weight_import_covers_secondary_trees(case):
+    """Every leaf of each secondary model's flax tree lands on one key of
+    the port's module, and the module has no other."""
+    name, flat, make = next(c for c in _secondary_trees() if c[0] == case)
+    sd = from_jax_variables(flat)
+    assert len(sd) == len(flat)
+    model = make()
+    model.load_state_dict(sd, strict=True)
+    assert set(model.state_dict()) == set(sd)
+    if case == "foundation":
+        assert sd["vit.pos_embed"].shape == (1, 37 * 37 + 1, 768)
+        assert "vit.block_11.ls2" in sd and "vit.block_12.ls2" not in sd

@@ -33,7 +33,9 @@ from creste_public_tpu_torch import train_traversability
 from creste_public_tpu_torch.config import presets
 from creste_public_tpu_torch.config.config import parse_value
 from creste_public_tpu_torch.config.groups import GROUPS, ROOTS, compose_cli
+from creste_public_tpu_torch.data.coda_dataset import CodaDataset
 from creste_public_tpu_torch.data.dataloader import EpochLoader, build_dataset
+from creste_public_tpu_torch.data.synthetic import collate
 from creste_public_tpu_torch.models.blocks.convnets import (
     BatchNorm,
     commit_batch_stats,
@@ -51,6 +53,7 @@ from creste_public_tpu_torch.training import optim, pipelines
 from creste_public_tpu_torch.training.loop import run_training, step_generator
 from creste_public_tpu_torch.training.surgery import make_stage_loader
 from creste_public_tpu_torch.weights import from_jax_variables, init_weights
+from tests.test_torch_coda_tree import write_coda_tree
 from tests.test_torch_helpers import (
     jax_variables,
     jitter_bn,
@@ -603,15 +606,28 @@ def test_entry_points_default_to_the_card():
                                    "dataset=synthetic_tiny"])
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="validation images"):
-        run_training("traversability", _tiny_cfg(), [], None,
-                     {"device": "cpu", "log_val_images": True})
+def test_unported_options_raise(tmp_path):
+    # validation images, once refused, are written as PNGs
+    ds = build_dataset(GROUPS["dataset"]["synthetic_tiny"], "val")
+    batches = [collate([ds[0], ds[1]])]
+    run_training("traversability", _tiny_cfg(1), batches, lambda: batches,
+                 {"device": "cpu", "log_val_images": True, "max_steps": 1,
+                  "steps_per_epoch": 1, "verbose": False,
+                  "ckpt_dir": str(tmp_path / "ckpt"),
+                  "visuals_dir": str(tmp_path / "vis")})
+    pngs = os.listdir(tmp_path / "vis")
+    assert "irl_reward_with_expert_1.png" in pngs and len(pngs) >= 3
     with pytest.raises(ValueError, match="Unknown stage"):
         pipelines.build_model("stereo", {})
     # a compute_dtype is ported (the mixed-precision step): it builds
     model = pipelines.build_model("traversability", dict(
         GROUPS["model"]["traversability/tiny"], compute_dtype="bfloat16"))
     assert model.backbone.depthcomp.depthcomp.compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        build_dataset({"name": "coda"})
+    # the CODa reader, once refused, reads a CODa tree
+    write_coda_tree(str(tmp_path / "coda"), seqs=("0",), frames=2,
+                    labels3d=False, scans=False, movability=False,
+                    missing_sam=None)
+    coda = build_dataset({"name": "coda", "root": str(tmp_path / "coda"),
+                          "grid": 32, "map_range": 1.6, "horizon": 10})
+    assert isinstance(coda, CodaDataset) and len(coda) == 1
+    assert coda[0]["image"].shape == (1, 64, 80, 4)
