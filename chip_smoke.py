@@ -216,6 +216,30 @@ Phases, each printing one line before the final one:
     grid 37) on 2 frames of 512x612, MSNet2D at the JAX test's config on
     a 512x608 stereo pair, a group_norm ConvLayer and a ConvGRU with
     kernel (2, 2).
+35. preprocessing ops (run last): a raw sensor tree written by the port's
+    data.raw_synthetic (one sequence of 20 frames of 1024x1224, OS1-128
+    scans of 131,072 points, per-point semantic ids, calibration as text),
+    then each op on the card and on the CPU from the same inputs: the LA
+    projection over 5 scans and the LAIDW bottom window of 50 (6.55 M
+    points) exact at 1024x1224, idw_densify on the merged depth to
+    PRE_RTOL of its largest value, elevation_maps_from_points and
+    reference_elevation_maps over 10 scans (grid 256 at 12.8 m) exact but
+    the variance (PRE_RTOL of the largest squared height), the three-eps
+    DBSCAN ensemble on one full scan's non-ground points equal, and the
+    PCA of 100k random-projection features to 128 components (the mean,
+    orthonormality, the variance each component captures, and the
+    projection and resize from one basis); the ms of each on the card
+    beside the CPU's, the DBSCAN's points and clusters, scipy's version.
+36. preprocessing chain: the eight entry points
+    (python -m creste_public_tpu_torch.preprocessing.<name>, on their
+    default device, the card) over that tree in scripts/e2e_pipeline.py's
+    order and arguments at grid 256: each one's wall time, and every
+    label family of tests/test_e2e_pipeline.py (but the counterfactuals)
+    written for every frame, the splits and the traversability starts.
+37. the port's CodaDataset over the chain's tree with coda_config at
+    512x612: every train and val sample has phase 32's keys, shapes and
+    dtypes and finite values (the elevation bins hold +inf where a cell is
+    unknown, as the reference's do). No kernel launches in phases 35-37.
 
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
@@ -353,6 +377,25 @@ def union_us(intervals) -> float:
             total += e - max(s, end)
             end = e
     return total
+
+
+def device_kernels(torch, prof) -> list:
+    """The profile's device kernels summed by name, as ``key_averages()``
+    sums them (``key``, ``count``, ``self_device_time_total`` in µs), from
+    ``prof.events()`` alone: ``key_averages()`` also groups every CPU op,
+    which takes tens of seconds after a training step's profile."""
+    import types
+
+    cuda = torch.autograd.DeviceType.CUDA
+    acc: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == cuda:
+            row = acc.setdefault(e.key, [0, 0.0])
+            row[0] += 1
+            row[1] += e.self_device_time_total
+    return [types.SimpleNamespace(key=k, count=n, self_device_time_total=us,
+                                  device_type=cuda)
+            for k, (n, us) in acc.items()]
 
 
 def bound_by(ops: float, nbytes: float) -> str:
@@ -752,8 +795,7 @@ def mdp_path(torch, dev, card: str) -> tuple[float, list[dict]]:
             objective()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(torch, prof)
     dev_us = sum(e.self_device_time_total for e in kernels)
     busy_us = union_us([(e.time_range.start, e.time_range.end)
                         for e in prof.events()
@@ -1213,8 +1255,7 @@ def stage01_path(torch, dev, card: str) -> tuple[str, dict]:
                 one_step()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = device_kernels(torch, prof)
         busy_us = union_us([(e.time_range.start, e.time_range.end)
                             for e in prof.events() if e.device_type
                             == torch.autograd.DeviceType.CUDA])
@@ -1703,8 +1744,7 @@ def ssc_path(torch, dev, card: str, stage1_dir: str) -> str:
             one_step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(torch, prof)
     dev_us = sum(e.self_device_time_total for e in kernels)
     busy_us = union_us([(e.time_range.start, e.time_range.end)
                         for e in prof.events()
@@ -2110,8 +2150,7 @@ def train_path(torch, dev, card: str, objective_ms: float,
             one_step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(torch, prof)
     dev_us = sum(e.self_device_time_total for e in kernels)
     busy_us = union_us([(e.time_range.start, e.time_range.end)
                         for e in prof.events()
@@ -2664,7 +2703,7 @@ def profile_window(torch, f, n: int) -> tuple[float, float, list]:
     cuda = torch.autograd.DeviceType.CUDA
     busy_us = union_us([(e.time_range.start, e.time_range.end)
                         for e in prof.events() if e.device_type == cuda])
-    top = sorted((e for e in prof.key_averages() if e.device_type == cuda),
+    top = sorted(device_kernels(torch, prof),
                  key=lambda e: -e.self_device_time_total)[:3]
     return (busy_us / n / 1e3, max(0.0, 1 - busy_us / wall_us),
             [(e.key[:40], e.self_device_time_total / n / 1e3) for e in top])
@@ -3846,10 +3885,404 @@ def coda_path(torch, dev, card: str, ssc_dir: str | None) -> dict:
                 secondary=secondary_phase(torch, dev, card))
 
 
+# the preprocessing chain (phases 35-37): one raw sequence at the sensors'
+# sizes (OS1-128 scans of 131,072 points, 1024x1224 frames), grid 256 at
+# 12.8 m, the horizon and splits of scripts/e2e_pipeline.py
+PRE_FRAMES = 20
+PRE_POINTS = 131072  # OS1-128: 128 rings x 1024
+PRE_SPLIT_HORIZON = 10
+PRE_BOTTOM_SCANS = 50
+PRE_ELEV_SCANS = 10
+PRE_PCA_FRAMES = 4
+PRE_RTOL = 1e-5
+# tests/test_e2e_pipeline.py's label families, less the counterfactuals
+# that annotation writes; each holds one file per frame
+PRE_FAMILIES = ("depth_5_LA_all/cam0/0", "2d_sam/cam0/0",
+                "2d_sam_dynamic/cam0/0", "distillation/cam0/0", "3d_sam/0",
+                "3d_sam_dynamic/0", "elevation/0")
+
+
+def host_ms(torch, f, reps: int = 3, on_card: bool = True):
+    """(median wall ms of ``reps`` calls, each ending in a synchronise of
+    the card when ``on_card``, the last result), after one warm-up call."""
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    out = f()
+    sync()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = f()
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times), out
+
+
+def pre_ops_phase(torch, dev, card: str, root: str) -> dict:
+    """Phase 35: the preprocessing ops at the sensors' sizes, each on the
+    card and, from the same inputs, on the CPU."""
+    import importlib.metadata
+    import importlib.util
+
+    import scipy
+
+    from creste_public_tpu_torch.data.calib import load_calibration, load_poses
+    from creste_public_tpu_torch.ops import depth_projection as dp
+    from creste_public_tpu_torch.ops import elevation as el
+    from creste_public_tpu_torch.ops.infill import idw_densify
+    from creste_public_tpu_torch.preprocessing import features as pf
+    from creste_public_tpu_torch.preprocessing import sam_map as sm
+    from creste_public_tpu_torch.preprocessing.depth import load_scan
+
+    cpu = torch.device("cpu")
+    poses = load_poses(root, "0")
+    calib = load_calibration(root, "0")
+    H, W = calib.img_hw
+    l2r = torch.from_numpy(np.vstack([calib.lidar2camrect[:3],
+                                      [0, 0, 0, 1]]).astype(np.float32))
+    frame = PRE_FRAMES // 2
+
+    def window(lo: int, n: int):
+        ids = np.clip(np.arange(frame + lo, frame + lo + n), 0,
+                      len(poses) - 1)
+        return ids, torch.from_numpy(np.stack(
+            [load_scan(root, "0", int(i)) for i in ids]))
+
+    def semantic(i: int) -> np.ndarray:
+        return np.fromfile(os.path.join(root, "3d_semantic", "0",
+                                        f"{i}.bin"), np.uint32)
+
+    ms, cpu_ms, plain_ms, notes = {}, {}, {}, []
+
+    def both(name, fn, *args):
+        """fn on the card and on the CPU from the same inputs, each timed
+        after a warm-up call (the CPU by one call)."""
+        on_dev = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+        ms[name], got = host_ms(torch, lambda: fn(*on_dev))
+        on_cpu = [a.to(cpu) if torch.is_tensor(a) else a for a in args]
+        cpu_ms[name], want = host_ms(torch, lambda: fn(*on_cpu), reps=1,
+                                     on_card=False)
+        return got, want
+
+    def exact(name, got, want):
+        got = got.cpu()
+        if got.shape != want.shape:
+            fail(f"phase 35: {name} shape {tuple(got.shape)} != "
+                 f"{tuple(want.shape)}")
+        diff = ~((got == want) | (torch.isnan(got) & torch.isnan(want)))
+        if bool(diff.any()):
+            fail(f"phase 35: {name}: {int(diff.sum())} entries differ from "
+                 f"the CPU's (the truncation moved them)")
+
+    # LA: 5 scans; LAIDW's bottom window: 50 scans
+    la_ids, la = window(-2, 5)
+    bot_ids, bot = window(-25, PRE_BOTTOM_SCANS)
+
+    def project(ids, scans, cam):
+        return dp.accumulate_and_project(scans, poses[ids], poses[frame],
+                                         cam, (H, W))
+
+    la_d, la_c = both("accumulate_and_project LA", lambda s, c: project(
+        la_ids, s, c), la, l2r)
+    exact("LA depth", la_d, la_c)
+    bot_d, bot_c = both("accumulate_and_project LAIDW bottom",
+                        lambda s, c: project(bot_ids, s, c), bot, l2r)
+    exact("LAIDW bottom depth", bot_d, bot_c)
+    cut = 2 * H // 3
+    merged = la_c.clone()
+    merged[cut:] = torch.where(la_c[cut:] > 0, la_c[cut:], bot_c[cut:])
+    idw_d, idw_c = both("idw_densify", lambda d: idw_densify(depth=d),
+                        merged)
+    check_close("phase 35: idw_densify", idw_d.cpu(), idw_c,
+                PRE_RTOL * float(idw_c.max()), 0.0)
+
+    # elevation over 10 scans
+    el_ids, els = window(-5, PRE_ELEV_SCANS)
+    pts = dp.accumulate_scans(els, poses[el_ids], poses[frame])
+    labels = torch.from_numpy(np.concatenate(
+        [semantic(int(i)).astype(np.int64) for i in el_ids]))
+    var_atol = PRE_RTOL * float((pts[:, 2] ** 2).max())
+    maps_d, maps_c = both("elevation_maps_from_points", lambda p: (
+        el.elevation_maps_from_points(p, (CODA_GRID, CODA_GRID),
+                                      CODA_MAP_RANGE)), pts)
+    for k, v in maps_c.items():
+        if k == "variance":
+            check_close("phase 35: variance", maps_d[k].cpu(), v,
+                        var_atol, 0.0)
+        else:
+            exact(k, maps_d[k], v)
+    (ref_d, rvar_d), (ref_c, rvar_c) = both(
+        "reference_elevation_maps", lambda p, lab: (
+            el.reference_elevation_maps(p, lab, (CODA_GRID, CODA_GRID),
+                                        2 * CODA_MAP_RANGE,
+                                        2 * CODA_MAP_RANGE)), pts, labels)
+    exact("reference elevation", ref_d, ref_c)
+    check_close("phase 35: reference variance", rvar_d.cpu(), rvar_c,
+                var_atol, 0.0)
+    known = int(torch.isfinite(ref_c[..., 0]).sum())
+
+    # the dynamic SAM map with the three-eps DBSCAN on one full scan, held
+    # against the same ensemble over sklearn's loop in NumPy (dbscan_plain,
+    # which shares no code with the torch DBSCAN)
+    from unittest import mock
+
+    scan = load_scan(root, "0", frame)
+    sem = semantic(frame).astype(np.int64)
+    inst = np.where(sem > 1, sem - 1, 0)
+    keep = sm.remove_ground_plane(scan)
+    ms["dbscan_ensemble"], clusters = host_ms(
+        torch, lambda: sm.dbscan_ensemble(scan[keep], device=dev))
+    t0 = time.perf_counter()
+    with mock.patch.object(sm, "dbscan", lambda p, eps, m, _: (
+            sm.dbscan_plain(p, eps, m))):
+        clusters_p = sm.dbscan_ensemble(scan[keep])
+    plain_ms["dbscan_ensemble"] = 1e3 * (time.perf_counter() - t0)
+    if not np.array_equal(clusters, clusters_p):
+        fail(f"phase 35: DBSCAN: {int((clusters != clusters_p).sum())} "
+             "labels differ from sklearn's loop's")
+    # the rest of the dynamic map is host NumPy on these clusters
+    ms["dynamic_sam_map"], dyn = host_ms(torch, lambda: sm.dynamic_sam_map(
+        scan, inst, inst, CODA_GRID, CODA_MAP_RANGE, device=dev))
+    n_clusters = int(clusters.max())
+    if n_clusters < 3 or not (dyn[..., 0] > 0).any():
+        fail(f"phase 35: {n_clusters} clusters, "
+             f"{int((dyn[..., 0] > 0).sum())} instance cells")
+
+    # PCA: the random projection's patch features of 4 frames, 100k
+    # samples, 128 components
+    from PIL import Image
+
+    from creste_public_tpu_torch.data import coda_constants as cc
+
+    ext = pf.RandomProjectionExtractor(stride=7, device=dev)
+    feats = []
+    for i in range(PRE_PCA_FRAMES):
+        img = np.asarray(Image.open(cc.frame_path(
+            root, cc.CAMERA_DIR, "cam0", "0", i, "jpg")).convert("RGB"),
+            np.float32) / 255.0
+        feats.append(ext(img[None])[0].astype(np.float32))
+    samples = torch.from_numpy(pf.sample_features(feats))
+    ms["pca_fit"], (mean_d, comps_d) = host_ms(
+        torch, lambda: pf.pca_fit(samples.to(dev), k=CODA_FDIM), reps=1)
+    cpu_ms["pca_fit"], (mean_c, comps_c) = host_ms(
+        torch, lambda: pf.pca_fit(samples, k=CODA_FDIM), reps=1,
+        on_card=False)
+    # components of nearly equal singular values may rotate within their
+    # span on another solver: hold the mean, orthonormality and the
+    # variance each component captures, then the projection from one basis
+    check_close("phase 35: PCA mean", mean_d.cpu(), mean_c,
+                PRE_RTOL * float(mean_c.abs().max()), 0.0)
+    gram = comps_d.T @ comps_d
+    check_close("phase 35: PCA orthonormality", gram.cpu(),
+                torch.eye(CODA_FDIM), PRE_RTOL, 0.0)
+    x = samples - mean_c
+    var_d = ((x @ comps_d.cpu()) ** 2).sum(0)
+    var_c = ((x @ comps_c) ** 2).sum(0)
+    check_close("phase 35: PCA captured variance", var_d, var_c, 0.0,
+                PRE_RTOL)
+    f0 = torch.from_numpy(feats[0][None])
+    proj_d, proj_c = both("pca_project_resize", lambda f, m, c: (
+        pf.pca_project_resize(f, m, c, (CODA_IMAGE_SIZE[0] // 4,
+                                        -(-CODA_IMAGE_SIZE[1] // 4)))),
+        f0, mean_d.cpu(), comps_d.cpu())
+    check_close("phase 35: pca_project_resize", proj_d.cpu(), proj_c,
+                PRE_RTOL * float(proj_c.abs().max()), 0.0)
+
+    hf = (importlib.metadata.version("transformers")
+          if importlib.util.find_spec("transformers") else "absent")
+    print(f"phase 35 preprocessing ops: ok, card vs CPU from the same "
+          f"inputs: LA depth ({len(la_ids)} scans, "
+          f"{la.shape[0] * la.shape[1]} points) and the LAIDW bottom window "
+          f"({bot.shape[0]} scans, {bot.shape[0] * bot.shape[1]} points) "
+          f"exact at {H}x{W}; IDW to {PRE_RTOL:g} of its largest depth; "
+          f"elevation over {len(el_ids)} scans ({pts.shape[0]} points, grid "
+          f"{CODA_GRID} at {CODA_MAP_RANGE} m) exact but the variance "
+          f"({known} known cells); DBSCAN on {int(keep.sum())} of "
+          f"{len(scan)} points (ground removed) -> {n_clusters} clusters "
+          f"over eps {sm.dbscan_ensemble.__defaults__[0]}, equal to "
+          f"sklearn's loop's; PCA of "
+          f"{samples.shape[0]}x{samples.shape[1]} samples to "
+          f"{CODA_FDIM} components; scipy {scipy.__version__}, "
+          f"transformers {hf}", flush=True)
+    print("  timing phase 35 (ms, card; the CPU's from the same inputs, "
+          "warmed by one call; sklearn's loop in NumPy, one cold call): "
+          + ", ".join(
+              f"{k} {v:.2f}"
+              + (f" (CPU {cpu_ms[k]:.1f})" if k in cpu_ms else "")
+              + (f" (plain {plain_ms[k]:.1f})" if k in plain_ms else "")
+              for k, v in ms.items()) + f" [{card}]", flush=True)
+    return dict(ms=ms, cpu_ms=cpu_ms, plain_ms=plain_ms,
+                points=int(keep.sum()), clusters=n_clusters)
+
+
+def pre_chain_steps(root: str, device: str) -> list[tuple[str, list[str]]]:
+    """scripts/e2e_pipeline.py::preprocess's order and arguments at the
+    production grid, each entry point on ``device``."""
+    g, r = str(CODA_GRID), str(CODA_MAP_RANGE)
+    depth_dir = os.path.join(root, "depth_5_LA_all")
+    fdn = (CODA_IMAGE_SIZE[0] // 4, -(-CODA_IMAGE_SIZE[1] // 4))
+    steps = [
+        ("build_dense_depth", ["--root", root, "--seqs", "0", "--scans", "5",
+                               "--proc", "LA", "--workers", "2"]),
+        ("downsample_frames", ["--in_dir", depth_dir,
+                               "--out_dir", depth_dir + "_ds4",
+                               "--factor", "4"]),
+        ("create_sam_dataset", ["--root", root, "--seqs", "0",
+                                "--mode", "static"]),
+        ("create_sam_dataset", ["--root", root, "--seqs", "0",
+                                "--mode", "dynamic"]),
+        ("create_pe_dataset", ["--root", root, "--seqs", "0", "--pca_dim",
+                               str(CODA_FDIM), "--out_hw", *map(str, fdn)]),
+        ("build_sam_map", ["--root", root, "--seqs", "0", "--mode", "static",
+                           "--grid", g, "--map_range", r, "--ds", "4",
+                           "--horizon", "3"]),
+        ("build_sam_map", ["--root", root, "--seqs", "0", "--mode",
+                           "dynamic", "--grid", g, "--map_range", r,
+                           "--ds", "4"]),
+        ("build_feature_map", ["--root", root, "--seqs", "0", "--tasks",
+                               "elevation", "--grid", g, "--map_range", r,
+                               "--scans", "5", "--window", "10"]),
+        ("create_traversability_dataset", ["--root", root, "--seqs", "0",
+                                           "--num_frames",
+                                           str(PRE_SPLIT_HORIZON),
+                                           "--dist_thresh", "1.0"]),
+        ("build_splits", ["--root", root, "--seqs", "0", "--horizon",
+                          str(PRE_SPLIT_HORIZON), "--min_distance", "0.5"]),
+    ]
+    return [(name, [*args, "--device", device]) for name, args in steps]
+
+
+def pre_chain_phase(torch, dev, card: str, root: str) -> dict:
+    """Phase 36: the eight preprocessing entry points over the raw tree, in
+    e2e's order, on the card."""
+    import contextlib
+    import importlib
+    import io
+
+    walls = []
+    for name, args in pre_chain_steps(root, dev.type):
+        main = importlib.import_module(
+            f"creste_public_tpu_torch.preprocessing.{name}").main
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            main(args)
+        torch.cuda.synchronize()
+        walls.append((name, time.perf_counter() - t0))
+        last = log.getvalue().strip().splitlines()
+        print(f"  phase 36 {name}: {walls[-1][1]:.2f} s; "
+              f"{last[-1] if last else ''}", flush=True)
+    for d in PRE_FAMILIES:
+        path = os.path.join(root, d)
+        n = len(os.listdir(path)) if os.path.isdir(path) else 0
+        # the elevation bins and the 3d maps: one file per frame
+        if n != PRE_FRAMES:
+            fail(f"phase 36: {d} holds {n} files, not {PRE_FRAMES}")
+    for f in ("splits/train.txt", "splits/val.txt", "traversability/0.txt"):
+        if not os.path.getsize(os.path.join(root, f)):
+            fail(f"phase 36: {f} is empty")
+    print(f"phase 36 preprocessing chain: ok, {len(walls)} entry points "
+          f"over {PRE_FRAMES} frames of {CODA_NATIVE_HW[0]}x"
+          f"{CODA_NATIVE_HW[1]} with scans of {PRE_POINTS} points, on the "
+          "card; "
+          f"every label family written ({', '.join(PRE_FAMILIES)}, splits, "
+          "traversability)", flush=True)
+    print("  timing phase 36 (s, wall): " + ", ".join(
+        f"{n} {s:.2f}" for n, s in walls)
+        + f"; chain {sum(s for _, s in walls):.1f} s [{card}]", flush=True)
+    return dict(walls=walls)
+
+
+def pre_reader_phase(torch, dev, card: str, root: str) -> dict:
+    """Phase 37: the port's CodaDataset over the tree the chain wrote, at
+    512x612, against phase 32's contract."""
+    from creste_public_tpu_torch.config.groups import GROUPS
+    from creste_public_tpu_torch.data.coda_dataset import CodaDataset
+    from creste_public_tpu_torch.data.dataloader import build_dataset
+
+    synth = build_dataset(GROUPS["dataset"][TRAIN_DATASET], "train")[0]
+
+    def layout(s):
+        return {k: layout(v) if isinstance(v, dict) else
+                (tuple(v.shape), str(v.dtype)) for k, v in s.items()}
+
+    want = layout(synth)
+    cfg = coda_config(root)
+    samples = []
+    t0 = time.perf_counter()
+    for split in ("train", "val"):
+        ds = build_dataset(cfg, split)
+        if not isinstance(ds, CodaDataset) or not len(ds):
+            fail(f"phase 37: build_dataset gave {type(ds).__name__} of "
+                 f"{len(ds)} {split} samples")
+        samples += [ds[i] for i in range(len(ds))]
+    read_s = time.perf_counter() - t0
+    for i, s in enumerate(samples):
+        if layout(s) != want:
+            fail(f"phase 37: sample {i} has {layout(s)}, not phase 32's "
+                 f"contract {want}")
+        for k, v in s.items():
+            if isinstance(v, dict):
+                continue
+            if k == "elevation_label":
+                # unknown cells are +inf in the reference's elevation bins
+                if bool(np.isnan(v).any() or (v == -np.inf).any()) or \
+                        not np.isfinite(v).mean() > 0.05:
+                    fail(f"phase 37: sample {i} elevation_label holds NaN "
+                         f"or too few known cells")
+            elif not np.isfinite(v).all():
+                fail(f"phase 37: sample {i} {k} has non-finite values")
+    print(f"phase 37 CODa reader over the chain's tree: ok, "
+          f"{len(samples)} samples (train and val splits) at "
+          f"{CODA_IMAGE_SIZE[0]}x{CODA_IMAGE_SIZE[1]} with phase 32's "
+          f"{len(want)} keys, shapes and dtypes, finite (elevation: +inf "
+          f"where unknown); read in {read_s:.1f} s [{card}]", flush=True)
+    return dict(samples=len(samples))
+
+
+def preprocessing_path(torch, dev, card: str) -> dict:
+    """Phases 35-37 over one raw tree written by the port's
+    raw_synthetic; returns the three kernels' launches in them (none of
+    the three lies on this path)."""
+    import shutil
+    import tempfile
+
+    from creste_public_tpu_torch.data.raw_synthetic import write_raw_coda_tree
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
+    from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_raw_tree_")
+    try:
+        t0 = time.perf_counter()
+        write_raw_coda_tree(root, n_frames=PRE_FRAMES, img_hw=CODA_NATIVE_HW,
+                            points_per_scan=PRE_POINTS, speed=0.22,
+                            curve=0.015, max_range=2 * CODA_MAP_RANGE)
+        print(f"  phase 35 set-up: a raw tree of {PRE_FRAMES} frames "
+              f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.synchronize()
+        value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+        rk.msfcn_head_cuda.launches = 0
+        ops = pre_ops_phase(torch, dev, card, root)
+        chain = pre_chain_phase(torch, dev, card, root)
+        reader = pre_reader_phase(torch, dev, card, root)
+        torch.cuda.synchronize()
+        launches = (value_iteration_cuda.launches, expected_svf_cuda.launches,
+                    rk.msfcn_head_cuda.launches)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if any(launches):
+        fail(f"phase 35-37: VI, SVF and reward-head launches {launches} on "
+             "the preprocessing path, which holds none of the three")
+    return dict(ops=ops, chain=chain, reader=reader, launches=launches)
+
+
 # the phase groups in the order they run (phase 1, the build, always runs),
 # and the groups each needs run before it
 PHASE_GROUPS = ((2, 4), (5, 8), (16, 19), (13, 15), (9, 12), (20, 22),
-                (23, 28), (29, 31), (32, 34))
+                (23, 28), (29, 31), (32, 34), (35, 37))
 NEEDS = {(13, 15): ((16, 19),), (9, 12): ((5, 8), (13, 15)),
          (23, 28): ((2, 4),)}
 
@@ -4132,8 +4565,7 @@ def head_path(torch, dev, card: str) -> dict:
                 fn(rgbd_d, p2p_d)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(torch, prof)
     dev_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     print(f"  profile 5 frames: device busy {dev_us / 1e3:.2f} ms of "
@@ -4239,6 +4671,12 @@ def main() -> None:
     if run((32, 34)):
         coda = coda_path(torch, dev, card, ssc_dir)
         done((32, 34))
+    # 35-37. the preprocessing chain: the ops at the sensors' sizes card vs
+    # CPU, the eight entry points over a raw tree, the reader over its
+    # labels (no kernel on this path)
+    if run((35, 37)):
+        pre = preprocessing_path(torch, dev, card)
+        done((35, 37))
     print("wall time by phase group: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -4274,6 +4712,9 @@ def main() -> None:
     # phase 33's run: training steps, validation batches, visuals forward
     for k, n in zip(mdp_kernels, coda["launches"]):
         k["coda_launches"] = n
+    # phases 35-37's preprocessing chain
+    for k, n in zip(mdp_kernels, pre["launches"]):
+        k["preprocessing_launches"] = n
 
     print(json.dumps({"kernels": [{
         "name": "msfcn_head",
@@ -4301,6 +4742,7 @@ def main() -> None:
         "dp_stage2_launches_per_rank": [r[2] for r in
                                         dp["stage-2 dp"]["launches"]],
         "coda_launches": coda["launches"][2],
+        "preprocessing_launches": pre["launches"][2],
     }] + mdp_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

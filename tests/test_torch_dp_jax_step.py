@@ -51,6 +51,7 @@ from creste_public_tpu.training import optim as joptim
 from creste_public_tpu.training import pipelines as jpipelines
 from creste_public_tpu.training.state import TrainState as JTrainState
 from creste_public_tpu.utils import depth as jdepth
+from creste_public_tpu.utils import geometry as jgeometry
 from creste_public_tpu_torch.config.groups import GROUPS
 from creste_public_tpu_torch.weights import from_jax_variables
 from tests.test_torch_dp_ranks import (
@@ -61,6 +62,7 @@ from tests.test_torch_dp_ranks import (
 )
 from tests.test_torch_helpers import jax_variables, jitter_bn, seeded_variables
 from tests.test_torch_step_helpers import (  # noqa: F401 (one_torch_thread)
+    F64_RTOL,
     GRAD_NORM_RTOL,
     METRIC_RTOL,
     MODULE_RTOL,
@@ -84,22 +86,24 @@ B1 = 0.9
 WHOLE_STEP_RTOL = 1e-2
 DECODER_STAT_RTOL = 1e-3
 HIDDEN_RTOL = 1e-3
-# the whole step's f64 gradient, per tensor. The single-device tests reach
-# 1e-5 (F64_RTOL) stage by stage, each stage fed JAX's inputs and
-# cotangents. End to end, with the JAX step's f32 islands of the depth
-# expectation and the splat lifted to f64 (LiftF32), the two-rank
-# gradients read 1.4e-3 from JAX's (4.5e-3 with the islands in f32), the
-# one-process control 1.6: the rest of the gap is not located yet
-# (ROADMAP, Queue C)
-F64_DP_RTOL = 1e-2
+# the whole step's f64 gradient, per tensor, to the single-device tests'
+# stage bar (F64_RTOL). Every f32 island is lifted to f64 on both sides: the
+# JAX step's backprojection, depth expectation and splat (LiftF32) and the
+# port's (tests/test_torch_dp_ranks.lift_f32). With an island left in f32 on
+# one side the gradients part by ~1e-3: the first stage that parts is the
+# depth expectation, whose bin values the port names in torch.float32 (the
+# metric depth of the second rank's rows 6.1e-8 from JAX's, the BEV
+# coordinates 6.1e-7, the elevation head 4.3e-6, and the elevation
+# SmoothL1's gradient 1.3e-2). The one-process control reads 1.6
+F64_DP_RTOL = F64_RTOL
 CASES = {"ssc": ("ssc_sam/tiny", "joint"),
          "traversability": ("traversability/tiny", None)}
 
 
 class LiftF32:
     """``jax.numpy`` for a JAX module whose f32 casts are lifted to f64
-    (the f64 step's ``utils/depth.py`` and ``ops/splat.py``, which cast to
-    f32 whatever their input)."""
+    (the f64 step's ``utils/geometry.py``, ``utils/depth.py`` and
+    ``ops/splat.py``, which cast to f32 whatever their input)."""
 
     def __init__(self, jnp_):
         self._jnp = jnp_
@@ -185,11 +189,11 @@ def _step_case(stage: str) -> tuple[dict, dict]:
                    metrics={k: float(v) for k, v in metrics.items()})
         if stage == "ssc":
             # the same step in f64: x64 on, the JAX BatchNorm's cast to f32
-            # lifted, and the f32 casts of the depth expectation and the
-            # splat
+            # lifted, and the f32 casts of the backprojection, the depth
+            # expectation and the splat
             with x64(), pytest.MonkeyPatch.context() as mp64:
                 mp64.setattr(jconvnets, "jnp", KeepF64(jnp))
-                for mod in (jdepth, jsplat):
+                for mod in (jgeometry, jdepth, jsplat):
                     mp64.setattr(mod, "jnp", LiftF32(jnp))
                 state64, tx64 = _jax_state(jm, cfg, {
                     k: v.astype(np.float64) for k, v in flat_vars.items()})

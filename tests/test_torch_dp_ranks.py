@@ -13,6 +13,7 @@ Adam step, and the running statistics the mean of each rank's.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -24,10 +25,12 @@ from creste_public_tpu_torch.models.blocks.convnets import (
     BatchNorm,
     discard_batch_stats,
 )
+from creste_public_tpu_torch.ops import splat
 from creste_public_tpu_torch.parallel import launch, shard_batch
 from creste_public_tpu_torch.training import pipelines
 from creste_public_tpu_torch.training.loop import to_device
 from creste_public_tpu_torch.training.state import global_norm
+from creste_public_tpu_torch.utils import depth, geometry
 
 CPU = torch.device("cpu")
 
@@ -306,10 +309,47 @@ def f64_forward(bn):
     return forward
 
 
+class _TorchF64:
+    """``torch`` for a port module whose f32 dtypes are lifted to f64."""
+
+    def __init__(self, torch_):
+        self._torch = torch_
+
+    def __getattr__(self, name):
+        return getattr(self._torch, "float64" if name == "float32" else name)
+
+
+@contextlib.contextmanager
+def lift_f32():
+    """The port's f32 islands lifted to f64, as the JAX side's ``LiftF32``
+    lifts JAX's (tests/test_torch_dp_jax_step.py): the backprojection
+    (utils/geometry.py), the depth expectation (utils/depth.py) and the
+    splat (ops/splat.py) cast with ``.float()``, name ``torch.float32`` and
+    allocate in the default dtype. Left in f32, the depth expectation's bin
+    values and the backprojection round on one side and not on the other,
+    and the two f64 gradients part by ~1e-3."""
+    to_f32 = torch.Tensor.float
+    dtype = torch.get_default_dtype()
+    mods = (geometry, depth, splat)
+    torch.Tensor.float = lambda t, *a, **k: (
+        t if t.dtype == torch.float64 else to_f32(t, *a, **k))
+    torch.set_default_dtype(torch.float64)
+    for m in mods:
+        m.torch = _TorchF64(torch)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = to_f32
+        torch.set_default_dtype(dtype)
+        for m in mods:
+            m.torch = torch
+
+
 def f64_grads(stage: str, cfg: dict, weights: dict, rows: dict, masks: list,
               pri, task: str | None, group=None) -> dict:
-    """The gradient of one step in f64 (every BatchNorm in f64), reduced
-    over ``group``: the model's, with its batch in f64."""
+    """The gradient of one step in f64 (every BatchNorm and every f32
+    island in f64), reduced over ``group``: the model's, with its batch in
+    f64."""
     model, lm, state = build(stage, cfg, weights)
     model.double()
     for m in model.modules():
@@ -318,8 +358,9 @@ def f64_grads(stage: str, cfg: dict, weights: dict, rows: dict, masks: list,
     rows = _double(to_device(rows, CPU))
     step = pipelines.make_train_step(stage, model, lm, task=task,
                                      group=group)
-    step(state, rows, Feeder(masks, torch.float64),
-         priorities=None if pri is None else torch.from_numpy(pri))
+    with lift_f32():
+        step(state, rows, Feeder(masks, torch.float64),
+             priorities=None if pri is None else torch.from_numpy(pri))
     return grads_of(model)
 
 

@@ -27,7 +27,7 @@ from creste_public_tpu_torch.weights import from_jax_variables
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "creste_public_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "creste_public_tpu", "yaml",
-             "matplotlib")
+             "matplotlib", "sklearn")
 
 
 def test_import_pulls_in_no_jax():
@@ -114,6 +114,59 @@ def test_coda_modules_are_checked(rel_path):
     path = PKG / rel_path
     assert path in set(PKG.rglob("*.py"))
     test_source_imports(path)
+
+
+# the preprocessing slice's modules and entry points
+PREPROCESSING_CLIS = {
+    "build_dense_depth": ["--root", "ROOT", "--seqs", "0"],
+    "downsample_frames": ["--in_dir", "ROOT", "--out_dir", "ROOT/ds"],
+    "create_sam_dataset": ["--root", "ROOT", "--seqs", "0"],
+    "create_pe_dataset": ["--root", "ROOT", "--seqs", "0", "--extractor",
+                          "random"],
+    "build_sam_map": ["--root", "ROOT", "--seqs", "0"],
+    "build_feature_map": ["--root", "ROOT", "--seqs", "0"],
+    "create_traversability_dataset": ["--root", "ROOT", "--seqs", "0"],
+    "build_splits": ["--root", "ROOT", "--seqs", "0"],
+}
+PREPROCESSING_MODULES = (
+    "utils/concurrency.py", "utils/hf_weights.py",
+    "ops/depth_projection.py", "ops/infill.py",
+    "ops/elevation.py", "data/raw_synthetic.py", "preprocessing/__init__.py",
+    "preprocessing/depth.py", "preprocessing/splits.py",
+    "preprocessing/semantic_map.py", "preprocessing/sam_map.py",
+    "preprocessing/features.py", "preprocessing/video_tracking.py",
+    *(f"preprocessing/{name}.py" for name in PREPROCESSING_CLIS))
+
+
+@pytest.mark.parametrize("rel_path", PREPROCESSING_MODULES)
+def test_preprocessing_modules_are_checked(rel_path):
+    path = PKG / rel_path
+    assert path in set(PKG.rglob("*.py"))
+    test_source_imports(path)
+
+
+@pytest.mark.parametrize("name", list(PREPROCESSING_CLIS))
+def test_preprocessing_cli_needs_cuda_or_cpu(name, tmp_path, monkeypatch):
+    """Each preprocessing entry point refuses to start without CUDA unless
+    ``--device cpu`` is given; with it, the same arguments get past the
+    check (over an empty root they may then fail on a missing file)."""
+    import importlib
+
+    from creste_public_tpu_torch.preprocessing import video_tracking
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for loader in ("try_load_detector", "try_load_mask_predictor",
+                   "try_load_auto_mask_generator"):
+        monkeypatch.setattr(video_tracking, loader, lambda *a, **k: None)
+    main = importlib.import_module(
+        f"creste_public_tpu_torch.preprocessing.{name}").main
+    args = [a.replace("ROOT", str(tmp_path)) for a in PREPROCESSING_CLIS[name]]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(args)
+    try:
+        main([*args, "--device", "cpu"])
+    except (OSError, ValueError):
+        pass
 
 
 def _production_tree(**overrides) -> dict:
