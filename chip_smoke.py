@@ -240,10 +240,41 @@ Phases, each printing one line before the final one:
     512x612: every train and val sample has phase 32's keys, shapes and
     dtypes and finite values (the elevation bins hold +inf where a cell is
     unknown, as the reference's do). No kernel launches in phases 35-37.
+38. annotation (run on phase 36's tree before it is removed): the port's
+    annotation app over HTTP on a free local port (the page, /load with
+    index and regen: the expert and 4 candidates, the BEV and front-view
+    PNGs), then creste_public_tpu_torch.e2e_pipeline.annotate for e2e's
+    frames (0, 4, 8; drag order reversed, /save); the port's CodaDataset
+    reads every pickle back as 4 valid counterfactuals with the inverted
+    ranks.
+39. three stages on the chain's labels: e2e_pipeline.train_stages on the
+    card (cli.launch of distillation, ssc_sam and traversability at their
+    production roots, trainer=smoke, B=2, dataset=coda at 512x612, grid
+    256, horizon 10, 4 counterfactuals, each stage grafting the last:
+    load_setting strict, then strict_freeze): per stage the wall s, the
+    loop's ms per step, peak GiB, finite losses, a step_2 checkpoint;
+    exactly one VI and one SVF launch per stage-3 training step and
+    validation batch (none in stages 1-2, no reward-head launch), and the
+    first VI and SVF launches of stage 3 held against their plain versions
+    on their own inputs, to the bit.
+40. export, parity, serve: e2e_pipeline.export_and_check (runtime.compile
+    --fused --native-dir from the stage-3 checkpoint, the program
+    reloaded) and serve_check (runtime.serve on a free local port, one
+    POST /infer of the tree's sample): the exported and served rewards
+    within E2E_TOL of a direct MaxEntIRL(solve_mdp=False) forward on that
+    sample, the served reply equal to the engine's step, every other map
+    within E2E_TOL of its scale; 4 reward-head launches on each of those
+    frames; on the program's input view its reward against the head's
+    plain version, and the kernel with the head's BNs jittered against
+    its plain version, to KERNEL_RTOL/KERNEL_ATOL; the export and reload
+    seconds and the served frame's ms (CUDA events).
 
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
 allow_tf32 = False), so the card computes in f32 like the reference.
+Every profile records the device's activity only: recording the host's
+ops as well cost 6 to 27 s after each two-step training profile, and the
+idle shares and top kernels read device events alone.
 
 It then prints the kernels' JSON line, the card line
 (nvidia-smi name, power.limit) and, last, {"ok": true, "device": {...}}.
@@ -682,7 +713,7 @@ def mdp_path(torch, dev, card: str) -> tuple[float, list[dict]]:
                     iters=3, reps=3)
     vi_barriers = int(value_iteration_cuda.barriers.item())
     vi_plain_ms = time_ms(torch, lambda: vi.value_iteration_plain(
-        r, gamma, 1e-3), iters=1, reps=3, warmup=1)
+        r, gamma, 1e-3), iters=1, reps=2, warmup=1)
     vi_err = float((value_iteration_cuda(r, gamma, 1e-3)
                     - vi.value_iteration_plain(r, gamma, 1e-3)).abs().max())
     n_cells = r.numel()
@@ -782,13 +813,12 @@ def mdp_path(torch, dev, card: str) -> tuple[float, list[dict]]:
     }
     stage_ms = {}
     for name, f in stages.items():
-        stage_ms[name] = time_ms(torch, f, 2, 3, warmup=1)
+        stage_ms[name] = time_ms(torch, f, 1, 3, warmup=1)
         print(f"  MDP stage time {name}: {stage_ms[name]:.3f} ms [{card}]",
               flush=True)
     torch.cuda.reset_peak_memory_stats()
-    step_ms = time_ms(torch, objective, iters=2, reps=3, warmup=1)
+    step_ms = time_ms(torch, objective, iters=1, reps=3, warmup=1)
     with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
@@ -852,7 +882,7 @@ def mdp_path(torch, dev, card: str) -> tuple[float, list[dict]]:
 TRAIN_MODEL = "traversability/terrainnet_maxentirlcf_msfcn_sam2dynsemelev"
 TRAIN_DATASET = "synthetic_traversability"
 VAL_LENGTH = 8
-LOOP_STEPS = 6  # steps of the timed loop (the first two are warm-up)
+LOOP_STEPS = 4  # steps of the timed loop (the first two are warm-up)
 
 
 class FedMasks:
@@ -970,7 +1000,7 @@ DISTILLATION_TRAIN_KEYS = DEPTH_TRAIN_KEYS | {"MSELoss/loss"}
 # bilinear weights per element); the losses, an overlap_only MSELoss
 # among them, to SSC_LOSS_RTOL on the card's outputs
 DENSITY_RTOL = 1e-5
-STAGE01_LOOP_STEPS = 2  # timed steps per stage (after one warm-up)
+STAGE01_LOOP_STEPS = 1  # timed steps per stage (after one warm-up)
 
 
 def multiview_batch(ds, B: int, V: int) -> dict:
@@ -1248,7 +1278,6 @@ def stage01_path(torch, dev, card: str) -> tuple[str, dict]:
                           warmup=1)
         peak = torch.cuda.max_memory_allocated() / 2**30
         with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(2):
@@ -1333,7 +1362,7 @@ SSC_LOSS_RTOL = 1e-4
 SSC_GRAD_FLOOR = 5e-3
 SSC_GRAD_CAP = 5e-2
 SSC_F64_RTOL = 1e-5
-SSC_LOOP_STEPS = 6  # steps of the timed loop (the first two are warm-up)
+SSC_LOOP_STEPS = 4  # steps of the timed loop (the first two are warm-up)
 SSC_STEM = "depthcomp.depthcomp.vision_backbone.effnet.trunk.conv_stem.weight"
 
 
@@ -1734,10 +1763,9 @@ def ssc_path(torch, dev, card: str, stage1_dir: str) -> str:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_ms = time_ms(torch, one_step, iters=2, reps=3, warmup=1)
+    step_ms = time_ms(torch, one_step, iters=1, reps=3, warmup=1)
     peak = torch.cuda.max_memory_allocated() / 2**30
     with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
@@ -2140,10 +2168,9 @@ def train_path(torch, dev, card: str, objective_ms: float,
         return step(state, batch, gens[next(it)])
 
     torch.cuda.reset_peak_memory_stats()
-    step_ms = time_ms(torch, one_step, iters=2, reps=3, warmup=1)
+    step_ms = time_ms(torch, one_step, iters=1, reps=3, warmup=1)
     peak = torch.cuda.max_memory_allocated() / 2**30
     with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
@@ -2221,7 +2248,7 @@ VICREG_LOSS = {"name": "VicregLoss", "weight": 1.0,
                "pred_mv_key": "outputs/bev_features_mv",
                "lab_key": "inputs/3d_sam_label"}
 TEMPORAL_B, TEMPORAL_SEQ, TEMPORAL_CHUNK = 2, 4, 2
-TEMPORAL_STEPS = 4  # timed chunk steps (after one warm-up)
+TEMPORAL_STEPS = 2  # timed chunk steps (after one warm-up)
 # the decoder's running statistics after the movability step, card vs CPU
 # (the CPU's two decoder calls from the card's BEV inputs), max|d| /
 # max(1, max|ref|) per tensor; the control, the CPU's statistics after
@@ -2308,7 +2335,6 @@ def branches_path(torch, dev, card: str) -> tuple[int, int, int]:
     def profiled(fn, n: int):
         """Idle share and peak over n calls of fn under the profiler."""
         with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
@@ -2354,7 +2380,7 @@ def branches_path(torch, dev, card: str) -> tuple[int, int, int]:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mv_ms = time_ms(torch, mv_step, iters=2, reps=3, warmup=1)
+    mv_ms = time_ms(torch, mv_step, iters=1, reps=3, warmup=1)
     mv_peak = torch.cuda.max_memory_allocated() / 2**30
     mv_idle = profiled(mv_step, 2)
     m = mv_step()
@@ -2693,7 +2719,6 @@ def profile_window(torch, f, n: int) -> tuple[float, float, list]:
     """``n`` calls of ``f`` under the profiler: (device busy ms per call,
     idle share of the wall, the top 3 kernels as (name, ms per call))."""
     with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
@@ -2820,7 +2845,7 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
         fn(x, p)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        ms = benchmark.frame_latency_ms(fn, rgbd, p2p, iters=10, repeats=5)
+        ms = benchmark.frame_latency_ms(fn, rgbd, p2p, iters=10, repeats=3)
         busy, idle, _ = profile_window(torch, lambda: fn(x, p), 5)
         cost = benchmark.cost_stats(fn.graph, x, p, flops_graph=unfused.graph)
         roof = benchmark.mfu_fields(cost["flops"], cost["bytes"], ms / 1e3)
@@ -2865,7 +2890,7 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
                    for s_, r, b, _ in checks if r > b]
         rows.append(name)
         print(f"  serving {name}: {ms:.3f} ms/frame = {1e3 / ms:.2f} Hz "
-              f"(CUDA events, fresh frame per call, median of 5 x 10); "
+              f"(CUDA events, fresh frame per call, median of 3 x 10); "
               f"device busy {busy:.3f} ms/frame, idle share {idle:.3f} (5 "
               f"frames under the profiler); peak "
               f"{peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} GiB "
@@ -3052,7 +3077,7 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
             it = iter(range(63))
             torch.cuda.reset_peak_memory_stats()
             ms = time_ms(torch, lambda: step(st, batch, gens[next(it)]),
-                         iters=2, reps=3, warmup=1)
+                         iters=1, reps=3, warmup=1)
             peak = torch.cuda.max_memory_allocated() / 2**30
             _, idle, top = profile_window(
                 torch, lambda: step(st, batch, gens[next(it)]), 1)
@@ -3123,7 +3148,7 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
 
 DP_WORLD = 2
 DP_MASKS = 24  # fed drop-connect masks per rank (9 drawn per forward)
-DP_TIMED_STEPS = 3
+DP_TIMED_STEPS = 2
 # the two-rank step against its serial emulation: a bar of DP_SPREAD_RATIO
 # times the emulation's own spread on the card (two runs of it: the splat's
 # index_add_ adds with atomics), floored at DP_FLOOR, capped at SSC_GRAD_CAP
@@ -4118,40 +4143,16 @@ def pre_ops_phase(torch, dev, card: str, root: str) -> dict:
 
 
 def pre_chain_steps(root: str, device: str) -> list[tuple[str, list[str]]]:
-    """scripts/e2e_pipeline.py::preprocess's order and arguments at the
-    production grid, each entry point on ``device``."""
-    g, r = str(CODA_GRID), str(CODA_MAP_RANGE)
-    depth_dir = os.path.join(root, "depth_5_LA_all")
-    fdn = (CODA_IMAGE_SIZE[0] // 4, -(-CODA_IMAGE_SIZE[1] // 4))
-    steps = [
-        ("build_dense_depth", ["--root", root, "--seqs", "0", "--scans", "5",
-                               "--proc", "LA", "--workers", "2"]),
-        ("downsample_frames", ["--in_dir", depth_dir,
-                               "--out_dir", depth_dir + "_ds4",
-                               "--factor", "4"]),
-        ("create_sam_dataset", ["--root", root, "--seqs", "0",
-                                "--mode", "static"]),
-        ("create_sam_dataset", ["--root", root, "--seqs", "0",
-                                "--mode", "dynamic"]),
-        ("create_pe_dataset", ["--root", root, "--seqs", "0", "--pca_dim",
-                               str(CODA_FDIM), "--out_hw", *map(str, fdn)]),
-        ("build_sam_map", ["--root", root, "--seqs", "0", "--mode", "static",
-                           "--grid", g, "--map_range", r, "--ds", "4",
-                           "--horizon", "3"]),
-        ("build_sam_map", ["--root", root, "--seqs", "0", "--mode",
-                           "dynamic", "--grid", g, "--map_range", r,
-                           "--ds", "4"]),
-        ("build_feature_map", ["--root", root, "--seqs", "0", "--tasks",
-                               "elevation", "--grid", g, "--map_range", r,
-                               "--scans", "5", "--window", "10"]),
-        ("create_traversability_dataset", ["--root", root, "--seqs", "0",
-                                           "--num_frames",
-                                           str(PRE_SPLIT_HORIZON),
-                                           "--dist_thresh", "1.0"]),
-        ("build_splits", ["--root", root, "--seqs", "0", "--horizon",
-                          str(PRE_SPLIT_HORIZON), "--min_distance", "0.5"]),
-    ]
-    return [(name, [*args, "--device", device]) for name, args in steps]
+    """The end-to-end script's preprocessing steps
+    (``e2e_pipeline.preprocess_steps``: scripts/e2e_pipeline.py::
+    preprocess's order and arguments) at the production grid, each entry
+    point on ``device``."""
+    from creste_public_tpu_torch import e2e_pipeline as e2e
+
+    return e2e.preprocess_steps(
+        root, "0", CODA_GRID, CODA_MAP_RANGE,
+        e2e.feature_hw(CODA_NATIVE_HW, CODA_IMAGE_SIZE), CODA_FDIM,
+        PRE_SPLIT_HORIZON, device)
 
 
 def pre_chain_phase(torch, dev, card: str, root: str) -> dict:
@@ -4242,49 +4243,339 @@ def pre_reader_phase(torch, dev, card: str, root: str) -> dict:
     return dict(samples=len(samples))
 
 
-def preprocessing_path(torch, dev, card: str) -> dict:
-    """Phases 35-37 over one raw tree written by the port's
-    raw_synthetic; returns the three kernels' launches in them (none of
-    the three lies on this path)."""
-    import shutil
-    import tempfile
-
+def preprocessing_path(torch, dev, card: str, root: str) -> dict:
+    """Phases 35-37 over one raw tree written by the port's raw_synthetic
+    into ``root`` (left for phases 38-40); returns the three kernels'
+    launches in them (none of the three lies on this path)."""
     from creste_public_tpu_torch.data.raw_synthetic import write_raw_coda_tree
     from creste_public_tpu_torch.ops import reward_kernel as rk
     from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
     from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_raw_tree_")
-    try:
-        t0 = time.perf_counter()
-        write_raw_coda_tree(root, n_frames=PRE_FRAMES, img_hw=CODA_NATIVE_HW,
-                            points_per_scan=PRE_POINTS, speed=0.22,
-                            curve=0.015, max_range=2 * CODA_MAP_RANGE)
-        print(f"  phase 35 set-up: a raw tree of {PRE_FRAMES} frames "
-              f"written in {time.perf_counter() - t0:.1f} s", flush=True)
-        torch.cuda.synchronize()
-        value_iteration_cuda.launches = expected_svf_cuda.launches = 0
-        rk.msfcn_head_cuda.launches = 0
-        ops = pre_ops_phase(torch, dev, card, root)
-        chain = pre_chain_phase(torch, dev, card, root)
-        reader = pre_reader_phase(torch, dev, card, root)
-        torch.cuda.synchronize()
-        launches = (value_iteration_cuda.launches, expected_svf_cuda.launches,
-                    rk.msfcn_head_cuda.launches)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_raw_coda_tree(root, n_frames=PRE_FRAMES, img_hw=CODA_NATIVE_HW,
+                        points_per_scan=PRE_POINTS, speed=0.22,
+                        curve=0.015, max_range=2 * CODA_MAP_RANGE)
+    print(f"  phase 35 set-up: a raw tree of {PRE_FRAMES} frames "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = 0
+    ops = pre_ops_phase(torch, dev, card, root)
+    chain = pre_chain_phase(torch, dev, card, root)
+    reader = pre_reader_phase(torch, dev, card, root)
+    torch.cuda.synchronize()
+    launches = (value_iteration_cuda.launches, expected_svf_cuda.launches,
+                rk.msfcn_head_cuda.launches)
     if any(launches):
         fail(f"phase 35-37: VI, SVF and reward-head launches {launches} on "
              "the preprocessing path, which holds none of the three")
     return dict(ops=ops, chain=chain, reader=reader, launches=launches)
 
 
+# the raw -> served chain (phases 38-40) on phase 36's tree, through the
+# end-to-end script's steps: e2e's annotated frames, its counterfactual
+# count, horizon and batch, the production model roots
+E2E_FRAMES = tuple(range(0, max(1, PRE_FRAMES - PRE_SPLIT_HORIZON), 4))
+E2E_TOL = 2e-4  # the script's --tol: exported and served reward vs direct
+E2E_TINY = False  # the production roots (True: the tiny presets)
+
+
+def e2e_annotation_phase(torch, dev, card: str, root: str) -> dict:
+    """Phase 38: the port's annotation app over HTTP on the chain's tree
+    (the page, /load with index and regen), then e2e's annotate for its
+    frames; the reader reads every pickle back."""
+    import base64
+    import io
+    import urllib.request
+    from http.server import HTTPServer
+
+    from PIL import Image
+
+    from creste_public_tpu_torch import e2e_pipeline as e2e
+    from creste_public_tpu_torch.annotation import app
+    from creste_public_tpu_torch.data.coda_dataset import CodaDataset
+
+    def png(b64: str) -> np.ndarray:
+        return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))))
+
+    t0 = time.perf_counter()
+    be = app.AnnotationBackend(root, grid=CODA_GRID, map_range=CODA_MAP_RANGE,
+                               horizon=PRE_SPLIT_HORIZON,
+                               num_candidates=e2e.NUM_CANDIDATES)
+    k = e2e.NUM_CANDIDATES + 1
+    with e2e.serving(HTTPServer(("127.0.0.1", 0),
+                                app.make_handler(be))) as port:
+        url = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(f"{url}/") as r:
+            if r.read() != app._PAGE.encode():
+                fail("phase 38: GET / did not serve the page")
+        with urllib.request.urlopen(f"{url}/load?index=0&regen=1") as r:
+            first = json.loads(r.read())
+        with urllib.request.urlopen(f"{url}/load?index=-1") as r:
+            nxt = json.loads(r.read())
+    n_infos = len(be._ds().infos)
+    if (first["index"], first["regen"], nxt["index"]) != (
+            0, 1, 1 % n_infos) or len(first["trajectories"]) != k \
+            or first["distances"][0] != 0.0:
+        fail(f"phase 38: /load gave index {first['index']} regen "
+             f"{first['regen']} with {len(first['trajectories'])} "
+             f"trajectories, then index {nxt['index']}")
+    bev, front = png(first["image"]), png(first["front_image"])
+    if bev.shape != (CODA_GRID, CODA_GRID, 3) or \
+            front.shape != (*CODA_NATIVE_HW, 3):
+        fail(f"phase 38: renders {bev.shape} and {front.shape}")
+    n = e2e.annotate(root, "0", CODA_GRID, CODA_MAP_RANGE, PRE_SPLIT_HORIZON,
+                     E2E_FRAMES)
+    wall = time.perf_counter() - t0
+    cfg = e2e.reader_config(root, CODA_GRID, CODA_MAP_RANGE,
+                            PRE_SPLIT_HORIZON, CODA_IMAGE_SIZE)
+    ds = CodaDataset(cfg, "train")
+    for fr in E2E_FRAMES:
+        cf = ds._counterfactuals("0", fr)
+        if not cf["valid"].all() or cf["trajectories"].shape != (
+                e2e.N_COUNTERFACTUALS, PRE_SPLIT_HORIZON, 2) or \
+                not np.isfinite(cf["trajectories"]).all() or \
+                cf["rank"].tolist() != list(range(k - 1, 0, -1)):
+            fail(f"phase 38: frame {fr}'s counterfactuals_label reads "
+                 f"valid {cf['valid'].tolist()}, rank {cf['rank'].tolist()}")
+    held = 0
+    for split in ("train", "val"):
+        d = CodaDataset(cfg, split)
+        for i, (seq, fr) in enumerate(d.infos):
+            if fr in E2E_FRAMES:
+                held += int(d[i]["counterfactuals_label"]["valid"].all())
+    print(f"phase 38 annotation: ok, the app over HTTP on the chain's tree "
+          f"(the page, /load?index=0&regen=1, /load?index=-1; BEV "
+          f"{bev.shape[0]}x{bev.shape[1]}, front view {front.shape[0]}x"
+          f"{front.shape[1]}), then e2e's annotate: {n} frames "
+          f"({list(E2E_FRAMES)}) of {k} trajectories (expert + "
+          f"{e2e.NUM_CANDIDATES}) ranked in reverse and saved, each read "
+          f"back by the reader as {e2e.N_COUNTERFACTUALS} valid "
+          f"counterfactuals ({held} split sample(s) among them) in "
+          f"{wall:.1f} s [{card}]", flush=True)
+    return dict(frames=n, wall=wall)
+
+
+def e2e_train_phase(torch, dev, card: str, root: str, work: str) -> dict:
+    """Phase 39: e2e's train_stages on the card over the chain's tree at
+    the production model roots; one VI and one SVF launch of the stage-3
+    run held against their plain versions on that launch's own inputs."""
+    from unittest import mock
+
+    from creste_public_tpu_torch import e2e_pipeline as e2e
+    from creste_public_tpu_torch.data.coda_dataset import CodaDataset
+    from creste_public_tpu_torch.ops import svf as svf_ops
+    from creste_public_tpu_torch.ops import value_iteration as vi_ops
+    from creste_public_tpu_torch.training.checkpoint import latest_checkpoint
+
+    first = {}
+
+    def recorded(name, fn):
+        """fn, keeping the inputs and output of its first call."""
+        def call(*args):
+            out = fn(*args)
+            if name not in first:
+                first[name] = ([a.clone() if torch.is_tensor(a) else a
+                                for a in args], out.clone())
+            return out
+        return call
+
+    with mock.patch.object(vi_ops, "value_iteration_cuda", recorded(
+            "vi", vi_ops.value_iteration_cuda)), \
+            mock.patch.object(svf_ops, "expected_svf_cuda", recorded(
+                "svf", svf_ops.expected_svf_cuda)):
+        stages = e2e.train_stages(
+            root, work, CODA_GRID, CODA_MAP_RANGE, PRE_SPLIT_HORIZON,
+            dev.type, tiny=E2E_TINY, image_size=CODA_IMAGE_SIZE)
+    lines = []
+    for stage, info in stages.items():
+        rows = [json.loads(line) for line in open(os.path.join(
+            info["ckpt"], "metrics.jsonl"))]
+        train_rows = [r for r in rows if "split" not in r]
+        losses = [r["loss"] for r in rows if "loss" in r]
+        if info["steps"] != 2 or len(train_rows) != 2 or not all(
+                np.isfinite(v) for r in rows for v in r.values()
+                if isinstance(v, float)):
+            fail(f"phase 39: {stage}: {info['steps']} steps, rows {rows}")
+        step = latest_checkpoint(info["ckpt"])
+        if step is None or not step.endswith("step_2"):
+            fail(f"phase 39: {stage} wrote no step_2 checkpoint ({step})")
+        walls = [r["wall_s"] for r in train_rows]
+        info["loop_ms"] = (walls[-1] - walls[0]) / (len(walls) - 1) * 1e3
+        info["losses"] = losses
+        lines.append(f"{stage} {info['seconds']:.1f} s, "
+                     f"{info['loop_ms']:.0f} ms per step, peak "
+                     + (f"{info['peak_gib']:.2f} GiB" if info["peak_gib"]
+                        is not None else "not measured")
+                     + ", losses "
+                     + ", ".join(f"{v:.4e}" for v in losses))
+    cfg = e2e.reader_config(root, CODA_GRID, CODA_MAP_RANGE,
+                            PRE_SPLIT_HORIZON, CODA_IMAGE_SIZE)
+    n_val = -(-len(CodaDataset(cfg, "val")) // e2e.BATCH_SIZE)
+    steps3 = stages["traversability"]["steps"]
+    # the plain versions on the stage-3 run's first launches' inputs
+    (r, *vi_args), v = first["vi"]
+    ref = vi_ops.value_iteration_plain(r, *vi_args)
+    vi_d = check_close("phase 39: VI kernel on the stage-3 step's reward", v,
+                       ref, 0.0, 0.0)
+    (policy, s0, s1, *svf_args), mu = first["svf"]
+    ref = svf_ops.expected_svf_plain(policy, s0, s1, *svf_args)
+    svf_d = check_close("phase 39: SVF kernel on the stage-3 step's policy",
+                        mu, ref, 0.0, 0.0)
+    print(f"phase 39 three stages on the chain's labels: ok, e2e's "
+          f"train_stages (cli.launch of distillation, ssc_sam and "
+          f"traversability at their production roots, trainer=smoke, B="
+          f"{e2e.BATCH_SIZE}, dataset=coda at {CODA_IMAGE_SIZE[0]}x"
+          f"{CODA_IMAGE_SIZE[1]}, grid {CODA_GRID}, horizon "
+          f"{PRE_SPLIT_HORIZON}, {e2e.N_COUNTERFACTUALS} counterfactuals; "
+          f"load_setting strict, then strict_freeze): each 2 steps + "
+          f"validation, finite losses, a step_2 checkpoint; stage 3's VI "
+          f"and SVF launches counted below; VI on the first step's reward "
+          f"{list(r.shape)} max|d| {vi_d:.1e} and SVF on its policy "
+          f"{list(policy.shape)} T={svf_args[0]} max|d| {svf_d:.1e} from "
+          "their plain versions (bit-equal)", flush=True)
+    print("  timing phase 39: " + "; ".join(lines)
+          + f" (wall s of the command, the loop's ms per step from "
+          f"metrics.jsonl's wall_s, peak device memory) [{card}]",
+          flush=True)
+    return dict(stages=stages, steps3=steps3, n_val=n_val)
+
+
+def e2e_serve_phase(torch, dev, card: str, root: str, work: str,
+                    ckpt: str) -> dict:
+    """Phase 40: e2e's export_and_check and serve_check from the stage-3
+    checkpoint on the card."""
+    from creste_public_tpu_torch import e2e_pipeline as e2e
+
+    direct = e2e.direct_forward(root, ckpt, CODA_GRID, CODA_MAP_RANGE,
+                                PRE_SPLIT_HORIZON, dev.type, tiny=E2E_TINY,
+                                image_size=CODA_IMAGE_SIZE)
+    exported = e2e.export_and_check(work, direct, E2E_TOL)
+    served = e2e.serve_check(direct, E2E_TOL)
+    return dict(direct=direct, exported=exported, served=served)
+
+
+def e2e_head_check(torch, dev, card: str, e2e_out: dict
+                   ) -> tuple[float, float, float]:
+    """Phase 40's kernel check, after the path's launches were read: on the
+    reloaded program's own input view, the program's reward against the
+    trained head's plain version, then the kernel against its plain
+    version with that head's BatchNorms jittered (its last relu alive);
+    returns both max|d| and the jittered output's live share."""
+    from creste_public_tpu_torch import weights
+    from creste_public_tpu_torch.models.lfd import MaxEntIRL
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.runtime.compile import (
+        deployment_config,
+        deployment_state,
+    )
+
+    direct, exported = e2e_out["direct"], e2e_out["exported"]
+    cfg = deployment_config(E2E_TINY)
+    model = MaxEntIRL(cfg)
+    model.load_state_dict(deployment_state(cfg, direct["step"]))
+    head = model.traversability_head.r
+    iv = torch.from_numpy(exported["input_view"]).to(dev)
+    with torch.no_grad():
+        ref = rk.msfcn_plain(rk.fold_msfcn_params(head).to(dev), iv)
+        own = check_close("phase 40: the exported program's reward head",
+                          torch.from_numpy(exported["reward"]).to(dev), ref,
+                          KERNEL_ATOL, KERNEL_RTOL)
+        folded = rk.fold_msfcn_params(weights.jitter_reward_head_bns(
+            head, SEED + 1)).to(dev)
+        ref = rk.msfcn_plain(folded, iv)
+        jit = check_close("phase 40: the reward-head kernel on the "
+                          "program's input view, BNs jittered",
+                          rk.msfcn_fused_apply(folded, iv), ref, KERNEL_ATOL,
+                          KERNEL_RTOL)
+    return own, jit, float((ref > 0).float().mean())
+
+
+def e2e_path(torch, dev, card: str, root: str) -> dict:
+    """Phases 38-40 on phase 36's tree; the three kernels' launches in
+    them."""
+    import shutil
+    import tempfile
+
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
+    from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_e2e_")
+    try:
+        torch.cuda.synchronize()
+        value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+        rk.msfcn_head_cuda.launches = 0
+        t0 = time.perf_counter()
+        annotated = e2e_annotation_phase(torch, dev, card, root)
+        trained = e2e_train_phase(torch, dev, card, root, work)
+        train_launches = (value_iteration_cuda.launches,
+                          expected_svf_cuda.launches,
+                          rk.msfcn_head_cuda.launches)
+        # one VI and one SVF solve per stage-3 training step and validation
+        # batch; stages 1 and 2 and annotation launch none of the three,
+        # nor does training the reward head (train mode cannot fold BN)
+        want = trained["steps3"] + trained["n_val"]
+        if train_launches != (want, want, 0):
+            fail(f"phases 38-39: VI, SVF and reward-head launches "
+                 f"{train_launches}, not ({want}, {want}, 0) for "
+                 f"{trained['steps3']} stage-3 steps and "
+                 f"{trained['n_val']} validation batch(es)")
+        served = e2e_serve_phase(torch, dev, card, root, work,
+                                 trained["stages"]["traversability"]["ckpt"])
+        torch.cuda.synchronize()
+        launches = (value_iteration_cuda.launches, expected_svf_cuda.launches,
+                    rk.msfcn_head_cuda.launches)
+        wall = time.perf_counter() - t0
+        frame = (served["exported"]["head_launches"],
+                 served["served"]["head_launches"])
+        if frame != (rk.LAUNCHES_PER_HEAD,) * 2 or launches[:2] != \
+                train_launches[:2]:
+            fail(f"phase 40: reward-head launches {frame} on the exported "
+                 f"program's frame and the served one (not "
+                 f"{rk.LAUNCHES_PER_HEAD} each); VI and SVF {launches[:2]}")
+        head_d, jit_d, alive = e2e_head_check(torch, dev, card, served)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ex, sv = served["exported"], served["served"]
+    reward = served["direct"]["reward"]
+    print(f"phase 40 export, parity, serve: ok, runtime.compile --fused "
+          f"--native-dir from the stage-3 checkpoint; the reloaded "
+          f"program's reward {ex['reward_shape']} on the tree's sample 0 "
+          f"max|d| {ex['parity_dev']:.3e} from the direct MaxEntIRL "
+          f"forward (<= {E2E_TOL}); the served reply equal to the engine's "
+          f"step and {sv['serve_dev']:.3e} from the direct forward; "
+          f"every other output of the program and the engine within "
+          f"{max(ex['outputs_dev'][1], sv['outputs_dev'][1]):.3e} of its "
+          f"scale ({ex['outputs_dev'][0]}); {frame[0]} and {frame[1]} "
+          f"reward-head launches on those frames; on the program's input "
+          f"view (max {float(np.abs(ex['input_view']).max()):.3e}) its "
+          f"reward max|d| {head_d:.3e} from the head's plain version, the "
+          f"kernel with the head's BNs jittered {jit_d:.3e} ({alive:.3f} "
+          f"of it non-zero; tol {KERNEL_ATOL} + {KERNEL_RTOL}*|ref|); the "
+          f"trained reward max|r| {float(np.abs(reward).max()):.4e}, "
+          f"{float((reward > 0).mean()):.3f} of it non-zero", flush=True)
+    print(f"  timing phase 40: export {ex['export_s']:.1f} s (the program, "
+          f"its dry run and the native artifact), reload "
+          f"{ex['reload_s']:.1f} s; the served frame "
+          + (f"{sv['served_ms']:.2f} ms" if sv["served_ms"] is not None
+             else "not measured")
+          + f" (CUDA events around the request; wall "
+          f"{sv['round_trip_ms']:.2f} ms), the warm server "
+          f"{sv['serve_hz']:.1f} Hz; phases 38-40 {wall:.1f} s [{card}]",
+          flush=True)
+    return dict(annotated=annotated, trained=trained, served=served,
+                launches=launches, head_err=max(head_d, jit_d),
+                frame_launches=frame)
+
+
 # the phase groups in the order they run (phase 1, the build, always runs),
 # and the groups each needs run before it
 PHASE_GROUPS = ((2, 4), (5, 8), (16, 19), (13, 15), (9, 12), (20, 22),
-                (23, 28), (29, 31), (32, 34), (35, 37))
+                (23, 28), (29, 31), (32, 34), (35, 37), (38, 40))
 NEEDS = {(13, 15): ((16, 19),), (9, 12): ((5, 8), (13, 15)),
-         (23, 28): ((2, 4),)}
+         (23, 28): ((2, 4),), (38, 40): ((35, 37),)}
 
 
 def selected_groups(argv: list[str]) -> set[tuple[int, int]] | None:
@@ -4558,7 +4849,6 @@ def head_path(torch, dev, card: str) -> dict:
             print(f"  stage time {name}: {time_ms(torch, f, 10, 3):.3f} ms "
                   f"[{card}]", flush=True)
         with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(5):
@@ -4674,9 +4964,20 @@ def main() -> None:
     # 35-37. the preprocessing chain: the ops at the sensors' sizes card vs
     # CPU, the eight entry points over a raw tree, the reader over its
     # labels (no kernel on this path)
+    # 38-40. the raw -> served chain on that tree: annotation, the three
+    # stages on its labels, export, parity and serve
+    import tempfile
+
     if run((35, 37)):
-        pre = preprocessing_path(torch, dev, card)
-        done((35, 37))
+        pre_root = tempfile.mkdtemp(prefix="chip_smoke_raw_tree_")
+        try:
+            pre = preprocessing_path(torch, dev, card, pre_root)
+            done((35, 37))
+            if run((38, 40)):
+                e2e = e2e_path(torch, dev, card, pre_root)
+                done((38, 40))
+        finally:
+            shutil.rmtree(pre_root, ignore_errors=True)
     print("wall time by phase group: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -4715,6 +5016,12 @@ def main() -> None:
     # phases 35-37's preprocessing chain
     for k, n in zip(mdp_kernels, pre["launches"]):
         k["preprocessing_launches"] = n
+    # phases 38-40's raw -> served chain: VI and SVF per stage-3 step and
+    # validation batch, the reward head in the export and the server
+    for k, n in zip(mdp_kernels, e2e["launches"]):
+        k["e2e_launches"] = n
+        k["e2e_stage3_steps"] = e2e["trained"]["steps3"]
+        k["e2e_val_batches"] = e2e["trained"]["n_val"]
 
     print(json.dumps({"kernels": [{
         "name": "msfcn_head",
@@ -4743,6 +5050,10 @@ def main() -> None:
                                         dp["stage-2 dp"]["launches"]],
         "coda_launches": coda["launches"][2],
         "preprocessing_launches": pre["launches"][2],
+        "e2e_launches": e2e["launches"][2],
+        "e2e_frame_launches": {"exported": e2e["frame_launches"][0],
+                               "served": e2e["frame_launches"][1]},
+        "e2e_max_abs_err": e2e["head_err"],
     }] + mdp_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -169,6 +169,67 @@ def test_preprocessing_cli_needs_cuda_or_cpu(name, tmp_path, monkeypatch):
         pass
 
 
+# the raw -> served slice's modules: annotation, the scan viewer, the
+# release packager and the end-to-end script
+E2E_MODULES = ("annotation/__init__.py", "annotation/control.py",
+               "annotation/app.py", "utils/pointcloud_vis.py",
+               "visualize_scans.py", "release/__init__.py",
+               "release/package_data.py", "e2e_pipeline.py")
+
+
+@pytest.mark.parametrize("rel_path", E2E_MODULES)
+def test_e2e_modules_are_checked(rel_path):
+    path = PKG / rel_path
+    assert path in set(PKG.rglob("*.py"))
+    test_source_imports(path)
+
+
+def test_pointcloud_vis_imports_no_matplotlib():
+    """The scan figures draw with PIL and torch: importing the module (and
+    the viewer's entry point) loads no matplotlib."""
+    code = ("import sys\n"
+            "import creste_public_tpu_torch.utils.pointcloud_vis\n"
+            "import creste_public_tpu_torch.visualize_scans\n"
+            "sys.exit('matplotlib' in sys.modules)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+# the slice's entry points that take --device, with arguments that get
+# them past argparse
+E2E_CLIS = {
+    "e2e_pipeline": ["--work", "ROOT/work"],
+    "visualize_scans": ["--root", "ROOT", "--out", "ROOT/v.html"],
+}
+
+
+@pytest.mark.parametrize("name", list(E2E_CLIS))
+def test_e2e_cli_needs_cuda_or_cpu(name, tmp_path, monkeypatch):
+    """The end-to-end script and the scan viewer refuse to start without
+    CUDA unless ``--device cpu`` is given; with it they get past the check
+    (the script's chain is replaced by a recorder; the viewer then fails
+    on the empty root's missing scans)."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = importlib.import_module(f"creste_public_tpu_torch.{name}")
+    ran = []
+    if name == "e2e_pipeline":
+        monkeypatch.setattr(module, "run_pipeline",
+                            lambda work, **kw: ran.append(kw) or {})
+    args = [a.replace("ROOT", str(tmp_path)) for a in E2E_CLIS[name]]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.main(args)
+    assert not ran
+    try:
+        module.main([*args, "--device", "cpu"])
+    except OSError:
+        pass
+    if name == "e2e_pipeline":
+        assert [kw["device"] for kw in ran] == ["cpu"]
+
+
 def _production_tree(**overrides) -> dict:
     """The production MaxEntIRL variable tree (shapes only). Parameter
     shapes do not depend on the image size, so the abstract init traces a
