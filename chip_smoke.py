@@ -179,7 +179,8 @@ Phases, each printing one line before the final one:
     gradient, the running statistics and the metrics against the serial
     emulation (tests/test_torch_dp_ranks.py: each rank's rows through the
     same closure, the ranks' gradients and statistics averaged, one Adam
-    step) within a bar set from the emulation's own spread on the card,
+    step) within a bar set from the emulation's own spread on the card
+    (the largest gap between any two of three runs of it),
     which the control (the one-process B=10 step) must exceed; ms per
     step on each rank, two ranks sharing one card.
 30. stage-2 data-parallel step: the same at global B=8 with the six
@@ -268,6 +269,24 @@ Phases, each printing one line before the final one:
     plain version, and the kernel with the head's BNs jittered against
     its plain version, to KERNEL_RTOL/KERNEL_ATOL; the export and reload
     seconds and the served frame's ms (CUDA events).
+41. spatial inference: the fused production deployment graph (B=1) of
+    one frame, its width split over two ranks (parallel.launch.spawn,
+    gloo over CUDA tensors, both ranks on the one card: NCCL refuses two
+    ranks on one GPU) through runtime.export.build_spatial_inference_fn,
+    with the head's launches counted on each rank (4: the kernel once on
+    the rank's padded strip of the input view), the kernel on that strip
+    against its plain version (KERNEL_ATOL/KERNEL_RTOL) and the rank's
+    reward columns against it to the bit, the outputs equal on both
+    ranks, finite with the one-process shapes, and each stage (the depth
+    and DINO heads, the splat, the decoder and the reward) from the
+    one-process fused graph's input to it within SPATIAL_STAGE_RTOL of
+    that graph's outputs; end to end the keys before the splat's features
+    within SPATIAL_FRAME_RTOL, every output's distance printed.
+42. spatial timing: ms per frame on each rank by CUDA events (and wall),
+    with every output gathered and with the reward alone, beside the
+    one-process fused frame, and the collectives of one frame (count, MB
+    sent, wall): two ranks sharing one card, the wiring's cost, not a
+    scaling number.
 
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
@@ -3150,9 +3169,14 @@ DP_WORLD = 2
 DP_MASKS = 24  # fed drop-connect masks per rank (9 drawn per forward)
 DP_TIMED_STEPS = 2
 # the two-rank step against its serial emulation: a bar of DP_SPREAD_RATIO
-# times the emulation's own spread on the card (two runs of it: the splat's
-# index_add_ adds with atomics), floored at DP_FLOOR, capped at SSC_GRAD_CAP
+# times the emulation's own spread on the card (the splat's index_add_ adds
+# with atomics), floored at DP_FLOOR, capped at SSC_GRAD_CAP. The spread is
+# the largest gap between any two of DP_SPREAD_RUNS runs of the emulation:
+# one pair of runs reads anywhere from 2.5e-04 to 1.2e-03 at stage 2 on an
+# H100 80GB HBM3 at 700 W, while the two-rank step reads 5.9e-04 to
+# 9.2e-04 from it, so a bar from one pair can land under a correct step
 DP_SPREAD_RATIO = 4.0
+DP_SPREAD_RUNS = 3
 DP_FLOOR = 1e-5
 MT_VAL_LENGTH = 8
 MT_STEPS = 4  # joint, depth, joint, depth (the depth loader restarts)
@@ -3352,11 +3376,13 @@ def dp_step_phase(torch, dev, card: str, phase: int, stage: str) -> dict:
     # the spread of the emulation on the card, the bar, the comparison
     emus = [serial_emulation(stage, model_cfg, case["weights"], batch,
                              case["masks"], case["pri"], task, DP_WORLD,
-                             device=dev) for _ in range(2)]
+                             device=dev) for _ in range(DP_SPREAD_RUNS)]
     stats = [k for k in r0["state"] if "running" in k]
-    spread = max(dp_gaps(torch, emus[1]["grads"], emus[0]["grads"]),
-                 dp_gaps(torch, {k: emus[1]["state"][k] for k in stats},
-                         {k: emus[0]["state"][k] for k in stats}))
+    spreads = [max(dp_gaps(torch, emus[j]["grads"], emus[i]["grads"]),
+                   dp_gaps(torch, {k: emus[j]["state"][k] for k in stats},
+                           {k: emus[i]["state"][k] for k in stats}))
+               for i in range(len(emus)) for j in range(i + 1, len(emus))]
+    spread = max(spreads)
     bar = min(max(DP_SPREAD_RATIO * spread, DP_FLOOR), SSC_GRAD_CAP)
     emu = emus[0]
     if emu["grads"].keys() != r0["grads"].keys():
@@ -3392,6 +3418,8 @@ def dp_step_phase(torch, dev, card: str, phase: int, stage: str) -> dict:
           f"against the serial emulation: gradient {g_gap:.3e}, running "
           f"statistics {s_gap:.3e}, metrics {m_gap:.3e} <= bar {bar:.3e} "
           f"({DP_SPREAD_RATIO:g} x the emulation's own spread {spread:.3e}, "
+          f"the largest of its {len(spreads)} pairs of runs "
+          f"{', '.join(f'{x:.3e}' for x in spreads)}; "
           f"floor {DP_FLOOR:g}, cap {SSC_GRAD_CAP:g}); control (one process, "
           f"B={B}) {c_gap:.3e}; loss {r0['metrics']['loss']:.6e}", flush=True)
     print(f"  timing phase {phase}: {r0['ms']:.1f} / {r1['ms']:.1f} ms per "
@@ -4570,10 +4598,392 @@ def e2e_path(torch, dev, card: str, root: str) -> dict:
                 frame_launches=frame)
 
 
+# --- phases 41-42: spatial inference, one frame's width over two ranks ---
+
+SPATIAL_WORLD = 2
+SPATIAL_TINY = False  # the production preset (True: the tiny one)
+SPATIAL_FRAMES = 8  # timed frames per rank and variant (after 2 warm-up)
+# the spatial graph against the one-process graph, as max|d| / max(1,
+# max|ref|). Each stage from the one-process graph's input to it: both on
+# the card in f32 (TF32 off), the layers on strips equal to the frame's to
+# the bit, the splat's halves added with atomics and then all-reduced
+# (up to 8.2e-07 of the grid's scale on an H100 80GB HBM3 at 700 W).
+# End to end, the keys before the splat's features (the backbone's, the
+# splat's coordinates and densities) within the parity bar: of the trunk
+# only its squeeze-excitation means round differently on strips (the sum
+# of two strips' sums against the frame's mean, ~2.4e-07 of its largest;
+# ``strip_rounding``), 1.2e-06 of its features at its end, and the
+# softmax-expectation depth moves the splat by that: after the splat's
+# feature mean the frame reads 1.5e-03 to 7.4e-03 (printed, as the card
+# and the CPU differ there: phase 3's 2.1e-03 to 4.1e-03)
+SPATIAL_STAGE_RTOL = 1e-5
+SPATIAL_FRAME_RTOL = 1e-3
+SPATIAL_FRAME_KEYS = ("depth_preds_logits", "depth_preds_metric",
+                      "depth_preds_bins", "depth_preds_feats",
+                      "dino_pe_feats", "bev_coords", "bev_densities")
+
+
+def spatial_ranks_module():
+    """tests/test_torch_spatial_ranks.py (the spatial graph's stages from
+    fed inputs), loaded from its path as ``dp_ranks_module`` loads its
+    file."""
+    import importlib.util
+
+    name = "chip_smoke_spatial_ranks"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tests",
+            "test_torch_spatial_ranks.py"))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def _spatial_rank(case_file: str, out_dir: str) -> None:
+    """One rank of phases 41-42, spawned by parallel.launch.spawn (gloo,
+    every rank on cuda:0): the fused spatial graph once with the head's
+    launches counted, its stages from the one-process graph's inputs, the
+    kernel on this rank's padded strip of the input view against its plain
+    version, then the timed frames."""
+    import torch
+    import torch.distributed as dist
+
+    from creste_public_tpu_torch.models.lfd import MaxEntIRL
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.parallel import make_spatial_mesh
+    from creste_public_tpu_torch.runtime.export import (
+        build_spatial_inference_fn,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = torch.load(case_file, weights_only=False)
+    cuda = c["device"] == "cuda"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
+           else torch.device("cpu"))
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    model = MaxEntIRL(c["cfg"])
+    model.load_state_dict(c["state"], strict=True)
+    model.to(dev).eval()
+    mesh = make_spatial_mesh()
+    fn = build_spatial_inference_fn(model, mesh, fused_reward=True,
+                                    device=dev.type)
+    rgbd = torch.from_numpy(c["rgbd"]).to(dev)
+    p2p = torch.from_numpy(c["p2p"]).to(dev)
+    fn(rgbd, p2p)  # warm-up: cuDNN's first calls at these shapes
+    sync()
+    dist.barrier()
+    rk.msfcn_head_cuda.launches = 0
+    out = fn(rgbd, p2p)
+    sync()
+    launches = rk.msfcn_head_cuda.launches
+    res = {"launches": launches, "rank": mesh.rank,
+           "out": {k: v.detach().cpu() for k, v in out.items()}}
+    fed = {k: v.to(dev) for k, v in c["fed"].items()}
+    tensors = rk.head_tensors(rk.fold_msfcn_params(
+        model.traversability_head.r))
+    stages = spatial_ranks_module().fed_stages(model, fed, p2p, mesh,
+                                               tensors)
+    res["stages"] = {n: {k: v.cpu() for k, v in d.items()}
+                     for n, d in stages.items()}
+    # the kernel on this rank's padded strip of the input view
+    iv = out["input_view"]
+    wv = iv.shape[2]
+    s, e = fn.head_columns(wv)[mesh.rank]
+    a, b = mesh.columns(wv)
+    strip = iv[:, :, s:e].contiguous()
+    folded = rk.fold_msfcn_params(model.traversability_head.r)
+    got = (rk.msfcn_head_cuda(folded, strip) if cuda
+           else rk.msfcn_plain(folded, strip))
+    ref = rk.msfcn_plain(folded, strip)
+    err = (got - ref).abs()
+    res.update(strip_cols=(s, e), own_cols=(a, b),
+               strip_shape=tuple(strip.shape),
+               strip_err=float(err.max()),
+               strip_ok=bool((err <= KERNEL_ATOL + KERNEL_RTOL
+                              * ref.abs()).all()),
+               strip_alive=float((ref > 0).float().mean()),
+               own_equal=bool(torch.equal(
+                   out["traversability_preds"][:, :, a:b],
+                   got[:, :, a - s:b - s])))
+    # phase 42: the collectives of one frame (each timed between two
+    # synchronisations, in one extra frame), then ms per frame, every
+    # output gathered, and the reward alone
+    from creste_public_tpu_torch.parallel import spatial as sp
+
+    coll = {"calls": 0, "mb": 0.0, "ms": 0.0}
+    real = {n: getattr(sp.SpatialMesh, n) for n in ("all_gather",
+                                                    "all_reduce")}
+
+    def timed(f):
+        def call(self, t):
+            sync()
+            t0 = time.perf_counter()
+            out = f(self, t)
+            sync()
+            coll["ms"] += (time.perf_counter() - t0) * 1e3
+            coll["calls"] += 1
+            coll["mb"] += t.numel() * t.element_size() / 1e6
+            return out
+        return call
+
+    for n, f in real.items():
+        setattr(sp.SpatialMesh, n, timed(f))
+    try:
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn(rgbd, p2p)
+        sync()
+        coll["frame_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        for n, f in real.items():
+            setattr(sp.SpatialMesh, n, f)
+    res["collectives"] = coll
+    times = {}
+    for name, keys in (("all outputs", None),
+                       ("reward only", ("traversability_preds",))):
+        f = build_spatial_inference_fn(model, mesh, True, output_keys=keys,
+                                       device=dev.type)
+        ev, wall = [], []
+        for i in range(2 + SPATIAL_FRAMES):
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            f(rgbd, p2p)
+            if cuda:
+                end.record()
+                end.synchronize()
+            sync()
+            if i >= 2:
+                wall.append((time.perf_counter() - t0) * 1e3)
+                ev.append(start.elapsed_time(end) if cuda else wall[-1])
+        times[name] = (statistics.median(ev), statistics.median(wall))
+    res["times"] = times
+    res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                       else 0.0)
+    torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def strip_rounding(torch, dev) -> dict:
+    """What rounds differently on two strips of a frame than on the frame,
+    at the production trunk's shapes: the width-sharded bilinear resize
+    (``parallel.spatial.resize_bilinear``) against ``F.interpolate``, a
+    strided depthwise and a dense convolution on two strips (each with the
+    columns its outputs read) against the frame's, and the frame mean as
+    the sum of two strips' sums against ``mean`` (what the spatial
+    squeeze-excitation computes). Mismatched elements, and the mean's
+    largest gap over its largest entry."""
+    import torch.nn.functional as F
+
+    from creste_public_tpu_torch.parallel import spatial as sp
+
+    g = torch.Generator().manual_seed(SEED)
+    one = sp.SpatialMesh(None, 1, 0)
+    out = {"resize": 0, "conv": 0, "mean": 0, "mean_rel": 0.0}
+    for c, h, w, H, W in ((320, 16, 19, 32, 39), (472, 64, 77, 128, 153),
+                          (256, 64, 64, 128, 128)):
+        x = torch.randn(1, c, h, w, generator=g).to(dev)
+        ref = F.interpolate(x, size=(H, W), mode="bilinear",
+                            align_corners=False)
+        got = sp.resize_bilinear(sp.Strip(x, w), (H, W), one).t
+        out["resize"] += int((got != ref).sum())
+    for C, k, s, groups, H, W, pad in ((96, 3, 2, 96, 256, 306, (0, 1)),
+                                       (144, 5, 2, 144, 128, 153, (1, 2)),
+                                       (472, 3, 1, 1, 128, 153, (1, 1))):
+        x = torch.randn(1, C, H, W, generator=g).to(dev)
+        wt = (torch.randn(32 if groups == 1 else C, C // groups, k, k,
+                          generator=g) / (C // groups * k * k) ** 0.5).to(dev)
+        full = F.conv2d(F.pad(x, pad + pad), wt, stride=s, groups=groups)
+        wo = full.shape[-1]
+        for lo, hi in sp.partition(wo, 2):
+            a, b = lo * s - pad[0], (hi - 1) * s - pad[0] + k
+            xs = torch.zeros(1, C, H, b - a, device=dev)
+            xs[..., max(a, 0) - a:min(b, W) - a] = x[..., max(a, 0):min(b, W)]
+            y = F.conv2d(F.pad(xs, (0, 0) + pad), wt, stride=s,
+                         groups=groups)
+            out["conv"] += int((y != full[..., lo:hi]).sum())
+    for c, h, w in ((96, 128, 153), (480, 16, 20), (1152, 16, 20)):
+        x = torch.randn(1, c, h, w, generator=g).to(dev)
+        ref = x.mean(dim=(2, 3), keepdim=True)
+        got = sum(x[..., lo:hi].sum(dim=(2, 3), keepdim=True)
+                  for lo, hi in sp.partition(w, 2)) / (h * w)
+        out["mean"] += int((got != ref).sum())
+        out["mean_rel"] = max(out["mean_rel"], float(
+            (got - ref).abs().max() / ref.abs().max()))
+    return out
+
+
+def spatial_path(torch, dev, card: str) -> dict:
+    """Phases 41-42: the fused deployment graph of one frame, its width
+    split over SPATIAL_WORLD ranks sharing the card, against the
+    one-process fused graph, and its ms per frame."""
+    import shutil
+    import tempfile
+
+    from creste_public_tpu_torch import weights
+    from creste_public_tpu_torch.config import presets
+    from creste_public_tpu_torch.models.lfd import MaxEntIRL
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.parallel import launch
+    from creste_public_tpu_torch.runtime.export import build_inference_fn
+
+    cfg = (presets.tiny_traversability_config() if SPATIAL_TINY
+           else presets.traversability_model_config()).to_dict()
+    cfg["solve_mdp"] = False
+    h, w = cfg["vision_backbone"]["vision_backbone"]["effnet_cfgs"][
+        "image_size"]
+    rgbd, p2p = example_inputs(h, w)
+    model = weights.init_weights(MaxEntIRL(cfg), SEED)
+    if SPATIAL_TINY:  # the tiny head's last relu is dead at init
+        weights.jitter_reward_head_bns(model.traversability_head.r, SEED + 1)
+    state = model.state_dict()
+    # the one-process fused graph, and its inputs to each stage
+    fn = build_inference_fn(cfg, state, device=dev.type)
+    rgbd_d = torch.from_numpy(rgbd).to(dev)
+    p2p_d = torch.from_numpy(p2p).to(dev)
+    ref = {k: v.cpu() for k, v in fn(rgbd_d, p2p_d).items()}
+    B, N = rgbd.shape[:2]
+    fed = {"depth": ref["depth_preds_metric"].reshape(
+               B, N, *ref["depth_preds_metric"].shape[1:]),
+           "feats": ref["depth_preds_feats"].reshape(
+               B, N, *ref["depth_preds_feats"].shape[1:]),
+           "bev": ref["bev_features"]}
+    one_ms = time_ms(torch, lambda: fn(rgbd_d, p2p_d), iters=SPATIAL_FRAMES,
+                     reps=3)
+    rounding = strip_rounding(torch, dev)
+    del fn, rgbd_d, p2p_d
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spatial_")
+    try:
+        case_file = os.path.join(tmp, "case.pt")
+        torch.save(dict(cfg=cfg, state=state, rgbd=rgbd, p2p=p2p, fed=fed,
+                        device=dev.type), case_file)
+        t0 = time.perf_counter()
+        launch.spawn(_spatial_rank, SPATIAL_WORLD, dev.type, case_file, tmp,
+                     backend="gloo")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False)
+                 for r in range(SPATIAL_WORLD)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    r0 = ranks[0]
+    if sorted(r0["out"]) != sorted(ref):
+        fail(f"phase 41: the spatial graph's keys {sorted(r0['out'])} are "
+             f"not the one-process graph's {sorted(ref)}")
+    for r, res in enumerate(ranks):
+        split = [k for k in ref if not torch.equal(res["out"][k],
+                                                   r0["out"][k])]
+        if split:
+            fail(f"phase 41: rank {r}'s outputs differ from rank 0's at "
+                 f"{split[:3]}")
+        # (a CPU rehearsal launches no kernel: the operator's plain path)
+        if dev.type == "cuda" and res["launches"] != rk.LAUNCHES_PER_HEAD:
+            fail(f"phase 41: rank {r} launched the reward-head kernel "
+                 f"{res['launches']} times, not {rk.LAUNCHES_PER_HEAD} "
+                 f"(one head on its strip)")
+        if not (res["strip_ok"] and res["own_equal"]):
+            fail(f"phase 41: rank {r}: the kernel on its strip "
+                 f"{res['strip_cols']} {res['strip_shape']} is "
+                 f"{res['strip_err']:.3e} from its plain version (tol "
+                 f"{KERNEL_ATOL} + {KERNEL_RTOL}*|ref|), or its reward "
+                 f"columns {res['own_cols']} are not that kernel's")
+    for k, v in r0["out"].items():
+        if tuple(v.shape) != tuple(ref[k].shape) or not bool(
+                torch.isfinite(v.float()).all()):
+            fail(f"phase 41: {k} is {tuple(v.shape)} (one process "
+                 f"{tuple(ref[k].shape)}) or not finite")
+    worst, held = 0.0, 0
+    for stage, outs in r0["stages"].items():
+        for k, v in outs.items():
+            if stage == "splat" and not k.startswith("bev_"):
+                continue  # (the decoder and reward: held from the grid)
+            d, rel = max_rel(v, ref[k])
+            worst = max(worst, rel)
+            print(f"  spatial vs one process, stage {stage} {k}: max|d| "
+                  f"{d:.3e}, max|d|/max(1,max|ref|) {rel:.3e}", flush=True)
+            held += 1
+            if rel > SPATIAL_STAGE_RTOL:
+                fail(f"phase 41: {k} from the one-process graph's input to "
+                     f"the {stage} stage differs by {rel:.3e} > "
+                     f"{SPATIAL_STAGE_RTOL}")
+    e2e = {}
+    for k in sorted(ref):
+        d, rel = max_rel(r0["out"][k], ref[k])
+        e2e[k] = rel
+        print(f"  spatial vs one process end to end {k}: max|d| {d:.3e}, "
+              f"max|d|/max(1,max|ref|) {rel:.3e}"
+              + (f" (bar {SPATIAL_FRAME_RTOL})" if k in SPATIAL_FRAME_KEYS
+                 else ""), flush=True)
+        if k in SPATIAL_FRAME_KEYS and rel > SPATIAL_FRAME_RTOL:
+            fail(f"phase 41: {k} end to end differs from the one-process "
+                 f"graph's by {rel:.3e} > {SPATIAL_FRAME_RTOL}")
+    print(f"phase 41 spatial inference: ok, {SPATIAL_WORLD} ranks (gloo "
+          f"over CUDA tensors, all on the one card) at RGBD "
+          f"{list(rgbd.shape)}, each owning "
+          + ", ".join(f"input-view columns {res['own_cols']}"
+                      for res in ranks)
+          + f"; reward-head launches per rank "
+          f"{[res['launches'] for res in ranks]} (the kernel once on each "
+          f"rank's padded strip "
+          + ", ".join(f"{res['strip_cols']} {list(res['strip_shape'])}"
+                      for res in ranks)
+          + ", max|d| from its plain version "
+          + ", ".join(f"{res['strip_err']:.3e}" for res in ranks)
+          + f", tol {KERNEL_ATOL} + {KERNEL_RTOL}*|ref|, "
+          + ", ".join(f"{res['strip_alive']:.3f}" for res in ranks)
+          + " of it non-zero; each rank's reward columns that kernel's "
+          f"to the bit); outputs equal on every rank; {len(ref)} outputs "
+          f"finite with the one-process shapes; against the one-process "
+          f"graph {held} outputs of its stages, each from its input, <= "
+          f"{worst:.3e} (bar {SPATIAL_STAGE_RTOL}), end to end the "
+          f"{len(SPATIAL_FRAME_KEYS)} keys before the splat's features <= "
+          f"{max(e2e[k] for k in SPATIAL_FRAME_KEYS):.3e} (bar "
+          f"{SPATIAL_FRAME_RTOL}), the reward "
+          f"{e2e['traversability_preds']:.3e}, worst key "
+          f"{max(e2e, key=e2e.get)} {max(e2e.values()):.3e}", flush=True)
+    print(f"  strips against the frame at the trunk's shapes: the "
+          f"resizes {rounding['resize']}, the convolutions "
+          f"{rounding['conv']} elements apart; the frame mean by halves "
+          f"{rounding['mean']} elements apart, by up to "
+          f"{rounding['mean_rel']:.3e} of its largest: what the end-to-end "
+          f"distance grows from [{card}]", flush=True)
+    print(f"  timing phase 42: one frame across {SPATIAL_WORLD} ranks "
+          + "; ".join(f"{name}: " + " / ".join(
+              f"{res['times'][name][0]:.3f}" for res in ranks)
+              + " ms (CUDA events on ranks "
+              + " / ".join(str(r) for r in range(SPATIAL_WORLD))
+              + "; wall " + " / ".join(f"{res['times'][name][1]:.3f}"
+                                       for res in ranks) + " ms)"
+              for name in r0["times"])
+          + "; in one more frame (all outputs) " + " / ".join(
+              f"{res['collectives']['calls']} collectives, "
+              f"{res['collectives']['mb']:.1f} MB sent, "
+              f"{res['collectives']['ms']:.1f} of "
+              f"{res['collectives']['frame_ms']:.1f} ms" for res in ranks)
+          + f" (ranks 0 / 1, wall between synchronisations); the "
+          f"one-process fused frame {one_ms:.3f} ms; ranks sharing "
+          f"one card, so the wiring's cost, not a scaling number; peak "
+          + " / ".join(f"{res['peak_gib']:.2f}" for res in ranks)
+          + f" GiB per rank; the ranks' processes took {ranks_s:.1f} s "
+          f"with start-up [{card}]", flush=True)
+    return dict(launches=[res["launches"] for res in ranks],
+                strip_err=max(res["strip_err"] for res in ranks),
+                times={n: [res["times"][n][0] for res in ranks]
+                       for n in r0["times"]}, one_ms=one_ms)
+
+
 # the phase groups in the order they run (phase 1, the build, always runs),
 # and the groups each needs run before it
 PHASE_GROUPS = ((2, 4), (5, 8), (16, 19), (13, 15), (9, 12), (20, 22),
-                (23, 28), (29, 31), (32, 34), (35, 37), (38, 40))
+                (23, 28), (29, 31), (32, 34), (35, 37), (38, 40), (41, 42))
 NEEDS = {(13, 15): ((16, 19),), (9, 12): ((5, 8), (13, 15)),
          (23, 28): ((2, 4),), (38, 40): ((35, 37),)}
 
@@ -4978,6 +5388,11 @@ def main() -> None:
                 done((38, 40))
         finally:
             shutil.rmtree(pre_root, ignore_errors=True)
+    # 41-42. spatial inference: one frame's width over two ranks on the
+    # card, against the one-process graph, and its ms per frame
+    if run((41, 42)):
+        spatial = spatial_path(torch, dev, card)
+        done((41, 42))
     print("wall time by phase group: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -5054,6 +5469,8 @@ def main() -> None:
         "e2e_frame_launches": {"exported": e2e["frame_launches"][0],
                                "served": e2e["frame_launches"][1]},
         "e2e_max_abs_err": e2e["head_err"],
+        "spatial_launches_per_rank": spatial["launches"],
+        "spatial_strip_max_abs_err": spatial["strip_err"],
     }] + mdp_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -47,14 +47,15 @@ def join_launch(device: str | torch.device) -> bool:
 
 
 def _rank_main(rank: int, world: int, init_file: str, device: str,
-               fn: Callable, args: tuple) -> None:
+               fn: Callable, args: tuple, backend: str | None) -> None:
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
                       WORLD_SIZE=str(world))
     if torch.device(device).type == "cuda":
-        torch.cuda.set_device(rank)
+        torch.cuda.set_device(rank if backend is None
+                              else rank % torch.cuda.device_count())
     else:  # the ranks share the host's cores
         torch.set_num_threads(max(1, torch.get_num_threads() // world))
-    dist.init_process_group(backend_for(device),
+    dist.init_process_group(backend or backend_for(device),
                             init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
     try:
@@ -64,17 +65,20 @@ def _rank_main(rank: int, world: int, init_file: str, device: str,
 
 
 def spawn(fn: Callable, world: int, device: str | torch.device,
-          *args) -> None:
+          *args, backend: str | None = None) -> None:
     """Run ``fn(*args)`` in ``world`` new processes (spawned, not
     daemonic, so that a rank may start its own loader processes), each
     rank ``r`` in one group (``LOCAL_RANK`` = ``r``, a file rendezvous in
     a fresh temporary directory); returns when every rank has ended, and
-    raises if one failed."""
+    raises if one failed. On CUDA rank ``r`` takes card ``r``; with a
+    ``backend`` in place of the device's, card ``r`` modulo the cards
+    there are (``gloo`` puts several ranks on one card, which NCCL
+    refuses)."""
     tmp = tempfile.mkdtemp(prefix="creste_ranks_")
     try:
         mp.start_processes(
             _rank_main, args=(world, os.path.join(tmp, "rendezvous"),
-                              str(device), fn, args),
+                              str(device), fn, args, backend),
             nprocs=world, join=True, daemon=False, start_method="spawn")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

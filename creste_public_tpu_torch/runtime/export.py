@@ -18,7 +18,9 @@ Counterpart of ``creste_public_tpu/runtime/export.py``:
 - ``load_exported``: reloads a saved program (importing this module
   registers the operator it calls);
 - ``InferenceEngine``: the graph and its weights on the device, ``step``,
-  ``warmup`` and ``latency_stats`` (CUDA events on the card).
+  ``warmup`` and ``latency_stats`` (CUDA events on the card);
+- ``build_spatial_inference_fn``: the same graph with one frame's width
+  split across the ranks of a spatial mesh (``parallel.spatial``).
 
 The graph takes f32 RGBD [B, 1, H, W, 4] (depth in mm) and p2p
 [B, 1, 4, 4] and returns NHWC tensors. cuDNN runs f32 convolutions in TF32
@@ -43,6 +45,7 @@ from creste_public_tpu_torch.models.blocks.vin import (
 from creste_public_tpu_torch.models.depth_completion import stream_dtype
 from creste_public_tpu_torch.models.lfd import MaxEntIRL
 from creste_public_tpu_torch.ops import reward_kernel
+from creste_public_tpu_torch.parallel import spatial
 from creste_public_tpu_torch.runtime import benchmark
 from creste_public_tpu_torch.runtime.precision import cast_module
 from creste_public_tpu_torch.utils.device import resolve_device
@@ -134,6 +137,52 @@ def build_inference_fn(
                      torch.as_tensor(p2p, dtype=torch.float32, device=dev))
 
     fn.graph = graph
+    return fn
+
+
+def build_spatial_inference_fn(
+    model: MaxEntIRL | InferenceGraph, mesh: spatial.SpatialMesh,
+    fused_reward: bool = True, output_keys: Sequence[str] | None = None,
+    device: str = "cuda",
+) -> Callable[[Any, Any], dict[str, torch.Tensor]]:
+    """``fn(rgbd, p2p) -> outputs``: the deployment graph of ``model`` (a
+    MaxEntIRL with its weights, or an ``InferenceGraph``, run in eval
+    without the MDP solve) with one frame's width split across the ranks
+    of ``mesh`` (``parallel.spatial.make_spatial_mesh``), the JAX
+    package's ``jit(..., in_shardings=spatial_inference_shardings(mesh))``.
+    Every rank calls ``fn`` with the whole frame (f32 rgbd
+    [B, N, H, W, 4] and p2p [B, N, 4, 4], arrays or tensors) and keeps its
+    columns of rgbd (``spatial_inference_shardings``); the weights and p2p
+    are replicated. It returns, on every rank, ``InferenceGraph``'s
+    outputs in the one-rank layout (``output_keys`` only, when given:
+    the others are not gathered). With ``fused_reward`` each rank runs the
+    folded reward head once per frame on its columns of the input view
+    plus a halo (``creste::msfcn_head``: the kernel on the card);
+    ``fn.head_columns(width)`` gives each rank's columns of it. The model
+    is moved to ``device`` (on CUDA, this process's current card)."""
+    if isinstance(model, InferenceGraph):
+        model = model.model
+    if mesh.rank < 0:
+        raise ValueError("this rank is not a member of the spatial mesh")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    model.to(dev).eval()
+    tensors = (reward_kernel.head_tensors(reward_kernel.fold_msfcn_params(
+        model.traversability_head.r)) if fused_reward else None)
+
+    @torch.no_grad()
+    def fn(rgbd, p2p) -> dict[str, torch.Tensor]:
+        rgbd = torch.as_tensor(rgbd, dtype=torch.float32, device=dev)
+        p2p = torch.as_tensor(p2p, dtype=torch.float32, device=dev)
+        width = rgbd.shape[3]
+        _, cols, rep = spatial.spatial_inference_shardings(mesh, width)
+        outputs = spatial.deployment_graph(
+            model, cols.shard(rgbd, mesh).contiguous(), rep.shard(p2p, mesh),
+            width, mesh, tensors)
+        return spatial.gather_outputs(outputs, mesh, output_keys)
+
+    fn.head_columns = lambda width: spatial.head_strip_columns(width, mesh)
     return fn
 
 

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 
-def backproject_depth(depth: torch.Tensor, p2p: torch.Tensor) -> torch.Tensor:
+def backproject_depth(depth: torch.Tensor, p2p: torch.Tensor,
+                      col0: int = 0) -> torch.Tensor:
     """Lift a depth image into LiDAR-frame points.
 
     Homogeneous pixel rays [u*d, v*d, d, 1] are mapped by the 4x4
@@ -30,6 +31,8 @@ def backproject_depth(depth: torch.Tensor, p2p: torch.Tensor) -> torch.Tensor:
     Args:
       depth: [..., H, W] metric depth (metres).
       p2p:   [..., 4, 4] pixel->point homogeneous transform.
+      col0:  the image column of ``depth``'s first column (a strip of a
+        wider image: ``u`` runs from ``col0``).
 
     Returns:
       xyz: [..., H, W, 3].
@@ -38,7 +41,7 @@ def backproject_depth(depth: torch.Tensor, p2p: torch.Tensor) -> torch.Tensor:
     d = depth.float()
     v, u = torch.meshgrid(
         torch.arange(H, dtype=torch.float32, device=d.device),
-        torch.arange(W, dtype=torch.float32, device=d.device),
+        torch.arange(col0, col0 + W, dtype=torch.float32, device=d.device),
         indexing="ij",
     )
     ud, vd = u * d, v * d
