@@ -89,8 +89,9 @@ Phases, each printing one line before the final one:
     same stage input and cotangent, each held to a bar set from the card's
     own spread (measured first) and capped at SSC_GRAD_CAP, with controls
     (BN's batch statistics detached) that must read above the stem's and
-    head_0's bars; then every decoder and backbone parameter's gradient in
-    f64 on both sides, per tensor.
+    head_0's bars; then every decoder parameter's gradient in f64 on both
+    sides, per tensor (the backbone's f64 gradients are held per tensor to
+    JAX's on the CPU by tests/test_torch_ssc_step.py).
 15. ssc timing: ms per B=8 stage-2 training step (CUDA events, inputs on
     the card), the loop's steady state with its loader, peak memory, and
     the idle share and top kernels under the profiler over two steps.
@@ -287,10 +288,32 @@ Phases, each printing one line before the final one:
     one-process fused frame, and the collectives of one frame (count, MB
     sent, wall): two ranks sharing one card, the wiring's cost, not a
     scaling number.
+43. native host: the libtorch host (csrc/serve_host.cpp) and the C++
+    registration of creste::msfcn_head (csrc/msfcn_head_op.cpp, with
+    csrc/msfcn_chain.cu compiled in), built with g++ and nvcc against the
+    installed torch beside phases 16-42; the fused production deployment
+    graph (f32, B=1, seed-0 weights) exported and AOT-compiled on the card
+    by python -m creste_public_tpu_torch.runtime.compile --fused
+    --native-dir D --native-package, a process of its own at the lowest
+    CPU priority started before phase 16 (after the kernels' timings);
+    the host, a process with no Python, serves it on the example frame
+    (--in) with --dump: 4 reward-head launches per frame served, its
+    operator's schema equal to the Python one's, every output against the
+    Python process's eager fused graph on the same frame (the keys before
+    the splat to STAGE_RTOL, the rest to FRAME_RTOL, integer maps by their
+    share of equal entries), and its reward against the head's plain
+    version on the host's own dumped input view to KERNEL_ATOL/
+    KERNEL_RTOL.
+44. native timing: the host's ms per frame and Hz on fresh
+    device-resident frames (CUDA events) beside the Python engine's fused
+    f32 frame in this process, its streaming from pinned host memory at
+    pipeline depth 1 (with the H2D, execute and D2H legs) and 2, the
+    package's compile and load seconds.
 
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
-allow_tf32 = False), so the card computes in f32 like the reference.
+allow_tf32 = False), so the card computes in f32 like the reference; the
+host turns TF32 off in its own process.
 Every profile records the device's activity only: recording the host's
 ops as well cost 6 to 27 s after each two-step training profile, and the
 idle shares and top kernels read device events alone.
@@ -1372,12 +1395,12 @@ SSC_LOSS_RTOL = 1e-4
 # statistics out of the gradient, must land above its bar). In f32 these
 # train-mode gradients cross ReLU kinks that rounding flips
 # (tests/test_torch_ssc_step.py: up to 8e-2 of a tensor at the tiny
-# preset), so the decoder and the backbone also run in f64 on both sides
-# (the splat keeps f32 constants), every parameter held per tensor to
-# SSC_F64_RTOL of the larger of its largest entry and 1e-2 of its stage's
-# (a bias that a train-mode BatchNorm subtracts out has an exact gradient
-# of 0); that bar is 100x below the f32 readings above, and the H100 read
-# 6.3e-13 for the decoder and 5.5e-7 for the backbone
+# preset), so the decoder also runs in f64 on both sides, every parameter
+# held per tensor to SSC_F64_RTOL of the larger of its largest entry and
+# 1e-2 of its stage's (a bias that a train-mode BatchNorm subtracts out has
+# an exact gradient of 0); that bar is 100x below the f32 readings above,
+# and the H100 read 6.3e-13 for the decoder (and 5.5e-7 for the backbone,
+# when this phase ran it in f64 too)
 SSC_GRAD_FLOOR = 5e-3
 SSC_GRAD_CAP = 5e-2
 SSC_F64_RTOL = 1e-5
@@ -1723,8 +1746,9 @@ def ssc_path(torch, dev, card: str, stage1_dir: str) -> str:
                     f"{SSC_GRAD_CAP}); both controls above theirs")
     del g_bb, g_ctl
 
-    # every parameter's gradient of the decoder and the backbone in f64,
-    # card vs CPU
+    # every parameter's gradient of the decoder in f64, card vs CPU (the
+    # backbone's f64 gradients, ~60 s of the CPU's at 512x612, are held per
+    # tensor to JAX's on the CPU by tests/test_torch_ssc_step.py)
     def f64_model(d):
         m = TerrainNet(cpu_cfg)
         m.load_state_dict(cpu_model.state_dict(), strict=True)
@@ -1741,18 +1765,12 @@ def ssc_path(torch, dev, card: str, stage1_dir: str) -> str:
         return {k: v.double() for k, v in c.items()}
 
     stage_keys = {"decoder": [k for k in named_keys
-                              if k.startswith("bevclassifier.")],
-                  "backbone": bb_keys}
+                              if k.startswith("bevclassifier.")]}
     g64 = {}
     for d in (torch.device("cpu"), dev):
         m64 = f64_model(d)
-        p2p = b2c["p2p"].to(d, torch.float64)
-        g64[d.type] = {
-            **stage_grads(m64, "decoder", [leaf64(bev_c, d)],
-                          cots64(dec_cots), stage_keys["decoder"]),
-            **stage_grads(m64, "backbone",
-                          [b2c["image"].to(d, torch.float64), p2p],
-                          cots64(bb_cots), stage_keys["backbone"])}
+        g64[d.type] = stage_grads(m64, "decoder", [leaf64(bev_c, d)],
+                                  cots64(dec_cots), stage_keys["decoder"])
         del m64
     worst64 = {stage: max(tensor_gaps(g64[dev.type], g64["cpu"],
                                       keys).items(), key=lambda kv: kv[1])
@@ -4980,10 +4998,199 @@ def spatial_path(torch, dev, card: str) -> dict:
                        for n in r0["times"]}, one_ms=one_ms)
 
 
+# --- phases 43-44: the libtorch host, the deployment graph with no Python ---
+
+NATIVE_TINY = False  # the production preset (True: the tiny one)
+NATIVE_ITERS = 30  # timed frames of the host (after NATIVE_WARMUP)
+NATIVE_WARMUP = 3
+NATIVE_DISTINCT = 8  # fresh frames the timed ones cycle through
+NATIVE_FETCH = ("traversability_preds",)  # read back per streamed frame
+# the host's outputs against the Python process's eager fused graph on the
+# same frame, max|d| / max(1, max|ref|): the keys before the splat (one
+# stage's rounding: inductor's fused kernels sum in other orders than the
+# eager ones) to STAGE_RTOL; the splat and every key after it to
+# FRAME_RTOL, as card vs CPU end to end (the depth softmax turns last-bit
+# differences into shifts of the splat's weights); an integer map by the
+# share of its entries that agree
+NATIVE_PRE_SPLAT = ("depth_preds_feats", "depth_preds_logits",
+                    "depth_preds_metric", "dino_pe_feats")
+NATIVE_INT_AGREE = 0.999
+
+
+def start_native_package(dev) -> dict:
+    """Phase 43's package, compiled beside the phases that run before it:
+    ``python -m creste_public_tpu_torch.runtime.compile --fused
+    --native-dir D --native-package`` (the seed-0 deployment graph at the
+    preset, on ``dev``) in a process of its own at the lowest CPU
+    priority, its output in a log. The process is stopped at exit if it is
+    still running."""
+    import atexit
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    log = open(os.path.join(work, "compile.log"), "w")
+    cmd = [sys.executable, "-m", "creste_public_tpu_torch.runtime.compile",
+           "--fused", "--out", os.path.join(work, "program.pt2"),
+           "--native-dir", os.path.join(work, "artifact"),
+           "--native-package", "--device", dev.type] + (
+               ["--tiny"] if NATIVE_TINY else [])
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            preexec_fn=lambda: os.nice(19))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return dict(proc=proc, work=work, log=log, t0=time.time())
+
+
+def native_path(torch, dev, card: str, host_build, pending: dict,
+                cfg: dict | None = None, state: dict | None = None) -> dict:
+    """Phases 43-44: the production deployment graph (fused, f32, B=1,
+    seed-0 weights), exported and AOT-compiled on the card by ``compile
+    --native-dir D --native-package`` (``pending``, started by
+    ``start_native_package``), served by the libtorch host
+    (``csrc/serve_host.cpp``, no Python in its process) with the C++
+    ``creste::msfcn_head``; ``host_build`` is the future of the host's
+    build, started at phase 1."""
+    import shutil
+
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.runtime import benchmark, native_serve
+    from creste_public_tpu_torch.runtime.compile import (
+        deployment_config,
+        deployment_state,
+    )
+    from creste_public_tpu_torch.runtime.export import build_inference_fn
+
+    if cfg is None or NATIVE_TINY:
+        cfg = deployment_config(NATIVE_TINY)
+        state = deployment_state(cfg)
+    h, w = cfg["vision_backbone"]["vision_backbone"]["effnet_cfgs"][
+        "image_size"]
+    rgbd, p2p = example_inputs(h, w)
+    t_phase = time.perf_counter()
+    built = host_build.result()
+    work = pending["work"]
+    try:
+        rc = pending["proc"].wait()
+        waited = time.perf_counter() - t_phase
+        pending["log"].close()
+        # the command's wall: from its start to its log's last write
+        compile_wall = (os.path.getmtime(os.path.join(work, "compile.log"))
+                        - pending["t0"])
+        with open(os.path.join(work, "compile.log")) as f:
+            compile_log = f.read()
+        if rc != 0:
+            fail(f"phase 43: compile --native-package exited {rc}:\n"
+                 f"{compile_log[-3000:]}")
+        found = re.search(r"host package: ([0-9.]+) MB, compiled in "
+                          r"([0-9.]+) s", compile_log)
+        package_mb, package_s = float(found[1]), float(found[2])
+        artifact = os.path.join(work, "artifact")
+        dump = os.path.join(work, "dump")
+        report = native_serve.run_host(
+            artifact, dev.type, iters=NATIVE_ITERS, warmup=NATIVE_WARMUP,
+            distinct=NATIVE_DISTINCT, pipeline=2, fetch=NATIVE_FETCH,
+            inputs=native_serve.write_inputs(
+                os.path.join(work, "in"), {"rgbd": rgbd, "p2p": p2p}),
+            dump=dump)
+        got = native_serve.read_dump(dump, artifact)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches, frames = report["msfcn_head_launches"], report["frames_run"]
+    want_launches = rk.LAUNCHES_PER_HEAD * frames if dev.type == "cuda" else 0
+    if launches != want_launches:
+        fail(f"phase 43: the host launched the reward-head kernel {launches} "
+             f"times over {frames} frames, not {want_launches}")
+    schema = str(torch.ops.creste.msfcn_head.default._schema)
+    if report["msfcn_head_schema"] != schema:
+        fail(f"phase 43: the host's creste::msfcn_head is "
+             f"{report['msfcn_head_schema']!r}, Python's {schema!r}")
+    for o in report["outputs"]:
+        if tuple(o["dims"]) != tuple(got[o["name"]].shape):
+            fail(f"phase 43: the host's {o['name']} is {o['dims']}, the "
+                 f"manifest's {tuple(got[o['name']].shape)}")
+
+    # the Python process's eager fused graph on the same frame
+    fn = build_inference_fn(cfg, state, device=dev.type)
+    with torch.no_grad():
+        eager = {k: v.cpu() for k, v in fn(rgbd, p2p).items()}
+    if sorted(eager) != sorted(got):
+        fail(f"phase 43: the host returned {sorted(got)}, the eager graph "
+             f"{sorted(eager)}")
+    gaps = {}
+    for k in sorted(eager):
+        if not eager[k].is_floating_point():
+            agree = float((got[k] == eager[k]).float().mean())
+            gaps[k] = agree
+            if agree < NATIVE_INT_AGREE:
+                fail(f"phase 43: {k} agrees with the eager graph on "
+                     f"{agree:.5f} of its entries < {NATIVE_INT_AGREE}")
+            continue
+        if not bool(torch.isfinite(got[k]).all()):
+            fail(f"phase 43: the host's {k} has non-finite values")
+        _, rel = max_rel(got[k], eager[k])
+        gaps[k] = rel
+        bar = STAGE_RTOL if k in NATIVE_PRE_SPLAT else FRAME_RTOL
+        if rel > bar:
+            fail(f"phase 43: the host's {k} is {rel:.3e} of its scale from "
+                 f"the eager graph's (bar {bar})")
+    print("  phase 43 host vs eager per key (max|d|/max(1,max|ref|); an "
+          "integer map's share of equal entries): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in gaps.items()), flush=True)
+    # the kernel in the host against its plain version on the host's own
+    # input view
+    folded = rk.fold_msfcn_params(fn.graph.model.traversability_head.r)
+    with torch.no_grad():
+        ref = rk.msfcn_plain(folded, got["input_view"].to(dev))
+    err = check_close("phase 43: the host's reward against the plain head "
+                      "on its input view", got[REWARD].to(dev), ref,
+                      KERNEL_ATOL, KERNEL_RTOL)
+    spread = float(got[REWARD].std())
+    if not spread > 0 and not NATIVE_TINY:  # the tiny head is dead at init
+        fail("phase 43: the host's reward is constant")
+    print(f"phase 43 native host: ok, compile --native-package exported the "
+          f"fused {'tiny' if NATIVE_TINY else 'production'} graph and "
+          f"AOT-compiled it on the {dev.type} in {package_s:.1f} s "
+          f"({package_mb:.1f} MB; the command {compile_wall:.1f} s at the "
+          f"lowest CPU priority beside the earlier phases, {waited:.1f} s "
+          f"of it waited for here); the host (built in "
+          f"{built['seconds']:.1f} s) loaded it in "
+          f"{report['load_s']:.3f} s and served {frames} frames with "
+          f"{launches} reward-head launches ({launches / frames:.0f} per "
+          f"frame) through the C++ {report['msfcn_head_schema']}; "
+          f"{len(gaps)} outputs within their bars of the eager graph (the "
+          f"keys before the splat <= {STAGE_RTOL}, the rest <= "
+          f"{FRAME_RTOL}; worst {max((v for k, v in gaps.items() if eager[k].is_floating_point()), default=0.0):.3e}); "
+          f"its reward {err:.3e} from the plain head on its own input view "
+          f"(tol {KERNEL_ATOL} + {KERNEL_RTOL}*|ref|), std {spread:.3e}; "
+          f"TF32 {'on' if report['tf32'] else 'off'} [{card}]", flush=True)
+
+    # 44. timing: the host beside the Python engine's fused f32 frame
+    py_ms = (benchmark.frame_latency_ms(fn, rgbd, p2p)
+             if dev.type == "cuda" else float("nan"))
+    print(f"phase 44 native timing: the host {report['per_frame_ms']:.3f} "
+          f"ms/frame (p50 {report['per_frame_p50_ms']:.3f}) = "
+          f"{report['hz']:.2f} Hz over {report['iters']} fresh "
+          f"device-resident frames ({report['clock']}), the Python engine's "
+          f"fused f32 frame {py_ms:.3f} ms in this process; streamed from "
+          f"pinned host memory, {', '.join(NATIVE_FETCH)} read back: "
+          f"pipeline 1 {report['seq_stream_per_frame_ms']:.3f} ms/frame "
+          f"(H2D {report['seq_h2d_ms']:.3f}, execute "
+          f"{report['seq_exec_ms']:.3f}, D2H {report['seq_d2h_ms']:.3f}), "
+          f"pipeline {report['pipeline_depth']} "
+          f"{report['pipeline_per_frame_ms']:.3f} ms/frame = "
+          f"{report['pipeline_hz']:.2f} Hz ({report['pipeline_speedup']:.3f}x);"
+          f" package compile {package_s:.1f} s, load "
+          f"{report['load_s']:.3f} s; phases 43-44 "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return dict(launches=launches, frames=frames, err=err, report=report,
+                package_s=package_s, python_ms=py_ms, gaps=gaps)
+
+
 # the phase groups in the order they run (phase 1, the build, always runs),
 # and the groups each needs run before it
 PHASE_GROUPS = ((2, 4), (5, 8), (16, 19), (13, 15), (9, 12), (20, 22),
-                (23, 28), (29, 31), (32, 34), (35, 37), (38, 40), (41, 42))
+                (23, 28), (29, 31), (32, 34), (35, 37), (38, 40), (41, 42),
+                (43, 44))
 NEEDS = {(13, 15): ((16, 19),), (9, 12): ((5, 8), (13, 15)),
          (23, 28): ((2, 4),), (38, 40): ((35, 37),)}
 
@@ -5335,6 +5542,16 @@ def main() -> None:
         mdp_kernel_checks(torch, dev)
         objective_ms, mdp_kernels = mdp_path(torch, dev, card)
         done((5, 8))
+    # phase 43's package compiles, and the libtorch host and its op library
+    # build, beside phases 16-42 (after the kernels' timings of phases 2-8;
+    # the compilers run as their own processes, and phase 43 waits for them)
+    from concurrent.futures import ThreadPoolExecutor
+
+    builder = ThreadPoolExecutor(max_workers=1)
+    host_build = native_pending = None
+    if run((43, 44)):
+        native_pending = start_native_package(dev)
+        host_build = builder.submit(_build.build_host, True)
     # 16-19. the stage-0 and stage-1 trainers through their entry points;
     # 13-15. the stage-2 trainer, which grafts the stage-1 checkpoint, and
     # whose checkpoint the stage-3 trainers (9-12, 33) then graft
@@ -5393,6 +5610,14 @@ def main() -> None:
     if run((41, 42)):
         spatial = spatial_path(torch, dev, card)
         done((41, 42))
+    # 43-44. the deployment graph AOT-compiled and served by the libtorch
+    # host, no Python in its process
+    if run((43, 44)):
+        native = native_path(torch, dev, card, host_build, native_pending,
+                             *((head["cfg"], head["state"]) if head
+                               else ()))
+        done((43, 44))
+    builder.shutdown()
     print("wall time by phase group: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -5471,6 +5696,9 @@ def main() -> None:
         "e2e_max_abs_err": e2e["head_err"],
         "spatial_launches_per_rank": spatial["launches"],
         "spatial_strip_max_abs_err": spatial["strip_err"],
+        "native_host_launches": native["launches"],
+        "native_host_frames": native["frames"],
+        "native_host_max_abs_err": native["err"],
     }] + mdp_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

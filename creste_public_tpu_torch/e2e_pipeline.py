@@ -24,11 +24,15 @@ library shortcuts, over a synthesized raw sensor tree:
                   preprocessed sample of the tree
   serve           ``runtime.serve.build_server`` on a free local port: one
                   POST /infer of that sample against the direct forward
+  native serve    the artifact AOT-compiled for the libtorch host
+                  (``export.package_for_host``) and served by it, no Python
+                  in its process (``runtime.native_serve``: ``--in`` that
+                  sample, ``--dump`` its outputs) against the direct forward
 
 The JAX script's last leg runs its C++ PJRT host (``native/creste_serve``)
-over the artifact. The port has no native host yet (a libtorch host that
-reads ``program.pt2`` and ``manifest.txt`` is later work), so its serve leg
-is the Python server, and ``--pjrt-plugin`` has no counterpart.
+over its artifact; the port's runs ``csrc/serve_host.cpp``, built from the
+checkout's sources at first use (``--no-serve`` skips both serve legs, as
+the JAX script's does). ``--pjrt-plugin`` has no counterpart.
 
 Each step is a function of a tree's root (the parity legs of the direct
 forward's result), so a caller can run the steps on a tree it already
@@ -475,6 +479,44 @@ def serve_check(direct: dict, tol: float) -> dict:
             "reply_shape": list(shape), "head_launches": launches}
 
 
+def native_check(work: str, direct: dict, native_dir: str,
+                 tol: float) -> dict:
+    """The native leg: the artifact of ``export_and_check`` in
+    ``native_dir`` AOT-compiled for the libtorch host
+    (``export.package_for_host``), then the host run over it on
+    ``direct``'s sample (``--in``; 3 timed frames, no streaming)
+    with ``--dump``: its reward within ``tol`` of the direct forward's and
+    every other output within ``tol`` of its scale; the package's compile
+    seconds, the host's ms per frame and its reward-head launches per
+    frame served."""
+    from creste_public_tpu_torch.runtime import native_serve
+    from creste_public_tpu_torch.runtime.export import package_for_host
+
+    dev = direct["device"]
+    packaged = package_for_host(native_dir)
+    dump = os.path.join(work, "native_dump")
+    inputs = native_serve.write_inputs(
+        os.path.join(work, "native_in"),
+        {"rgbd": direct["rgbd"], "p2p": direct["p2p"]})
+    report = native_serve.run_host(native_dir, dev, iters=3, warmup=1,
+                                   distinct=1, pipeline=0, inputs=inputs,
+                                   dump=dump)
+    served = native_serve.read_dump(dump, native_dir)
+    dev_max = check_reward("native serve parity",
+                           served[REWARD_KEY].numpy(), direct, tol)
+    key, gap = worst_output_gap(served, direct["outputs"])
+    if not gap <= tol:
+        raise AssertionError(f"native serve parity: {key} {gap} > {tol}")
+    print(f"[e2e] the libtorch host served the sample: max|d| = "
+          f"{dev_max:.2e} from the direct forward, "
+          f"{report['per_frame_ms']:.2f} ms/frame", flush=True)
+    return {"native_dev": dev_max, "native_outputs_dev": (key, gap),
+            "package_s": packaged["package_s"],
+            "native_ms": report["per_frame_ms"],
+            "native_head_launches": report["msfcn_head_launches"],
+            "native_frames": report["frames_run"]}
+
+
 def run_pipeline(work: str, frames: int = 24, img_hw=(64, 80),
                  grid: int = 32, map_range: float = 1.6, horizon: int = 10,
                  tol: float = 2e-4, serve: bool = True,
@@ -504,8 +546,9 @@ def run_pipeline(work: str, frames: int = 24, img_hw=(64, 80),
     direct = direct_forward(root, stages["traversability"]["ckpt"], grid,
                             map_range, horizon, dev)
     result.update(export_and_check(work, direct, tol))
-    if serve:
+    if serve:  # the Python server, then the libtorch host
         result.update(serve_check(direct, tol))
+        result.update(native_check(work, direct, result["native_dir"], tol))
     print("[e2e] PIPELINE COMPLETE", flush=True)
     return result
 

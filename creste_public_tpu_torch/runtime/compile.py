@@ -5,15 +5,17 @@ Counterpart of ``scripts/runtime/compile.py`` (the reference's
 
     python -m creste_public_tpu_torch.runtime.compile \\
         [--out creste_rgbd_export.pt2] [--ckpt D] [--tiny] [--fused] \\
-        [--bf16] [--native-dir D [--native-outputs k1,k2]] \\
-        [--latency] [--device cuda|cpu]
+        [--bf16] [--native-dir D [--native-outputs k1,k2] \\
+        [--native-package]] [--latency] [--device cuda|cpu]
 
 It builds MaxEntIRL with ``solve_mdp=False`` (``presets.
 traversability_model_config``, or its tiny preset with ``--tiny``) with
 seeded weights or a port checkpoint (``--ckpt``: a ``training.checkpoint``
 step directory or its ``state.pt``), exports it on the example frame,
 reloads the program and runs it (the dry run), and optionally writes the
-native artifact and times the engine. It runs on the card unless
+native artifact (with ``--native-package`` also the AOTInductor package
+that the libtorch host serves, ``runtime.native_serve``) and times the
+engine. It runs on the card unless
 ``--device cpu``.
 """
 from __future__ import annotations
@@ -97,6 +99,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--native-outputs", default=None,
                     help="comma-separated output keys of the native "
                          "artifact (default: all)")
+    ap.add_argument("--native-package", action="store_true",
+                    help="also AOT-compile the native artifact's program "
+                         "into host.pt2 for the libtorch host")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -131,11 +136,15 @@ def main(argv: Sequence[str] | None = None) -> dict[str, Any]:
         keys = args.native_outputs.split(",") if args.native_outputs else None
         info = export_native_artifacts(cfg, state, rgbd, p2p, args.native_dir,
                                        args.fused, keys, compute_dtype=dtype,
-                                       device=args.device)
+                                       device=args.device,
+                                       package=args.native_package)
         print(f"native artifact: {info['program_bytes'] / 1e6:.2f} MB "
               f"program, {info['num_outputs']} outputs, "
               f"{info['manifest_lines']} manifest lines -> "
               f"{args.native_dir}", flush=True)
+        if args.native_package:
+            print(f"host package: {info['package_bytes'] / 1e6:.2f} MB, "
+                  f"compiled in {info['package_s']:.1f} s", flush=True)
         summary["native"] = info
 
     if args.latency:

@@ -14,7 +14,10 @@ Counterpart of ``creste_public_tpu/runtime/export.py``:
   ``torch.export.save``;
 - ``export_native_artifacts``: the program with its weights inside, and a
   ``manifest.txt`` of its inputs and outputs in the JAX package's line
-  format (``input|output <name> <dtype token> <dims>``);
+  format (``input|output <name> <dtype token> <dims>``); with ``package``
+  also the AOTInductor package that the libtorch host
+  (``csrc/serve_host.cpp``, ``runtime.native_serve``) serves
+  (``package_for_host``);
 - ``load_exported``: reloads a saved program (importing this module
   registers the operator it calls);
 - ``InferenceEngine``: the graph and its weights on the device, ``step``,
@@ -187,7 +190,8 @@ def build_spatial_inference_fn(
 
 
 class _Selected(nn.Module):
-    """A graph whose outputs are cut to ``keys``."""
+    """A graph whose outputs are cut to ``keys``, in the order of their
+    names (the manifest's order, and JAX's flat order)."""
 
     def __init__(self, graph: nn.Module, keys: Sequence[str] | None):
         super().__init__()
@@ -197,7 +201,7 @@ class _Selected(nn.Module):
     def forward(self, rgbd: torch.Tensor, p2p: torch.Tensor
                 ) -> dict[str, torch.Tensor]:
         out = self.inner(rgbd, p2p)
-        return {k: out[k] for k in self.keys} if self.keys else out
+        return {k: out[k] for k in sorted(self.keys or out)}
 
 
 def export_inference_graph(
@@ -235,6 +239,7 @@ _DTYPE_TOKENS = {
 }
 PROGRAM_FILE = "program.pt2"
 MANIFEST_FILE = "manifest.txt"
+HOST_PACKAGE_FILE = "host.pt2"
 
 
 def _spec_line(kind: str, name: str, t: torch.Tensor) -> str:
@@ -243,11 +248,76 @@ def _spec_line(kind: str, name: str, t: torch.Tensor) -> str:
     return f"{kind} {name} {_DTYPE_TOKENS.get(dtype, dtype)} {dims}"
 
 
+def openmp_cxx() -> str:
+    """A C++ compiler that links an OpenMP shared object: AOTInductor
+    compiles and links its wrapper with ``-fopenmp`` (and ``-lgomp``),
+    which a GCC without ``libgomp.spec`` refuses. ``$CXX`` (inductor's own
+    choice) first, then ``g++``, ``c++``, ``/usr/bin/g++``, ``clang++``;
+    raises when none links."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    tried = []
+    for cxx in dict.fromkeys(c for c in (os.environ.get("CXX"), "g++", "c++",
+                                         "/usr/bin/g++", "clang++") if c):
+        path = shutil.which(cxx)
+        if path is None:
+            continue
+        with tempfile.TemporaryDirectory() as tmp:
+            src = os.path.join(tmp, "omp.cpp")
+            with open(src, "w") as f:
+                f.write("#include <omp.h>\nint threads() { return "
+                        "omp_get_max_threads(); }\n")
+            r = subprocess.run([path, "-fopenmp", "-shared", "-fPIC", src,
+                                "-o", os.path.join(tmp, "omp.so"), "-lgomp"],
+                               capture_output=True, text=True)
+        if r.returncode == 0:
+            return path
+        tried.append(f"{path}: {r.stderr.strip()[-300:]}")
+    raise RuntimeError("no C++ compiler links -fopenmp, which AOTInductor's "
+                       "package needs:\n" + "\n".join(tried))
+
+
+def package_for_host(out_dir: str) -> dict:
+    """AOT-compile the native artifact's program (``out_dir/program.pt2``,
+    ``torch._inductor.aoti_compile_and_package``) into
+    ``out_dir/host.pt2`` for the device its weights are on, and end the
+    manifest with ``package host.pt2 <device type>``: the package the
+    libtorch host loads, the weights inside, the fused head one call of
+    ``creste::msfcn_head`` by name, compiled by ``openmp_cxx()``. Returns
+    its bytes and the compile's seconds."""
+    import torch._inductor.config
+
+    program = load_exported(os.path.join(out_dir, PROGRAM_FILE))
+    dev = next(iter(program.state_dict.values())).device
+    path = os.path.join(out_dir, HOST_PACKAGE_FILE)
+    t0 = time.perf_counter()
+    # NCHW convolutions, as the eager graph runs them: inductor's layout
+    # optimization moves them to channels_last, where cuDNN's f32 kernels
+    # are slower on the H100 (the production frame 28.4 ms with it, 21.3
+    # without; chip_smoke phase 44)
+    with torch._inductor.config.patch({"cpp.cxx": (openmp_cxx(),),
+                                       "layout_optimization": False}):
+        torch._inductor.aoti_compile_and_package(program, package_path=path)
+    seconds = time.perf_counter() - t0
+    manifest = os.path.join(out_dir, MANIFEST_FILE)
+    with open(manifest) as f:
+        lines = [ln for ln in f.read().splitlines()
+                 if not ln.startswith("package ")]
+    lines.append(f"package {HOST_PACKAGE_FILE} {dev.type}")
+    with open(manifest, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return {"package_bytes": os.path.getsize(path), "package_s": seconds,
+            "manifest_lines": len(lines)}
+
+
 def export_native_artifacts(
     cfg: Any, state: Mapping[str, torch.Tensor], rgbd: Any, p2p: Any,
     out_dir: str, fused_reward: bool = False,
     output_keys: Sequence[str] | None = None, fold_bn: bool = False,
     compute_dtype: str | None = None, device: str = "cuda",
+    package: bool = False,
 ) -> dict:
     """Write the deployment artifact: ``out_dir/program.pt2``, the exported
     graph with its weights inside (calling convention ``(rgbd, p2p) ->
@@ -255,7 +325,9 @@ def export_native_artifacts(
     one line per input (``rgbd``, ``p2p``) and per output, sorted by name,
     ``input|output <name> <dtype token> <dims>`` as the JAX package writes
     them. The program is run once on the inputs (its dry run) for the
-    outputs' shapes. ``output_keys`` keeps only those outputs."""
+    outputs' shapes. ``output_keys`` keeps only those outputs. With
+    ``package`` the program is also AOT-compiled for the host
+    (``package_for_host``)."""
     graph = build_inference_graph(cfg, state, device, fused_reward, fold_bn,
                                   compute_dtype)
     path = os.path.join(out_dir, PROGRAM_FILE)
@@ -271,8 +343,11 @@ def export_native_artifacts(
     lines += [_spec_line("output", k, out[k]) for k in sorted(out)]
     with open(os.path.join(out_dir, MANIFEST_FILE), "w") as f:
         f.write("\n".join(lines) + "\n")
-    return {"program_bytes": os.path.getsize(path), "num_inputs": 2,
+    info = {"program_bytes": os.path.getsize(path), "num_inputs": 2,
             "num_outputs": len(out), "manifest_lines": len(lines)}
+    if package:
+        info.update(package_for_host(out_dir))
+    return info
 
 
 class InferenceEngine:

@@ -18,7 +18,8 @@ to a PNG:
   cells removed), each coloured by its mean height and shaded by the cosine
   of its normal with a light from above the viewer's left shoulder,
   painted far to near;
-- one z-buffer, resolved in torch on the figure's ``device`` (a scatter
+- one z-buffer, resolved in torch on the figure's ``device`` (the card
+  unless the caller asks for ``device="cpu"``; a scatter
   ``amin`` of the depths per pixel; of equal depths the last drawn wins),
   decides which primitive shows at each pixel.
 
@@ -94,7 +95,7 @@ class PointCloudFigure:
 
     def __init__(self, figsize=(8, 8), elev: float = 35.0,
                  azim: float = -60.0, dpi: int = 100,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.width = int(round(figsize[0] * dpi))
         self.height = int(round(figsize[1] * dpi))
         self.elev, self.azim = float(elev), float(azim)
@@ -329,7 +330,7 @@ class PointCloudFigure:
 
 
 def render_scan(points: np.ndarray, path: str,
-                device: str | torch.device = "cpu", **kwargs) -> None:
+                device: str | torch.device = "cuda", **kwargs) -> None:
     """One-call scan render to PNG (the LaserScanVis quick path)."""
     PointCloudFigure(device=device).draw_points(points, **kwargs).save(path)
 

@@ -2,10 +2,12 @@
 on the CPU, against the JAX package's ``scripts/e2e_pipeline.py``.
 
 One ``run_pipeline`` at the tiny size (16 frames of 64x80, grid 32 at
-1.6 m, horizon 8, ``--device cpu``, serving included) makes the checks of
-``tests/test_e2e_pipeline.py`` (the export and its parity, the native
-artifact, three checkpoints with finite losses, every label family), and
-its counterfactual pickles. Then, over that tree:
+1.6 m, horizon 8, ``--device cpu``, serving and the libtorch host's leg
+included) makes the checks of ``tests/test_e2e_pipeline.py`` (the export
+and its parity, the native artifact, three checkpoints with finite losses,
+every label family), and its counterfactual pickles; the host's every
+output on the tree's sample meets the direct forward to ``TOL``. Then,
+over that tree:
 
 - the preprocessing steps are the JAX script's, in order and arguments
   (plus ``--device`` and the map builders' ``--workers``);
@@ -118,6 +120,21 @@ def test_exported_program_matches_direct_forward(pipeline):
             <= TOL, k
     assert result["outputs_dev"][1] <= TOL
     assert result["head_launches"] == 0  # the plain version on the CPU
+
+
+def test_native_host_matches_direct_forward(pipeline):
+    """The native leg: the artifact AOT-compiled for the libtorch host and
+    served by it on the tree's sample 0 (``--in``), every output it dumped
+    within ``TOL`` of the direct forward's scale and its reward within
+    ``TOL``; on the CPU the C++ operator runs its plain version (no
+    launch), over every frame the host served."""
+    _, result = pipeline
+    assert result["native_dev"] <= TOL
+    assert result["native_outputs_dev"][1] <= TOL, result["native_outputs_dev"]
+    assert result["native_head_launches"] == 0
+    assert result["native_frames"] == 1 + 3 + 1  # warm-up, timed, dumped
+    assert result["native_ms"] > 0 and result["package_s"] > 0
+    assert os.path.exists(os.path.join(result["native_dir"], "host.pt2"))
 
 
 def test_preprocess_steps_follow_the_jax_script(monkeypatch):

@@ -19,6 +19,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from creste_public_tpu.utils.pointcloud_vis import (
     export_html_viewer as jexport_html_viewer,
@@ -65,8 +66,9 @@ def test_imports_and_renders_without_matplotlib(tmp_path):
         "import numpy as np\n"
         "from creste_public_tpu_torch.utils import pointcloud_vis as pv\n"
         "pts = np.random.default_rng(0).uniform(-5, 5, (500, 4))\n"
-        f"pv.render_scan(pts, {str(tmp_path / 'scan.png')!r}, size=4.0)\n"
-        "f = pv.PointCloudFigure(figsize=(3, 3))\n"
+        f"pv.render_scan(pts, {str(tmp_path / 'scan.png')!r}, size=4.0, "
+        "device='cpu')\n"
+        "f = pv.PointCloudFigure(device='cpu', figsize=(3, 3))\n"
         "f.draw_mesh_grid(np.random.default_rng(1).normal(size=(8, 8)))\n"
         f"f.save({str(tmp_path / 'mesh.png')!r})\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -91,7 +93,8 @@ def frame_points():
 def test_points_land_where_projected(elev, azim):
     rng = np.random.default_rng(2)
     pts = rng.uniform([0, -3, 0], [10, 3, 2], (40, 3))
-    fig = pv.PointCloudFigure(figsize=(4, 3), elev=elev, azim=azim)
+    fig = pv.PointCloudFigure(device="cpu", figsize=(4, 3), elev=elev,
+                              azim=azim)
     fig.draw_points(frame_points(), colors="black")
     fig.draw_points(pts, colors=np.full((40, 3), [0, 0, 255], np.uint8))
     img = fig.to_array()
@@ -109,7 +112,7 @@ def test_points_land_where_projected(elev, azim):
 
 
 def test_near_point_hides_far_one():
-    fig = pv.PointCloudFigure(figsize=(2, 2))
+    fig = pv.PointCloudFigure(device="cpu", figsize=(2, 2))
     fig.draw_points(frame_points(), colors="black")
     lo, hi = frame_points().min(0), frame_points().max(0)
     centre = (lo + hi) / 2
@@ -122,7 +125,7 @@ def test_near_point_hides_far_one():
     assert dn < df
     assert (int(cn), int(rn)) == (int(cf), int(rf))
     for order in ((far, near), (near, far)):
-        fig2 = pv.PointCloudFigure(figsize=(2, 2))
+        fig2 = pv.PointCloudFigure(device="cpu", figsize=(2, 2))
         fig2.draw_points(frame_points(), colors="black")
         fig2.draw_points(np.stack(order), size=9.0,
                          colors=np.array([[255, 0, 0], [0, 255, 0]])
@@ -136,7 +139,8 @@ def test_near_point_hides_far_one():
 def test_height_colours_follow_height():
     z = np.linspace(0.0, 2.0, 9)
     pts = np.stack([np.linspace(0, 10, 9), np.zeros(9), z], 1)
-    fig = pv.PointCloudFigure(figsize=(4, 4), elev=0.0, azim=-90.0)
+    fig = pv.PointCloudFigure(device="cpu", figsize=(4, 4), elev=0.0,
+                              azim=-90.0)
     fig.draw_points(pts, size=4.0)
     img = fig.to_array()
     col, row, _ = fig.project(pts)
@@ -144,7 +148,8 @@ def test_height_colours_follow_height():
     want = TURBO[np.clip((z / 2.0 * 256).astype(int), 0, 255)]
     np.testing.assert_array_equal(got, want)
     # intensity colouring reads the fourth column
-    fig = pv.PointCloudFigure(figsize=(4, 4), elev=0.0, azim=-90.0)
+    fig = pv.PointCloudFigure(device="cpu", figsize=(4, 4), elev=0.0,
+                              azim=-90.0)
     fig.draw_points(np.concatenate([pts, z[::-1, None]], 1),
                     color_by="intensity", size=4.0)
     got = fig.to_array()[np.floor(row).astype(int),
@@ -158,7 +163,7 @@ def test_mesh_and_trajectory_draw_inside_the_frame():
     hm[2:5, 2:5] = np.nan
     valid = np.ones_like(hm, bool)
     valid[-3:] = False
-    fig = pv.PointCloudFigure(figsize=(3, 3))
+    fig = pv.PointCloudFigure(device="cpu", figsize=(3, 3))
     fig.draw_mesh_grid(hm, valid=valid)
     traj = np.stack([np.linspace(0, 2.3, 20), np.linspace(0, 2.3, 20),
                      np.full(20, 3.0)], 1)
@@ -180,7 +185,8 @@ def test_mesh_and_trajectory_draw_inside_the_frame():
 def test_show_without_a_display_raises(monkeypatch):
     monkeypatch.delenv("DISPLAY", raising=False)
     monkeypatch.delenv("WAYLAND_DISPLAY", raising=False)
-    fig = pv.PointCloudFigure(figsize=(1, 1)).draw_points(frame_points())
+    fig = pv.PointCloudFigure(device="cpu", figsize=(1, 1)).draw_points(
+        frame_points())
     with pytest.raises(RuntimeError, match="no display"):
         fig.show()
 
@@ -228,3 +234,16 @@ def test_viewer_cli_writes_the_jax_scripts_file(raw_tree, tmp_path, args):
     assert sorted(os.listdir(png)) == sorted(f"{f}.png" for f in frames)
     img = np.asarray(Image.open(png / f"{frames[0]}.png"))
     assert img.shape == (800, 800, 3) and (img != 255).any()
+
+
+def test_figure_runs_on_the_card_unless_asked(tmp_path):
+    """The figure and ``render_scan`` default to the card, as the port's
+    entry points do: without one they refuse rather than fall back to the
+    CPU, which a caller asks for with ``device="cpu"``."""
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pv.PointCloudFigure(figsize=(1, 1))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pv.render_scan(frame_points(), str(tmp_path / "scan.png"))
+    assert pv.PointCloudFigure(figsize=(1, 1), device="cpu").device.type \
+        == "cpu"
