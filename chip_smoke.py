@@ -173,7 +173,8 @@ Phases, each printing one line before the final one:
     model in bf16 from f32 masters), ms per step and peak beside f32.
 29. stage-3 data-parallel step (run last): two spawned ranks in a gloo
     group over CUDA tensors, both on the one card (NCCL refuses two ranks
-    on one GPU), at the production preset, global B=10 (5 per rank),
+    on one GPU), spawned once for phases 29 and 30, at the production
+    preset, global B=10 (5 per rank),
     seeded weights, fed drop-connect masks per rank: one VI and one SVF
     launch per rank, no reward-head launch; parameters and running
     statistics bit-equal across the ranks after the step; the reduced
@@ -271,44 +272,66 @@ Phases, each printing one line before the final one:
     its plain version, to KERNEL_RTOL/KERNEL_ATOL; the export and reload
     seconds and the served frame's ms (CUDA events).
 41. spatial inference: the fused production deployment graph (B=1) of
-    one frame, its width split over two ranks (parallel.launch.spawn,
-    gloo over CUDA tensors, both ranks on the one card: NCCL refuses two
-    ranks on one GPU) through runtime.export.build_spatial_inference_fn,
-    with the head's launches counted on each rank (4: the kernel once on
-    the rank's padded strip of the input view), the kernel on that strip
-    against its plain version (KERNEL_ATOL/KERNEL_RTOL) and the rank's
-    reward columns against it to the bit, the outputs equal on both
-    ranks, finite with the one-process shapes, and each stage (the depth
-    and DINO heads, the splat, the decoder and the reward) from the
-    one-process fused graph's input to it within SPATIAL_STAGE_RTOL of
-    that graph's outputs; end to end the keys before the splat's features
-    within SPATIAL_FRAME_RTOL, every output's distance printed.
-42. spatial timing: ms per frame on each rank by CUDA events (and wall),
-    with every output gathered and with the reward alone, beside the
-    one-process fused frame, and the collectives of one frame (count, MB
-    sent, wall): two ranks sharing one card, the wiring's cost, not a
-    scaling number.
+    one frame in every serving variant (f32, fold_bn, the bf16 stream,
+    bf16 + fold_bn, merged heads; and a max splat at the tiny preset,
+    which no production config runs), its width split over two ranks
+    (parallel.launch.spawn once for all, gloo over CUDA tensors, both
+    ranks on the one card: NCCL refuses two ranks on one GPU) through
+    runtime.export.build_spatial_inference_fn from the variant's one-rank
+    InferenceGraph, with the head's launches counted on each rank (4: the
+    kernel once on the rank's padded strip of the input view), the kernel
+    on that strip against its plain version (KERNEL_ATOL/KERNEL_RTOL) and
+    the rank's reward columns against it to the bit, the outputs equal on
+    both ranks, finite with the one-process dtypes and shapes, and each
+    stage (the depth and DINO heads, the splat, the decoder and the
+    reward from the BEV grid, the reward head from the input view) from
+    the one-process fused graph's input to it within SPATIAL_STAGE_RTOL of
+    that graph's outputs (a bf16 stream's stages within
+    SPATIAL_BF16_STAGE_RTOL, its f32 islands within SPATIAL_STAGE_RTOL);
+    end to end the keys before the splat's features within
+    SPATIAL_FRAME_RTOL (bf16: the trunk's maps within
+    SPATIAL_BF16_STAGE_RTOL, the depth's geometry within
+    SPATIAL_BF16_FRAME_RTOL, beside the bf16 stream's own noise), every
+    output's distance printed; the max splat's grid from the same inputs
+    equal to the one-process grid to the bit.
+42. spatial timing: ms per frame on each rank by CUDA events (and wall)
+    of the bf16 + fold_bn split frame (the variant a deployment would
+    split; the other variants are checked, not timed), every output
+    gathered and the reward alone (output_keys; its reward the other
+    frame's to the bit), beside the one-process bf16 + fold_bn fused
+    frame, and the collectives of one frame (count, MB sent, wall): two
+    ranks sharing one card, the wiring's cost, not a scaling number.
 43. native host: the libtorch host (csrc/serve_host.cpp) and the C++
     registration of creste::msfcn_head (csrc/msfcn_head_op.cpp, with
     csrc/msfcn_chain.cu compiled in), built with g++ and nvcc against the
     installed torch beside phases 16-42; the fused production deployment
-    graph (f32, B=1, seed-0 weights) exported and AOT-compiled on the card
-    by python -m creste_public_tpu_torch.runtime.compile --fused
-    --native-dir D --native-package, a process of its own at the lowest
-    CPU priority started before phase 16 (after the kernels' timings);
-    the host, a process with no Python, serves it on the example frame
-    (--in) with --dump: 4 reward-head launches per frame served, its
-    operator's schema equal to the Python one's, every output against the
-    Python process's eager fused graph on the same frame (the keys before
-    the splat to STAGE_RTOL, the rest to FRAME_RTOL, integer maps by their
-    share of equal entries), and its reward against the head's plain
-    version on the host's own dumped input view to KERNEL_ATOL/
-    KERNEL_RTOL.
-44. native timing: the host's ms per frame and Hz on fresh
-    device-resident frames (CUDA events) beside the Python engine's fused
-    f32 frame in this process, its streaming from pinned host memory at
-    pipeline depth 1 (with the H2D, execute and D2H legs) and 2, the
-    package's compile and load seconds.
+    graph (B=1, seed-0 weights) in f32 and then in bf16, each exported and
+    AOT-compiled on the card by python -m
+    creste_public_tpu_torch.runtime.compile --fused [--bf16] --native-dir
+    D --native-package, one after the other in processes of their own at
+    the lowest CPU priority started before phase 16 (after the kernels'
+    timings), the seconds waited for each printed; the host, a process
+    with no Python, serves each on the example frame (--in, in the
+    manifest's dtypes) with --dump: one operator call and 4 reward-head
+    launches per frame served, its operator's schema equal to the Python
+    one's, every output in the eager graph's dtype and against the Python
+    process's eager fused graph of the variant on the same frame, end to
+    end (f32: the keys before the splat to STAGE_RTOL, the rest to
+    FRAME_RTOL, integer maps by their share of equal entries; bf16: the
+    trunk's maps to NATIVE_BF16_STAGE_RTOL, the rest to
+    NATIVE_BF16_FRAME_RTOL) and stage by stage, each later stage (the
+    depth head, the splat, the decoder, the input view, the full reward
+    map) run by the eager graph from the host's own dumped input to it
+    (runtime.native_serve.eager_stages): a bf16 map to
+    NATIVE_BF16_STAGE_RTOL, an f32 one to NATIVE_STAGE_RTOL, an integer
+    map by its share of equal entries; and its reward against the head's
+    plain version on the host's own dumped input view to
+    KERNEL_ATOL/KERNEL_RTOL.
+44. native timing: each host's ms per frame and Hz on fresh
+    device-resident frames (CUDA events), the bf16 host's beside the f32
+    host's and the Python engine's fused f32 frame in this process, their
+    streaming from pinned host memory at pipeline depth 1 (with the H2D,
+    execute and D2H legs) and 2, the packages' compile and load seconds.
 
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
@@ -3232,12 +3255,12 @@ def dp_ranks_module():
     return sys.modules[name]
 
 
-def _dp_rank(rank: int, world: int, init_file: str, case_file: str,
+def _dp_rank(rank: int, world: int, init_file: str, case_files: list,
              out_dir: str, device_type: str = "cuda") -> None:
-    """One rank of phases 29-30, spawned: a gloo group over CUDA tensors,
-    both ranks on the one card (NCCL refuses two ranks on one GPU). One
-    checked step with the launches counted, then DP_TIMED_STEPS timed
-    ones."""
+    """One rank of phases 29-30, spawned once for both: a gloo group over
+    CUDA tensors, both ranks on the one card (NCCL refuses two ranks on
+    one GPU). For each case (stage 3, then stage 2) one checked step with
+    the launches counted, then DP_TIMED_STEPS timed ones."""
     import torch
     import torch.distributed as dist
 
@@ -3260,37 +3283,45 @@ def _dp_rank(rank: int, world: int, init_file: str, case_file: str,
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
     try:
-        c = torch.load(case_file, weights_only=False)
-        model, lm, state = build(c["stage"], c["cfg"], c["weights"],
-                                 device=dev)
-        step = pipelines.make_train_step(c["stage"], model, lm,
-                                         task=c["task"],
-                                         group=dist.group.WORLD)
-        rows = to_device(shard_batch(c["batch"], rank, world), dev)
-        pri = (None if c["pri"] is None
-               else torch.from_numpy(c["pri"][rank]))
-        sync()
-        value_iteration_cuda.launches = expected_svf_cuda.launches = 0
-        rk.msfcn_head_cuda.launches = 0
-        metrics = step(state, rows, Feeder(c["masks"][rank]), priorities=pri)
-        sync()
-        out = dict(launches=(value_iteration_cuda.launches,
-                             expected_svf_cuda.launches,
-                             rk.msfcn_head_cuda.launches),
-                   grads={k: v.cpu() for k, v in grads_of(model).items()},
-                   state={k: v.to("cpu", copy=True) for k, v in
-                          model.state_dict().items()},
-                   metrics={k: float(v) for k, v in metrics.items()})
-        dist.barrier()
-        t0 = time.perf_counter()
-        for _ in range(DP_TIMED_STEPS):
-            step(state, rows, Feeder(c["masks"][rank]), priorities=pri)
-        sync()
-        dist.barrier()
-        out["ms"] = (time.perf_counter() - t0) / DP_TIMED_STEPS * 1e3
-        out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
-                           if cuda else 0.0)
-        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        for case_file in case_files:
+            c = torch.load(case_file, weights_only=False)
+            model, lm, state = build(c["stage"], c["cfg"], c["weights"],
+                                     device=dev)
+            step = pipelines.make_train_step(c["stage"], model, lm,
+                                             task=c["task"],
+                                             group=dist.group.WORLD)
+            rows = to_device(shard_batch(c["batch"], rank, world), dev)
+            pri = (None if c["pri"] is None
+                   else torch.from_numpy(c["pri"][rank]))
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            sync()
+            value_iteration_cuda.launches = expected_svf_cuda.launches = 0
+            rk.msfcn_head_cuda.launches = 0
+            metrics = step(state, rows, Feeder(c["masks"][rank]),
+                           priorities=pri)
+            sync()
+            out = dict(launches=(value_iteration_cuda.launches,
+                                 expected_svf_cuda.launches,
+                                 rk.msfcn_head_cuda.launches),
+                       grads={k: v.cpu() for k, v in grads_of(model).items()},
+                       state={k: v.to("cpu", copy=True) for k, v in
+                              model.state_dict().items()},
+                       metrics={k: float(v) for k, v in metrics.items()})
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(DP_TIMED_STEPS):
+                step(state, rows, Feeder(c["masks"][rank]), priorities=pri)
+            sync()
+            dist.barrier()
+            out["ms"] = (time.perf_counter() - t0) / DP_TIMED_STEPS * 1e3
+            out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                               if cuda else 0.0)
+            torch.save(out, os.path.join(
+                out_dir, f"{c['stage']}_rank{rank}.pt"))
+            del model, lm, state, step, rows
+            if cuda:
+                torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
@@ -3313,14 +3344,10 @@ def dp_gaps(torch, got: dict, want: dict) -> float:
     return worst
 
 
-def dp_step_phase(torch, dev, card: str, phase: int, stage: str) -> dict:
-    """Phase 29 (stage 3) or 30 (stage 2): the two-rank step at the
-    production preset against its serial emulation and the one-process
-    control."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
+def dp_case(torch, stage: str) -> dict:
+    """Phase 29's (stage 3) or 30's (stage 2) case at the production
+    preset: the config, the global batch, the seeded weights, each rank's
+    fed drop-connect masks and SupCon priorities."""
     from creste_public_tpu_torch import weights
     from creste_public_tpu_torch.config.groups import compose_cli
     from creste_public_tpu_torch.data.dataloader import (
@@ -3328,13 +3355,6 @@ def dp_step_phase(torch, dev, card: str, phase: int, stage: str) -> dict:
         build_dataset,
     )
     from creste_public_tpu_torch.training import pipelines
-    from creste_public_tpu_torch.training.loop import to_device
-
-    ranks_mod = dp_ranks_module()
-    Feeder, build, grads_of = (ranks_mod.Feeder, ranks_mod.build,
-                               ranks_mod.grads_of)
-    make_masks = ranks_mod.make_masks
-    serial_emulation = ranks_mod.serial_emulation
 
     if stage == "traversability":
         root, model_name, ds_name, task = (
@@ -3348,6 +3368,7 @@ def dp_step_phase(torch, dev, card: str, phase: int, stage: str) -> dict:
     batch = next(iter(EpochLoader(build_dataset(cfg["dataset"], "train"), B,
                                   shuffle=False, num_workers=4).epoch(0)))
     b = B // DP_WORLD
+    make_masks = dp_ranks_module().make_masks
     case = dict(stage=stage, cfg=model_cfg, task=task, batch=batch,
                 weights=weights.init_weights(pipelines.build_model(
                     stage, model_cfg), SEED).state_dict(),
@@ -3357,22 +3378,54 @@ def dp_step_phase(torch, dev, card: str, phase: int, stage: str) -> dict:
         n = batch["3d_sam_label"][:b].size
         case["pri"] = [np.random.default_rng(70 + r).uniform(size=n).astype(
             np.float32) for r in range(DP_WORLD)]
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
-    case_file = os.path.join(tmp, "case.pt")
-    torch.save(case, case_file)
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    mp.start_processes(_dp_rank, args=(DP_WORLD, os.path.join(
-        tmp, "rendezvous"), case_file, tmp, dev.type), nprocs=DP_WORLD,
-        join=True,
-        daemon=False, start_method="spawn")
-    ranks_s = time.perf_counter() - t0
-    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-             for r in range(DP_WORLD)]
-    import shutil
+    return case
 
-    shutil.rmtree(tmp, ignore_errors=True)
+
+def dp_ranks(torch, dev, cases: list) -> tuple[list, float]:
+    """Both data-parallel cases on DP_WORLD ranks of one spawn (one gloo
+    group): each case's results per rank, and the ranks' seconds with
+    start-up."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        files = []
+        for c in cases:
+            files.append(os.path.join(tmp, f"{c['stage']}_case.pt"))
+            torch.save(c, files[-1])
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.start_processes(_dp_rank, args=(DP_WORLD, os.path.join(
+            tmp, "rendezvous"), files, tmp, dev.type), nprocs=DP_WORLD,
+            join=True, daemon=False, start_method="spawn")
+        ranks_s = time.perf_counter() - t0
+        return [[torch.load(os.path.join(tmp, f"{c['stage']}_rank{r}.pt"),
+                            weights_only=False) for r in range(DP_WORLD)]
+                for c in cases], ranks_s
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dp_step_phase(torch, dev, card: str, phase: int, case: dict,
+                  ranks: list, ranks_s: float) -> dict:
+    """Phase 29 (stage 3) or 30 (stage 2): the two-rank step at the
+    production preset (``ranks``, each rank's results of ``case``)
+    against its serial emulation and the one-process control."""
+    from creste_public_tpu_torch.training import pipelines
+    from creste_public_tpu_torch.training.loop import to_device
+
+    ranks_mod = dp_ranks_module()
+    Feeder, build, grads_of = (ranks_mod.Feeder, ranks_mod.build,
+                               ranks_mod.grads_of)
+    serial_emulation = ranks_mod.serial_emulation
+    stage, model_cfg, task = case["stage"], case["cfg"], case["task"]
+    batch = case["batch"]
+    B = int(model_cfg["batch_size"])
+    b = B // DP_WORLD
 
     want_launches = (1, 1, 0) if stage == "traversability" else (0, 0, 0)
     for r, res in enumerate(ranks):
@@ -3443,8 +3496,8 @@ def dp_step_phase(torch, dev, card: str, phase: int, stage: str) -> dict:
     print(f"  timing phase {phase}: {r0['ms']:.1f} / {r1['ms']:.1f} ms per "
           f"step on ranks 0 / 1, two ranks sharing one card (not a scaling "
           f"number); peak {r0['peak_gib']:.2f} GiB per rank; the ranks' "
-          f"processes took {ranks_s:.1f} s with start-up [{card}]",
-          flush=True)
+          f"processes took {ranks_s:.1f} s with start-up for both stages "
+          f"[{card}]", flush=True)
     return dict(launches=[list(r["launches"]) for r in ranks],
                 ms=[r0["ms"], r1["ms"]])
 
@@ -3564,11 +3617,15 @@ def multitask_phase(torch, dev, card: str) -> dict:
 
 
 def dp_path(torch, dev, card: str) -> dict:
-    """Phases 29-31."""
-    return {"stage-3 dp": dp_step_phase(torch, dev, card, 29,
-                                        "traversability"),
-            "stage-2 dp": dp_step_phase(torch, dev, card, 30, "ssc"),
-            "multitask": multitask_phase(torch, dev, card)}
+    """Phases 29-31: both data-parallel stages in one spawn of the ranks,
+    each then checked, and the multi-task command."""
+    cases = [dp_case(torch, "traversability"), dp_case(torch, "ssc")]
+    results, ranks_s = dp_ranks(torch, dev, cases)
+    return {name: dp_step_phase(torch, dev, card, phase, case, ranks,
+                                ranks_s)
+            for name, phase, case, ranks in zip(
+                ("stage-3 dp", "stage-2 dp"), (29, 30), cases, results)} | {
+        "multitask": multitask_phase(torch, dev, card)}
 
 
 CODA_SEQS = ("0", "1")
@@ -4621,6 +4678,14 @@ def e2e_path(torch, dev, card: str, root: str) -> dict:
 SPATIAL_WORLD = 2
 SPATIAL_TINY = False  # the production preset (True: the tiny one)
 SPATIAL_FRAMES = 8  # timed frames per rank and variant (after 2 warm-up)
+# the serving variants split at the preset beside f32 (tests/
+# test_torch_spatial_ranks.py's VARIANTS), and the one split at the tiny
+# preset: no production config runs a max splat
+SPATIAL_VARIANTS = ("fold_bn", "bf16", "bf16_fold_bn", "merged_heads")
+SPATIAL_TINY_VARIANTS = ("max_splat",)
+# phase 42's split frame: the variant a deployment would split for one
+# frame's latency; the others are checked, not timed
+SPATIAL_TIMED = ("bf16_fold_bn",)
 # the spatial graph against the one-process graph, as max|d| / max(1,
 # max|ref|). Each stage from the one-process graph's input to it: both on
 # the card in f32 (TF32 off), the layers on strips equal to the frame's to
@@ -4633,18 +4698,36 @@ SPATIAL_FRAMES = 8  # timed frames per rank and variant (after 2 warm-up)
 # ``strip_rounding``), 1.2e-06 of its features at its end, and the
 # softmax-expectation depth moves the splat by that: after the splat's
 # feature mean the frame reads 1.5e-03 to 7.4e-03 (printed, as the card
-# and the CPU differ there: phase 3's 2.1e-03 to 4.1e-03)
+# and the CPU differ there: phase 3's 2.1e-03 to 4.1e-03). A bf16 graph:
+# the bf16 stream's stages to SPATIAL_BF16_STAGE_RTOL and its f32 islands
+# from their own inputs (the depth head, the splat's geometry, the reward
+# head from the input view; SPATIAL_ISLANDS) to SPATIAL_STAGE_RTOL
+# (tests/test_torch_precision.py's bars); end to end the trunk's maps
+# (its first stage, from the frame) to SPATIAL_BF16_STAGE_RTOL and the
+# depth's geometry (the metric depth, the splat's coordinates and
+# densities) to SPATIAL_BF16_FRAME_RTOL: on an H100 80GB HBM3 at 700 W
+# the maps read up to 6.9e-03 and the geometry up to 6.5e-02 (the
+# coordinates; the metric depth 3.3e-02), 0.01 to 0.07 of the bf16
+# stream's own noise (the one-process f32 graph's distance from the
+# one-process bf16 graph, printed beside)
 SPATIAL_STAGE_RTOL = 1e-5
 SPATIAL_FRAME_RTOL = 1e-3
+SPATIAL_BF16_STAGE_RTOL = 5e-2
+SPATIAL_BF16_FRAME_RTOL = 0.15
+SPATIAL_TRUNK_MAPS = ("depth_preds_feats", "depth_preds_logits",
+                      "dino_pe_feats")
 SPATIAL_FRAME_KEYS = ("depth_preds_logits", "depth_preds_metric",
                       "depth_preds_bins", "depth_preds_feats",
                       "dino_pe_feats", "bev_coords", "bev_densities")
+SPATIAL_ISLANDS = ("depth_preds_logits", "depth_preds_metric",
+                   "depth_preds_bins", "bev_densities", "bev_coords",
+                   "traversability_preds", "traversability_preds_full")
 
 
 def spatial_ranks_module():
     """tests/test_torch_spatial_ranks.py (the spatial graph's stages from
-    fed inputs), loaded from its path as ``dp_ranks_module`` loads its
-    file."""
+    fed inputs, the serving variants), loaded from its path as
+    ``dp_ranks_module`` loads its file."""
     import importlib.util
 
     name = "chip_smoke_spatial_ranks"
@@ -4658,87 +4741,51 @@ def spatial_ranks_module():
     return sys.modules[name]
 
 
-def _spatial_rank(case_file: str, out_dir: str) -> None:
-    """One rank of phases 41-42, spawned by parallel.launch.spawn (gloo,
-    every rank on cuda:0): the fused spatial graph once with the head's
-    launches counted, its stages from the one-process graph's inputs, the
-    kernel on this rank's padded strip of the input view against its plain
-    version, then the timed frames."""
-    import torch
+def _spatial_timed(torch, fn, rgbd, p2p, cuda: bool) -> tuple[float, float]:
+    """Median CUDA-event and wall ms of SPATIAL_FRAMES split frames (after
+    2 warm-up: cuDNN's first calls at these shapes), every rank entering
+    each frame together."""
     import torch.distributed as dist
 
-    from creste_public_tpu_torch.models.lfd import MaxEntIRL
-    from creste_public_tpu_torch.ops import reward_kernel as rk
-    from creste_public_tpu_torch.parallel import make_spatial_mesh
-    from creste_public_tpu_torch.runtime.export import (
-        build_spatial_inference_fn,
-    )
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    c = torch.load(case_file, weights_only=False)
-    cuda = c["device"] == "cuda"
-    dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
-           else torch.device("cpu"))
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    model = MaxEntIRL(c["cfg"])
-    model.load_state_dict(c["state"], strict=True)
-    model.to(dev).eval()
-    mesh = make_spatial_mesh()
-    fn = build_spatial_inference_fn(model, mesh, fused_reward=True,
-                                    device=dev.type)
-    rgbd = torch.from_numpy(c["rgbd"]).to(dev)
-    p2p = torch.from_numpy(c["p2p"]).to(dev)
-    fn(rgbd, p2p)  # warm-up: cuDNN's first calls at these shapes
-    sync()
-    dist.barrier()
-    rk.msfcn_head_cuda.launches = 0
-    out = fn(rgbd, p2p)
-    sync()
-    launches = rk.msfcn_head_cuda.launches
-    res = {"launches": launches, "rank": mesh.rank,
-           "out": {k: v.detach().cpu() for k, v in out.items()}}
-    fed = {k: v.to(dev) for k, v in c["fed"].items()}
-    tensors = rk.head_tensors(rk.fold_msfcn_params(
-        model.traversability_head.r))
-    stages = spatial_ranks_module().fed_stages(model, fed, p2p, mesh,
-                                               tensors)
-    res["stages"] = {n: {k: v.cpu() for k, v in d.items()}
-                     for n, d in stages.items()}
-    # the kernel on this rank's padded strip of the input view
-    iv = out["input_view"]
-    wv = iv.shape[2]
-    s, e = fn.head_columns(wv)[mesh.rank]
-    a, b = mesh.columns(wv)
-    strip = iv[:, :, s:e].contiguous()
-    folded = rk.fold_msfcn_params(model.traversability_head.r)
-    got = (rk.msfcn_head_cuda(folded, strip) if cuda
-           else rk.msfcn_plain(folded, strip))
-    ref = rk.msfcn_plain(folded, strip)
-    err = (got - ref).abs()
-    res.update(strip_cols=(s, e), own_cols=(a, b),
-               strip_shape=tuple(strip.shape),
-               strip_err=float(err.max()),
-               strip_ok=bool((err <= KERNEL_ATOL + KERNEL_RTOL
-                              * ref.abs()).all()),
-               strip_alive=float((ref > 0).float().mean()),
-               own_equal=bool(torch.equal(
-                   out["traversability_preds"][:, :, a:b],
-                   got[:, :, a - s:b - s])))
-    # phase 42: the collectives of one frame (each timed between two
-    # synchronisations, in one extra frame), then ms per frame, every
-    # output gathered, and the reward alone
+    ev, wall = [], []
+    for i in range(2 + SPATIAL_FRAMES):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        fn(rgbd, p2p)
+        if cuda:
+            end.record()
+            end.synchronize()
+        sync()
+        if i >= 2:
+            wall.append((time.perf_counter() - t0) * 1e3)
+            ev.append(start.elapsed_time(end) if cuda else wall[-1])
+    return statistics.median(ev), statistics.median(wall)
+
+
+def _spatial_collectives(torch, fn, rgbd, p2p, cuda: bool) -> dict:
+    """The collectives of one split frame: their count, the MB this rank
+    sent and their ms, each timed between two synchronisations (so the
+    frame's own ms is no timing of it)."""
+    import torch.distributed as dist
+
     from creste_public_tpu_torch.parallel import spatial as sp
 
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     coll = {"calls": 0, "mb": 0.0, "ms": 0.0}
     real = {n: getattr(sp.SpatialMesh, n) for n in ("all_gather",
                                                     "all_reduce")}
 
     def timed(f):
-        def call(self, t):
+        def call(self, t, *args):
             sync()
             t0 = time.perf_counter()
-            out = f(self, t)
+            out = f(self, t, *args)
             sync()
             coll["ms"] += (time.perf_counter() - t0) * 1e3
             coll["calls"] += 1
@@ -4757,31 +4804,107 @@ def _spatial_rank(case_file: str, out_dir: str) -> None:
     finally:
         for n, f in real.items():
             setattr(sp.SpatialMesh, n, f)
-    res["collectives"] = coll
-    times = {}
-    for name, keys in (("all outputs", None),
-                       ("reward only", ("traversability_preds",))):
-        f = build_spatial_inference_fn(model, mesh, True, output_keys=keys,
-                                       device=dev.type)
-        ev, wall = [], []
-        for i in range(2 + SPATIAL_FRAMES):
-            dist.barrier()
-            sync()
-            t0 = time.perf_counter()
-            if cuda:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-            f(rgbd, p2p)
-            if cuda:
-                end.record()
-                end.synchronize()
-            sync()
-            if i >= 2:
-                wall.append((time.perf_counter() - t0) * 1e3)
-                ev.append(start.elapsed_time(end) if cuda else wall[-1])
-        times[name] = (statistics.median(ev), statistics.median(wall))
-    res["times"] = times
+    return coll
+
+
+def _spatial_variant(torch, job: dict, mesh, dev, timed: bool) -> dict:
+    """One variant on this rank: its one-rank InferenceGraph (fused) split
+    by ``build_spatial_inference_fn``, once with the head's launches
+    counted, its stages from the one-process graph's inputs, the kernel on
+    this rank's padded strip of the input view against its plain version;
+    with ``timed``, phase 42's frames and collectives."""
+    import torch.distributed as dist
+
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.runtime.export import (
+        build_spatial_inference_fn,
+    )
+
+    ranks_mod = spatial_ranks_module()
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    graph = ranks_mod.variant_graph(job, True, dev.type)
+    model = graph.model
+    fn = build_spatial_inference_fn(graph, mesh, device=dev.type)
+    rgbd = torch.from_numpy(job["rgbd"]).to(dev)
+    p2p = torch.from_numpy(job["p2p"]).to(dev)
+    sync()
+    dist.barrier()
+    rk.msfcn_head_cuda.launches = 0
+    out = fn(rgbd, p2p)
+    sync()
+    res = {"launches": rk.msfcn_head_cuda.launches,
+           "out": {k: v.detach().cpu() for k, v in out.items()}}
+    fed = {k: v.to(dev) for k, v in job["fed"].items()}
+    stages = ranks_mod.fed_stages(model, fed, p2p, mesh,
+                                  graph.head_tensors())
+    res["stages"] = {n: {k: v.cpu() for k, v in d.items()}
+                     for n, d in stages.items()}
+    # the kernel on this rank's padded strip of the input view
+    iv = out["input_view"]
+    wv = iv.shape[2]
+    s, e = fn.head_columns(wv)[mesh.rank]
+    a, b = mesh.columns(wv)
+    strip = iv[:, :, s:e].contiguous()
+    # the graph's own folded head (folded once at its build: refolded on
+    # the card, jittered BatchNorms round their rsqrt differently)
+    folded = rk.head_from_tensors(graph.head_tensors())
+    got = (rk.msfcn_head_cuda(folded, strip) if cuda
+           else rk.msfcn_plain(folded, strip))
+    ref = rk.msfcn_plain(folded, strip)
+    err = (got - ref).abs()
+    res.update(strip_cols=(s, e), own_cols=(a, b),
+               strip_shape=tuple(strip.shape),
+               strip_err=float(err.max()),
+               strip_ok=bool((err <= KERNEL_ATOL + KERNEL_RTOL
+                              * ref.abs()).all()),
+               strip_alive=float((ref > 0).float().mean()),
+               own_equal=bool(torch.equal(
+                   out["traversability_preds"][:, :, a:b],
+                   got[:, :, a - s:b - s])))
+    if timed:
+        # phase 42: the collectives of one frame, then ms per frame, every
+        # output gathered, and the reward alone (``output_keys``: the other
+        # outputs stay on their ranks), whose reward is the same to the bit
+        res["collectives"] = _spatial_collectives(torch, fn, rgbd, p2p, cuda)
+        fn_r = build_spatial_inference_fn(graph, mesh, output_keys=(REWARD,),
+                                          device=dev.type)
+        only = fn_r(rgbd, p2p)
+        res["reward_only"] = (sorted(only) == [REWARD] and bool(torch.equal(
+            only[REWARD], out[REWARD])))
+        res["times"] = {"all outputs": _spatial_timed(torch, fn, rgbd, p2p,
+                                                      cuda),
+                        "reward only": _spatial_timed(torch, fn_r, rgbd, p2p,
+                                                      cuda)}
+        del fn_r, only
+    del graph, model, fn
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def _spatial_rank(case_file: str, out_dir: str) -> None:
+    """One rank of phases 41-42, spawned by parallel.launch.spawn (gloo,
+    every rank on cuda:0): each serving variant of the case in turn
+    (``_spatial_variant``), phase 42's timing for SPATIAL_TIMED."""
+    import torch
+
+    from creste_public_tpu_torch.parallel import make_spatial_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = torch.load(case_file, weights_only=False)
+    cuda = c["device"] == "cuda"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
+           else torch.device("cpu"))
+    mesh = make_spatial_mesh()
+    res = {"rank": mesh.rank, "variants": {}}
+    for name, job in c["jobs"].items():
+        cfg, state, opts = spatial_ranks_module().variant_config(
+            *c["presets"][job["tiny"]], name)
+        res["variants"][name] = _spatial_variant(
+            torch, dict(job, cfg=cfg, state=state, opts=opts), mesh, dev,
+            name in SPATIAL_TIMED)
     res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30 if cuda
                        else 0.0)
     torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
@@ -4836,52 +4959,194 @@ def strip_rounding(torch, dev) -> dict:
     return out
 
 
-def spatial_path(torch, dev, card: str) -> dict:
-    """Phases 41-42: the fused deployment graph of one frame, its width
-    split over SPATIAL_WORLD ranks sharing the card, against the
-    one-process fused graph, and its ms per frame."""
-    import shutil
-    import tempfile
-
+def spatial_jobs(torch, dev) -> tuple[dict, dict, dict, dict]:
+    """Phase 41's jobs: each serving variant of the preset's seed-0 graph
+    (f32 and SPATIAL_VARIANTS) and SPATIAL_TINY_VARIANTS at the tiny
+    preset (its reward head's BatchNorms jittered: its last relu is dead
+    at init), each with the one-process fused graph's inputs to its
+    stages (``fed``). Returns the jobs (without their weights), each
+    preset's (config, state) by ``tiny``, the one-process outputs and
+    phase 42's one-process ms per frame of SPATIAL_TIMED."""
     from creste_public_tpu_torch import weights
     from creste_public_tpu_torch.config import presets
     from creste_public_tpu_torch.models.lfd import MaxEntIRL
-    from creste_public_tpu_torch.ops import reward_kernel as rk
-    from creste_public_tpu_torch.parallel import launch
-    from creste_public_tpu_torch.runtime.export import build_inference_fn
 
-    cfg = (presets.tiny_traversability_config() if SPATIAL_TINY
-           else presets.traversability_model_config()).to_dict()
-    cfg["solve_mdp"] = False
-    h, w = cfg["vision_backbone"]["vision_backbone"]["effnet_cfgs"][
-        "image_size"]
-    rgbd, p2p = example_inputs(h, w)
-    model = weights.init_weights(MaxEntIRL(cfg), SEED)
-    if SPATIAL_TINY:  # the tiny head's last relu is dead at init
-        weights.jitter_reward_head_bns(model.traversability_head.r, SEED + 1)
-    state = model.state_dict()
-    # the one-process fused graph, and its inputs to each stage
-    fn = build_inference_fn(cfg, state, device=dev.type)
-    rgbd_d = torch.from_numpy(rgbd).to(dev)
-    p2p_d = torch.from_numpy(p2p).to(dev)
-    ref = {k: v.cpu() for k, v in fn(rgbd_d, p2p_d).items()}
-    B, N = rgbd.shape[:2]
-    fed = {"depth": ref["depth_preds_metric"].reshape(
-               B, N, *ref["depth_preds_metric"].shape[1:]),
-           "feats": ref["depth_preds_feats"].reshape(
-               B, N, *ref["depth_preds_feats"].shape[1:]),
-           "bev": ref["bev_features"]}
-    one_ms = time_ms(torch, lambda: fn(rgbd_d, p2p_d), iters=SPATIAL_FRAMES,
-                     reps=3)
+    ranks_mod = spatial_ranks_module()
+    jobs, bases, refs, one_ms = {}, {}, {}, {}
+    for tiny, names in ((SPATIAL_TINY, ("f32",) + SPATIAL_VARIANTS),
+                        (True, SPATIAL_TINY_VARIANTS)):
+        cfg = (presets.tiny_traversability_config() if tiny
+               else presets.traversability_model_config()).to_dict()
+        cfg["solve_mdp"] = False
+        h, w = cfg["vision_backbone"]["vision_backbone"]["effnet_cfgs"][
+            "image_size"]
+        rgbd, p2p = example_inputs(h, w)
+        model = weights.init_weights(MaxEntIRL(cfg), SEED)
+        if tiny:
+            weights.jitter_reward_head_bns(model.traversability_head.r,
+                                           SEED + 1)
+        state = model.state_dict()
+        bases[tiny] = (cfg, state)
+        del model
+        for name in names:
+            vcfg, vstate, opts = ranks_mod.variant_config(cfg, state, name)
+            job = dict(variant=name, cfg=vcfg, state=vstate, opts=opts,
+                       rgbd=rgbd, p2p=p2p, tiny=tiny)
+            graph = ranks_mod.variant_graph(job, True, dev.type)
+            x = torch.from_numpy(rgbd).to(dev)
+            p = torch.from_numpy(p2p).to(dev)
+            with torch.no_grad():
+                ref = {k: v.cpu() for k, v in graph(x, p).items()}
+                if name in SPATIAL_TIMED and dev.type == "cuda":
+                    one_ms[name] = time_ms(torch, lambda: graph(x, p),
+                                           iters=SPATIAL_FRAMES, reps=3)
+            B, N = rgbd.shape[:2]
+            job["fed"] = {
+                "depth": ref["depth_preds_metric"].reshape(
+                    B, N, *ref["depth_preds_metric"].shape[1:]),
+                "feats": ref["depth_preds_feats"].reshape(
+                    B, N, *ref["depth_preds_feats"].shape[1:]),
+                "bev": ref["bev_features"], "iv": ref["input_view"]}
+            jobs[name], refs[name] = job, ref
+            del graph, x, p
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return jobs, bases, refs, one_ms
+
+
+def spatial_check(torch, dev, name: str, job: dict, ref: dict,
+                  control: dict | None, ranks: list) -> dict:
+    """Phase 41's checks of one variant (``ranks``: each rank's results):
+    the keys, dtypes and shapes of the one-process graph, equal on every
+    rank, finite; the head's 4 launches per rank on the card and the
+    kernel on each rank's strip against its plain version; each stage from
+    the one-process graph's input to it and end to end at the bars above
+    (``control``: the one-process f32 graph, for a bf16 one). Returns the
+    distances."""
+    from creste_public_tpu_torch.ops import reward_kernel as rk
+
+    bf16 = job["opts"].get("compute_dtype") is not None
+    r0 = ranks[0]
+    if sorted(r0["out"]) != sorted(ref):
+        fail(f"phase 41 {name}: the spatial graph's keys "
+             f"{sorted(r0['out'])} are not the one-process graph's "
+             f"{sorted(ref)}")
+    for r, res in enumerate(ranks):
+        split = [k for k in ref if not torch.equal(res["out"][k],
+                                                   r0["out"][k])]
+        if split:
+            fail(f"phase 41 {name}: rank {r}'s outputs differ from rank "
+                 f"0's at {split[:3]}")
+        # (a CPU rehearsal launches no kernel: the operator's plain path)
+        if dev.type == "cuda" and res["launches"] != rk.LAUNCHES_PER_HEAD:
+            fail(f"phase 41 {name}: rank {r} launched the reward-head kernel "
+                 f"{res['launches']} times, not {rk.LAUNCHES_PER_HEAD} "
+                 f"(one head on its strip)")
+        if not (res["strip_ok"] and res["own_equal"]):
+            fail(f"phase 41 {name}: rank {r}: the kernel on its strip "
+                 f"{res['strip_cols']} {res['strip_shape']} is "
+                 f"{res['strip_err']:.3e} from its plain version (tol "
+                 f"{KERNEL_ATOL} + {KERNEL_RTOL}*|ref|), or its reward "
+                 f"columns {res['own_cols']} are not that kernel's")
+    for k, v in r0["out"].items():
+        if (tuple(v.shape) != tuple(ref[k].shape) or v.dtype != ref[k].dtype
+                or not bool(torch.isfinite(v.float()).all())):
+            fail(f"phase 41 {name}: {k} is {v.dtype} {tuple(v.shape)} (one "
+                 f"process {ref[k].dtype} {tuple(ref[k].shape)}) or not "
+                 f"finite")
+    worst, stages = 0.0, []
+    for stage, outs in r0["stages"].items():
+        for k, v in outs.items():
+            if stage == "splat" and not k.startswith("bev_"):
+                continue  # (the decoder and reward: held from the grid)
+            bar = (SPATIAL_BF16_STAGE_RTOL if bf16 and not (
+                stage != "bev" and k in SPATIAL_ISLANDS)
+                else SPATIAL_STAGE_RTOL)
+            rel = max_rel(v, ref[k])[1]
+            worst = max(worst, rel / bar)
+            stages.append(f"{stage} {k} {rel:.3e} ({bar:g})")
+            if rel > bar:
+                fail(f"phase 41 {name}: {k} from the one-process graph's "
+                     f"input to the {stage} stage differs by {rel:.3e} > "
+                     f"{bar}")
+    held = len(stages)
+    print(f"  phase 41 {name}, each stage from the one-process graph's "
+          "input, max|d|/max(1,max|ref|) (bar): " + ", ".join(stages),
+          flush=True)
+    max_equal = None
+    if job["opts"].get("scatter_mode") == "max":
+        max_equal = bool(torch.equal(r0["stages"]["splat"]["bev_features"],
+                                     ref["bev_features"]))
+        if not max_equal:  # max is associative: the grid to the bit
+            fail(f"phase 41 {name}: the max splat's grid from the "
+                 "one-process graph's input is not its grid to the bit")
+    e2e, bars, noise = {}, {}, {}
+    for k in sorted(ref):
+        e2e[k] = max_rel(r0["out"][k], ref[k])[1]
+        if k in SPATIAL_FRAME_KEYS and ref[k].is_floating_point():
+            bars[k] = (SPATIAL_FRAME_RTOL if not bf16 else
+                       SPATIAL_BF16_STAGE_RTOL if k in SPATIAL_TRUNK_MAPS
+                       else SPATIAL_BF16_FRAME_RTOL)
+            if bf16:
+                noise[k] = max_rel(control[k], ref[k])[1]
+        elif k in SPATIAL_FRAME_KEYS and not bf16:
+            bars[k] = SPATIAL_FRAME_RTOL
+        if k in bars and e2e[k] > bars[k]:
+            fail(f"phase 41 {name}: {k} end to end differs from the "
+                 f"one-process graph's by {e2e[k]:.3e} > {bars[k]:.3e}")
+    print(f"  phase 41 {name}, end to end, max|d|/max(1,max|ref|) (bar"
+          + ("; the bf16 noise" if bf16 else "") + "): "
+          + ", ".join(f"{k} {v:.3e}" + (
+              f" ({bars[k]:.3e}" + (f"; {noise[k]:.3e}" if k in noise
+                                    else "") + ")" if k in bars else "")
+              for k, v in e2e.items()), flush=True)
+    print(f"phase 41 spatial inference, {name}"
+          f"{' (tiny preset)' if job['tiny'] else ''}: ok, "
+          f"{len(ranks)} ranks at RGBD {list(job['rgbd'].shape)}; "
+          f"reward-head launches per rank "
+          f"{[res['launches'] for res in ranks]} (the kernel once on each "
+          f"rank's padded strip "
+          + ", ".join(f"{res['strip_cols']} {list(res['strip_shape'])}"
+                      for res in ranks)
+          + ", max|d| from its plain version "
+          + ", ".join(f"{res['strip_err']:.3e}" for res in ranks)
+          + f", tol {KERNEL_ATOL} + {KERNEL_RTOL}*|ref|, "
+          + ", ".join(f"{res['strip_alive']:.3f}" for res in ranks)
+          + " of it non-zero; each rank's reward columns that kernel's "
+          f"to the bit); outputs equal on every rank, {len(ref)} outputs "
+          f"finite with the one-process dtypes and shapes; {held} outputs "
+          f"of its stages, each from its input, <= {worst:.3f} of their "
+          f"bars; end to end the reward {e2e['traversability_preds']:.3e}, "
+          f"worst key {max(e2e, key=e2e.get)} {max(e2e.values()):.3e}"
+          + ("" if max_equal is None else
+             "; the max splat's grid from the same inputs equal to the "
+             "bit"),
+          flush=True)
+    return dict(launches=[res["launches"] for res in ranks],
+                strip_err=max(res["strip_err"] for res in ranks), e2e=e2e,
+                max_equal=max_equal)
+
+
+def spatial_path(torch, dev, card: str) -> dict:
+    """Phases 41-42: the fused deployment graph of one frame in every
+    serving variant, its width split over SPATIAL_WORLD ranks sharing the
+    card (one spawn for all), against the one-process graph of the
+    variant, and the ms per frame of SPATIAL_TIMED."""
+    import shutil
+    import tempfile
+
+    from creste_public_tpu_torch.parallel import launch
+
+    jobs, bases, refs, one_ms = spatial_jobs(torch, dev)
     rounding = strip_rounding(torch, dev)
-    del fn, rgbd_d, p2p_d
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_spatial_")
     try:
         case_file = os.path.join(tmp, "case.pt")
-        torch.save(dict(cfg=cfg, state=state, rgbd=rgbd, p2p=p2p, fed=fed,
-                        device=dev.type), case_file)
+        # one state per preset: each rank makes the variants' own
+        torch.save(dict(jobs={n: {k: v for k, v in j.items()
+                                  if k not in ("cfg", "state")}
+                              for n, j in jobs.items()},
+                        presets=bases, device=dev.type), case_file)
         t0 = time.perf_counter()
         launch.spawn(_spatial_rank, SPATIAL_WORLD, dev.type, case_file, tmp,
                      backend="gloo")
@@ -4892,110 +5157,54 @@ def spatial_path(torch, dev, card: str) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    r0 = ranks[0]
-    if sorted(r0["out"]) != sorted(ref):
-        fail(f"phase 41: the spatial graph's keys {sorted(r0['out'])} are "
-             f"not the one-process graph's {sorted(ref)}")
-    for r, res in enumerate(ranks):
-        split = [k for k in ref if not torch.equal(res["out"][k],
-                                                   r0["out"][k])]
-        if split:
-            fail(f"phase 41: rank {r}'s outputs differ from rank 0's at "
-                 f"{split[:3]}")
-        # (a CPU rehearsal launches no kernel: the operator's plain path)
-        if dev.type == "cuda" and res["launches"] != rk.LAUNCHES_PER_HEAD:
-            fail(f"phase 41: rank {r} launched the reward-head kernel "
-                 f"{res['launches']} times, not {rk.LAUNCHES_PER_HEAD} "
-                 f"(one head on its strip)")
-        if not (res["strip_ok"] and res["own_equal"]):
-            fail(f"phase 41: rank {r}: the kernel on its strip "
-                 f"{res['strip_cols']} {res['strip_shape']} is "
-                 f"{res['strip_err']:.3e} from its plain version (tol "
-                 f"{KERNEL_ATOL} + {KERNEL_RTOL}*|ref|), or its reward "
-                 f"columns {res['own_cols']} are not that kernel's")
-    for k, v in r0["out"].items():
-        if tuple(v.shape) != tuple(ref[k].shape) or not bool(
-                torch.isfinite(v.float()).all()):
-            fail(f"phase 41: {k} is {tuple(v.shape)} (one process "
-                 f"{tuple(ref[k].shape)}) or not finite")
-    worst, held = 0.0, 0
-    for stage, outs in r0["stages"].items():
-        for k, v in outs.items():
-            if stage == "splat" and not k.startswith("bev_"):
-                continue  # (the decoder and reward: held from the grid)
-            d, rel = max_rel(v, ref[k])
-            worst = max(worst, rel)
-            print(f"  spatial vs one process, stage {stage} {k}: max|d| "
-                  f"{d:.3e}, max|d|/max(1,max|ref|) {rel:.3e}", flush=True)
-            held += 1
-            if rel > SPATIAL_STAGE_RTOL:
-                fail(f"phase 41: {k} from the one-process graph's input to "
-                     f"the {stage} stage differs by {rel:.3e} > "
-                     f"{SPATIAL_STAGE_RTOL}")
-    e2e = {}
-    for k in sorted(ref):
-        d, rel = max_rel(r0["out"][k], ref[k])
-        e2e[k] = rel
-        print(f"  spatial vs one process end to end {k}: max|d| {d:.3e}, "
-              f"max|d|/max(1,max|ref|) {rel:.3e}"
-              + (f" (bar {SPATIAL_FRAME_RTOL})" if k in SPATIAL_FRAME_KEYS
-                 else ""), flush=True)
-        if k in SPATIAL_FRAME_KEYS and rel > SPATIAL_FRAME_RTOL:
-            fail(f"phase 41: {k} end to end differs from the one-process "
-                 f"graph's by {rel:.3e} > {SPATIAL_FRAME_RTOL}")
-    print(f"phase 41 spatial inference: ok, {SPATIAL_WORLD} ranks (gloo "
-          f"over CUDA tensors, all on the one card) at RGBD "
-          f"{list(rgbd.shape)}, each owning "
-          + ", ".join(f"input-view columns {res['own_cols']}"
-                      for res in ranks)
-          + f"; reward-head launches per rank "
-          f"{[res['launches'] for res in ranks]} (the kernel once on each "
-          f"rank's padded strip "
-          + ", ".join(f"{res['strip_cols']} {list(res['strip_shape'])}"
-                      for res in ranks)
-          + ", max|d| from its plain version "
-          + ", ".join(f"{res['strip_err']:.3e}" for res in ranks)
-          + f", tol {KERNEL_ATOL} + {KERNEL_RTOL}*|ref|, "
-          + ", ".join(f"{res['strip_alive']:.3f}" for res in ranks)
-          + " of it non-zero; each rank's reward columns that kernel's "
-          f"to the bit); outputs equal on every rank; {len(ref)} outputs "
-          f"finite with the one-process shapes; against the one-process "
-          f"graph {held} outputs of its stages, each from its input, <= "
-          f"{worst:.3e} (bar {SPATIAL_STAGE_RTOL}), end to end the "
-          f"{len(SPATIAL_FRAME_KEYS)} keys before the splat's features <= "
-          f"{max(e2e[k] for k in SPATIAL_FRAME_KEYS):.3e} (bar "
-          f"{SPATIAL_FRAME_RTOL}), the reward "
-          f"{e2e['traversability_preds']:.3e}, worst key "
-          f"{max(e2e, key=e2e.get)} {max(e2e.values()):.3e}", flush=True)
+    checked = {name: spatial_check(
+        torch, dev, name, job, refs[name],
+        refs["f32"] if job["opts"].get("compute_dtype") else None,
+        [res["variants"][name] for res in ranks])
+        for name, job in jobs.items()}
     print(f"  strips against the frame at the trunk's shapes: the "
           f"resizes {rounding['resize']}, the convolutions "
           f"{rounding['conv']} elements apart; the frame mean by halves "
           f"{rounding['mean']} elements apart, by up to "
           f"{rounding['mean_rel']:.3e} of its largest: what the end-to-end "
           f"distance grows from [{card}]", flush=True)
-    print(f"  timing phase 42: one frame across {SPATIAL_WORLD} ranks "
-          + "; ".join(f"{name}: " + " / ".join(
-              f"{res['times'][name][0]:.3f}" for res in ranks)
-              + " ms (CUDA events on ranks "
-              + " / ".join(str(r) for r in range(SPATIAL_WORLD))
-              + "; wall " + " / ".join(f"{res['times'][name][1]:.3f}"
-                                       for res in ranks) + " ms)"
-              for name in r0["times"])
-          + "; in one more frame (all outputs) " + " / ".join(
-              f"{res['collectives']['calls']} collectives, "
-              f"{res['collectives']['mb']:.1f} MB sent, "
-              f"{res['collectives']['ms']:.1f} of "
-              f"{res['collectives']['frame_ms']:.1f} ms" for res in ranks)
-          + f" (ranks 0 / 1, wall between synchronisations); the "
-          f"one-process fused frame {one_ms:.3f} ms; ranks sharing "
-          f"one card, so the wiring's cost, not a scaling number; peak "
-          + " / ".join(f"{res['peak_gib']:.2f}" for res in ranks)
-          + f" GiB per rank; the ranks' processes took {ranks_s:.1f} s "
-          f"with start-up [{card}]", flush=True)
-    return dict(launches=[res["launches"] for res in ranks],
-                strip_err=max(res["strip_err"] for res in ranks),
-                times={n: [res["times"][n][0] for res in ranks]
-                       for n in r0["times"]}, one_ms=one_ms)
+    times = {}
+    for name in SPATIAL_TIMED:
+        vs = [res["variants"][name] for res in ranks]
+        if not all(v["reward_only"] for v in vs):
+            fail(f"phase 42 {name}: the split frame with output_keys the "
+                 "reward alone returned other keys, or another reward than "
+                 "the frame that gathers every output")
+        times[name] = {n: [v["times"][n][0] for v in vs]
+                       for n in vs[0]["times"]}
+        print(f"  timing phase 42 ({name}): one frame across "
+              f"{SPATIAL_WORLD} ranks "
+              + "; ".join(f"{n}: " + " / ".join(
+                  f"{v['times'][n][0]:.3f}" for v in vs)
+                  + " ms (CUDA events on ranks "
+                  + " / ".join(str(r) for r in range(SPATIAL_WORLD))
+                  + "; wall " + " / ".join(f"{v['times'][n][1]:.3f}"
+                                           for v in vs) + " ms)"
+                  for n in vs[0]["times"])
+              + "; in one more frame (all outputs) " + " / ".join(
+                  f"{v['collectives']['calls']} collectives, "
+                  f"{v['collectives']['mb']:.1f} MB sent, "
+                  f"{v['collectives']['ms']:.1f} of "
+                  f"{v['collectives']['frame_ms']:.1f} ms" for v in vs)
+              + f" (ranks 0 / 1, wall between synchronisations); the "
+              f"one-process fused {name} frame "
+              f"{one_ms.get(name, float('nan')):.3f} ms; ranks sharing one "
+              f"card, so the wiring's cost, not a scaling number [{card}]",
+              flush=True)
+    print(f"  phases 41-42: peak " + " / ".join(
+        f"{res['peak_gib']:.2f}" for res in ranks)
+        + f" GiB per rank; the ranks' processes took {ranks_s:.1f} s with "
+        f"start-up for {len(jobs)} variants [{card}]", flush=True)
+    return dict(launches=checked["f32"]["launches"],
+                strip_err=max(c["strip_err"] for c in checked.values()),
+                variant_launches={n: c["launches"]
+                                  for n, c in checked.items()},
+                times=times, one_ms=one_ms)
 
 
 # --- phases 43-44: the libtorch host, the deployment graph with no Python ---
@@ -5017,70 +5226,111 @@ NATIVE_PRE_SPLAT = ("depth_preds_feats", "depth_preds_logits",
 NATIVE_INT_AGREE = 0.999
 
 
+NATIVE_PACKAGES = ("f32", "bf16")  # compiled in this order, then served
+NATIVE_COMPILE_CORES = 2
+# the bf16 host against the eager bf16 graph end to end: the trunk's maps
+# to the bf16 stream's stage bar (tests/test_torch_precision.py:
+# AOTInductor rounds once per fusion, the eager graph after every op);
+# the metric depth (the softmax expectation turns the logits' bf16 noise
+# into 0.20 of its scale) and every key after it to
+# NATIVE_BF16_FRAME_RTOL, above the largest reading on an H100 80GB HBM3
+# at 700 W (bev_features 0.919; the reward 0.212): the splat's weights
+# follow the depth. What holds the keys after the trunk is each stage
+# from the host's own input to it (``native_serve.eager_stages``, both
+# packages): a bf16 map to NATIVE_BF16_STAGE_RTOL, an f32 one (an island,
+# inductor's fused sums against the eager ones) to NATIVE_STAGE_RTOL, an
+# integer map by NATIVE_INT_AGREE; the reward (an f32 island) against the
+# plain head on the host's own input view at the kernel's bar
+NATIVE_BF16_MAPS = ("depth_preds_feats", "depth_preds_logits",
+                    "dino_pe_feats")
+NATIVE_BF16_STAGE_RTOL = 5e-2
+NATIVE_BF16_FRAME_RTOL = 1.0
+NATIVE_STAGE_RTOL = 1e-4
+
+
 def start_native_package(dev) -> dict:
-    """Phase 43's package, compiled beside the phases that run before it:
+    """Phase 43's packages, compiled beside the phases that run before it:
     ``python -m creste_public_tpu_torch.runtime.compile --fused
-    --native-dir D --native-package`` (the seed-0 deployment graph at the
-    preset, on ``dev``) in a process of its own at the lowest CPU
-    priority, its output in a log. The process is stopped at exit if it is
-    still running."""
+    [--bf16] --native-dir D --native-package`` (the seed-0 deployment
+    graph at the preset, on ``dev``), f32 then bf16, each in a process of
+    its own at the lowest CPU priority on NATIVE_COMPILE_CORES cores (the
+    phases beside them keep the other cores for their CPU checks: on an
+    H100 80GB HBM3 machine at 700 W the two compiles on every core slowed
+    those checks by up to a quarter), its output in a log. Returns, per
+    package, its directory and a future of (exit code, log, the command's
+    wall seconds). A process still running at exit is stopped."""
     import atexit
     import tempfile
+    import threading
+    from concurrent.futures import Future
 
-    work = tempfile.mkdtemp(prefix="chip_smoke_native_")
-    log = open(os.path.join(work, "compile.log"), "w")
-    cmd = [sys.executable, "-m", "creste_public_tpu_torch.runtime.compile",
-           "--fused", "--out", os.path.join(work, "program.pt2"),
-           "--native-dir", os.path.join(work, "artifact"),
-           "--native-package", "--device", dev.type] + (
-               ["--tiny"] if NATIVE_TINY else [])
-    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                            cwd=os.path.dirname(os.path.abspath(__file__)),
-                            preexec_fn=lambda: os.nice(19))
-    atexit.register(lambda: proc.poll() is None and proc.kill())
-    return dict(proc=proc, work=work, log=log, t0=time.time())
+    procs = []
+    # the compiles' cores: the last NATIVE_COMPILE_CORES of this process's,
+    # so that the phases they run beside keep the others to themselves
+    cores = sorted(os.sched_getaffinity(0))[-NATIVE_COMPILE_CORES:]
+    pending = {name: dict(work=tempfile.mkdtemp(
+        prefix=f"chip_smoke_native_{name}_"), done=Future())
+        for name in NATIVE_PACKAGES}
+
+    def compile_all() -> None:
+        for name, p in pending.items():
+            try:
+                work = p["work"]
+                t0 = time.time()
+                with open(os.path.join(work, "compile.log"), "w") as log:
+                    cmd = [sys.executable, "-m",
+                           "creste_public_tpu_torch.runtime.compile",
+                           "--fused", "--out",
+                           os.path.join(work, "program.pt2"),
+                           "--native-dir", os.path.join(work, "artifact"),
+                           "--native-package", "--device", dev.type] + (
+                               ["--tiny"] if NATIVE_TINY else []) + (
+                               ["--bf16"] if name == "bf16" else [])
+                    proc = subprocess.Popen(
+                        cmd, stdout=log, stderr=subprocess.STDOUT,
+                        cwd=os.path.dirname(os.path.abspath(__file__)),
+                        env=dict(os.environ, OMP_NUM_THREADS=str(
+                            len(cores)), TORCHINDUCTOR_COMPILE_THREADS=str(
+                                len(cores))),
+                        preexec_fn=lambda: (os.nice(19), os.sched_setaffinity(
+                            0, cores)))
+                    procs.append(proc)
+                    rc = proc.wait()
+                with open(os.path.join(work, "compile.log")) as f:
+                    p["done"].set_result((rc, f.read(), time.time() - t0))
+            except Exception as e:  # reported where it is awaited
+                p["done"].set_exception(e)
+
+    threading.Thread(target=compile_all, daemon=True).start()
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return pending
 
 
-def native_path(torch, dev, card: str, host_build, pending: dict,
-                cfg: dict | None = None, state: dict | None = None) -> dict:
-    """Phases 43-44: the production deployment graph (fused, f32, B=1,
-    seed-0 weights), exported and AOT-compiled on the card by ``compile
-    --native-dir D --native-package`` (``pending``, started by
-    ``start_native_package``), served by the libtorch host
-    (``csrc/serve_host.cpp``, no Python in its process) with the C++
-    ``creste::msfcn_head``; ``host_build`` is the future of the host's
-    build, started at phase 1."""
+def native_serve_check(torch, dev, card: str, name: str, pending: dict,
+                       cfg: dict, state: dict, rgbd, p2p,
+                       control: dict | None = None) -> dict:
+    """Phase 43 for one package (``name`` "f32" or "bf16"): waits for its
+    compile, serves it with the libtorch host (``--in`` the frame,
+    ``--dump``, ``--pipeline 2``), and holds its launches (4 per frame on
+    the card), its operator's schema, its outputs against the Python
+    process's eager fused graph of the same variant (``control``: the
+    eager f32 graph's outputs, for the bf16 package's noise bar) and its
+    reward against the plain head on the host's own input view."""
     import shutil
 
     from creste_public_tpu_torch.ops import reward_kernel as rk
-    from creste_public_tpu_torch.runtime import benchmark, native_serve
-    from creste_public_tpu_torch.runtime.compile import (
-        deployment_config,
-        deployment_state,
-    )
+    from creste_public_tpu_torch.runtime import native_serve
     from creste_public_tpu_torch.runtime.export import build_inference_fn
 
-    if cfg is None or NATIVE_TINY:
-        cfg = deployment_config(NATIVE_TINY)
-        state = deployment_state(cfg)
-    h, w = cfg["vision_backbone"]["vision_backbone"]["effnet_cfgs"][
-        "image_size"]
-    rgbd, p2p = example_inputs(h, w)
-    t_phase = time.perf_counter()
-    built = host_build.result()
+    bf16 = name == "bf16"
+    t0 = time.perf_counter()
+    rc, compile_log, compile_wall = pending["done"].result()
+    waited = time.perf_counter() - t0
     work = pending["work"]
     try:
-        rc = pending["proc"].wait()
-        waited = time.perf_counter() - t_phase
-        pending["log"].close()
-        # the command's wall: from its start to its log's last write
-        compile_wall = (os.path.getmtime(os.path.join(work, "compile.log"))
-                        - pending["t0"])
-        with open(os.path.join(work, "compile.log")) as f:
-            compile_log = f.read()
         if rc != 0:
-            fail(f"phase 43: compile --native-package exited {rc}:\n"
-                 f"{compile_log[-3000:]}")
+            fail(f"phase 43: compile --native-package ({name}) exited {rc}:"
+                 f"\n{compile_log[-3000:]}")
         found = re.search(r"host package: ([0-9.]+) MB, compiled in "
                           r"([0-9.]+) s", compile_log)
         package_mb, package_s = float(found[1]), float(found[2])
@@ -5090,100 +5340,191 @@ def native_path(torch, dev, card: str, host_build, pending: dict,
             artifact, dev.type, iters=NATIVE_ITERS, warmup=NATIVE_WARMUP,
             distinct=NATIVE_DISTINCT, pipeline=2, fetch=NATIVE_FETCH,
             inputs=native_serve.write_inputs(
-                os.path.join(work, "in"), {"rgbd": rgbd, "p2p": p2p}),
+                os.path.join(work, "in"), {"rgbd": rgbd, "p2p": p2p},
+                artifact),
             dump=dump)
         got = native_serve.read_dump(dump, artifact)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches, frames = report["msfcn_head_launches"], report["frames_run"]
     want_launches = rk.LAUNCHES_PER_HEAD * frames if dev.type == "cuda" else 0
-    if launches != want_launches:
-        fail(f"phase 43: the host launched the reward-head kernel {launches} "
-             f"times over {frames} frames, not {want_launches}")
+    if launches != want_launches or report["msfcn_head_calls"] != frames:
+        fail(f"phase 43 {name}: the host called the reward head "
+             f"{report['msfcn_head_calls']} times and launched its kernel "
+             f"{launches} times over {frames} frames, not {frames} and "
+             f"{want_launches}")
     schema = str(torch.ops.creste.msfcn_head.default._schema)
     if report["msfcn_head_schema"] != schema:
-        fail(f"phase 43: the host's creste::msfcn_head is "
+        fail(f"phase 43 {name}: the host's creste::msfcn_head is "
              f"{report['msfcn_head_schema']!r}, Python's {schema!r}")
     for o in report["outputs"]:
         if tuple(o["dims"]) != tuple(got[o["name"]].shape):
-            fail(f"phase 43: the host's {o['name']} is {o['dims']}, the "
-                 f"manifest's {tuple(got[o['name']].shape)}")
+            fail(f"phase 43 {name}: the host's {o['name']} is {o['dims']}, "
+                 f"the manifest's {tuple(got[o['name']].shape)}")
 
-    # the Python process's eager fused graph on the same frame
-    fn = build_inference_fn(cfg, state, device=dev.type)
+    # the Python process's eager fused graph of the variant on the frame
+    fn = build_inference_fn(cfg, state, device=dev.type,
+                            compute_dtype="bfloat16" if bf16 else None)
     with torch.no_grad():
         eager = {k: v.cpu() for k, v in fn(rgbd, p2p).items()}
     if sorted(eager) != sorted(got):
-        fail(f"phase 43: the host returned {sorted(got)}, the eager graph "
-             f"{sorted(eager)}")
-    gaps = {}
+        fail(f"phase 43 {name}: the host returned {sorted(got)}, the eager "
+             f"graph {sorted(eager)}")
+    gaps, held = {}, {}
     for k in sorted(eager):
+        if got[k].dtype != eager[k].dtype:
+            fail(f"phase 43 {name}: the host's {k} is {got[k].dtype}, the "
+                 f"eager graph's {eager[k].dtype}")
         if not eager[k].is_floating_point():
             agree = float((got[k] == eager[k]).float().mean())
             gaps[k] = agree
-            if agree < NATIVE_INT_AGREE:
-                fail(f"phase 43: {k} agrees with the eager graph on "
+            # (bf16: the logits' bf16 noise flips near-ties of the depth
+            # bins' argmax end to end; the depth head's stage holds them)
+            if not bf16 and agree < NATIVE_INT_AGREE:
+                fail(f"phase 43 {name}: {k} agrees with the eager graph on "
                      f"{agree:.5f} of its entries < {NATIVE_INT_AGREE}")
             continue
-        if not bool(torch.isfinite(got[k]).all()):
-            fail(f"phase 43: the host's {k} has non-finite values")
+        if not bool(torch.isfinite(got[k].float()).all()):
+            fail(f"phase 43 {name}: the host's {k} has non-finite values")
         _, rel = max_rel(got[k], eager[k])
         gaps[k] = rel
-        bar = STAGE_RTOL if k in NATIVE_PRE_SPLAT else FRAME_RTOL
+        if not bf16:
+            bar = STAGE_RTOL if k in NATIVE_PRE_SPLAT else FRAME_RTOL
+        elif k in NATIVE_BF16_MAPS:
+            bar = NATIVE_BF16_STAGE_RTOL
+        else:
+            bar = NATIVE_BF16_FRAME_RTOL
+            gaps[k] = (rel, max_rel(control[k], eager[k])[1])
+        held[k] = rel
         if rel > bar:
-            fail(f"phase 43: the host's {k} is {rel:.3e} of its scale from "
-                 f"the eager graph's (bar {bar})")
-    print("  phase 43 host vs eager per key (max|d|/max(1,max|ref|); an "
-          "integer map's share of equal entries): " + ", ".join(
-              f"{k} {v:.3e}" for k, v in gaps.items()), flush=True)
+            fail(f"phase 43 {name}: the host's {k} is {rel:.3e} of its "
+                 f"scale from the eager graph's (bar {bar:.3e})")
+    print(f"  phase 43 {name} host vs eager per key end to end (max|d|/max("
+          "1,max|ref|)" + ("; the bf16 noise" if bf16 else "")
+          + "; an integer map's share of equal entries): " + ", ".join(
+              f"{k} {v:.3e}" if isinstance(v, float) else
+              f"{k} {v[0]:.3e} ({v[1]:.3e})" for k, v in gaps.items()),
+          flush=True)
+    # each stage after the trunk from the host's own input to it
+    stages = native_serve.eager_stages(fn.graph, got, p2p)
+    staged = {}
+    for stage, (want, have) in stages.items():
+        if not want.is_floating_point():
+            staged[stage] = float((have == want).float().mean())
+            if staged[stage] < NATIVE_INT_AGREE:
+                fail(f"phase 43 {name}: the host's {stage} agrees with the "
+                     f"eager graph's from its own input on "
+                     f"{staged[stage]:.5f} of its entries < "
+                     f"{NATIVE_INT_AGREE}")
+            continue
+        bar = (NATIVE_BF16_STAGE_RTOL if want.dtype == torch.bfloat16
+               else NATIVE_STAGE_RTOL)
+        staged[stage] = max_rel(have, want)[1]
+        if have.dtype != want.dtype or staged[stage] > bar:
+            fail(f"phase 43 {name}: the host's {stage} ({have.dtype}) is "
+                 f"{staged[stage]:.3e} of its scale from the eager graph's "
+                 f"({want.dtype}) from the host's own input (bar {bar:g})")
+    print(f"  phase 43 {name} host, each stage from its own input against "
+          "the eager graph (max|d|/max(1,max|ref|); an integer map's share "
+          "of equal entries): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in staged.items()), flush=True)
     # the kernel in the host against its plain version on the host's own
-    # input view
-    folded = rk.fold_msfcn_params(fn.graph.model.traversability_head.r)
+    # input view, with the graph's folded head (the package's)
+    folded = rk.head_from_tensors(fn.graph.head_tensors())
     with torch.no_grad():
         ref = rk.msfcn_plain(folded, got["input_view"].to(dev))
-    err = check_close("phase 43: the host's reward against the plain head "
-                      "on its input view", got[REWARD].to(dev), ref,
+    err = check_close(f"phase 43 {name}: the host's reward against the plain "
+                      "head on its input view", got[REWARD].to(dev), ref,
                       KERNEL_ATOL, KERNEL_RTOL)
     spread = float(got[REWARD].std())
     if not spread > 0 and not NATIVE_TINY:  # the tiny head is dead at init
-        fail("phase 43: the host's reward is constant")
-    print(f"phase 43 native host: ok, compile --native-package exported the "
-          f"fused {'tiny' if NATIVE_TINY else 'production'} graph and "
-          f"AOT-compiled it on the {dev.type} in {package_s:.1f} s "
-          f"({package_mb:.1f} MB; the command {compile_wall:.1f} s at the "
-          f"lowest CPU priority beside the earlier phases, {waited:.1f} s "
-          f"of it waited for here); the host (built in "
-          f"{built['seconds']:.1f} s) loaded it in "
-          f"{report['load_s']:.3f} s and served {frames} frames with "
-          f"{launches} reward-head launches ({launches / frames:.0f} per "
-          f"frame) through the C++ {report['msfcn_head_schema']}; "
-          f"{len(gaps)} outputs within their bars of the eager graph (the "
-          f"keys before the splat <= {STAGE_RTOL}, the rest <= "
-          f"{FRAME_RTOL}; worst {max((v for k, v in gaps.items() if eager[k].is_floating_point()), default=0.0):.3e}); "
-          f"its reward {err:.3e} from the plain head on its own input view "
-          f"(tol {KERNEL_ATOL} + {KERNEL_RTOL}*|ref|), std {spread:.3e}; "
-          f"TF32 {'on' if report['tf32'] else 'off'} [{card}]", flush=True)
+        fail(f"phase 43 {name}: the host's reward is constant")
+    print(f"phase 43 native host ({name}): ok, compile --native-package "
+          f"exported the fused {name} "
+          f"{'tiny' if NATIVE_TINY else 'production'} graph and AOT-compiled"
+          f" it on the {dev.type} in {package_s:.1f} s ({package_mb:.1f} MB;"
+          f" the command {compile_wall:.1f} s at the lowest CPU priority "
+          f"beside the earlier phases, {waited:.1f} s of it waited for "
+          f"here); the host loaded it in {report['load_s']:.3f} s and "
+          f"served {frames} frames with {report['msfcn_head_calls']} calls "
+          f"of the C++ {report['msfcn_head_schema']} and {launches} "
+          f"reward-head launches ({launches / frames:.0f} per frame); "
+          f"{len(held)} outputs within their bars of the eager {name} graph"
+          f" end to end (worst {max(held.values(), default=0.0):.3e}) and "
+          f"{len(staged)} stage outputs from the host's own inputs; its "
+          f"reward "
+          f"{err:.3e} from the plain head on its own input view (tol "
+          f"{KERNEL_ATOL} + {KERNEL_RTOL}*|ref|), std {spread:.3e}; TF32 "
+          f"{'on' if report['tf32'] else 'off'} [{card}]", flush=True)
+    return dict(launches=launches, frames=frames, err=err, report=report,
+                package_s=package_s, waited=waited, gaps=gaps, staged=staged,
+                fn=fn, eager=eager)
 
-    # 44. timing: the host beside the Python engine's fused f32 frame
+
+def native_path(torch, dev, card: str, host_build, pending: dict,
+                cfg: dict | None = None, state: dict | None = None) -> dict:
+    """Phases 43-44: the production deployment graph (fused, B=1, seed-0
+    weights) in f32 and in bf16, each exported and AOT-compiled on the
+    card by ``compile [--bf16] --native-dir D --native-package``
+    (``pending``, started by ``start_native_package``) and served by the
+    libtorch host (``csrc/serve_host.cpp``, no Python in its process) with
+    the C++ ``creste::msfcn_head``; ``host_build`` is the future of the
+    host's build, started at phase 1."""
+    from creste_public_tpu_torch.runtime import benchmark
+    from creste_public_tpu_torch.runtime.compile import (
+        deployment_config,
+        deployment_state,
+    )
+
+    if cfg is None or NATIVE_TINY:
+        cfg = deployment_config(NATIVE_TINY)
+        state = deployment_state(cfg)
+    h, w = cfg["vision_backbone"]["vision_backbone"]["effnet_cfgs"][
+        "image_size"]
+    rgbd, p2p = example_inputs(h, w)
+    t_phase = time.perf_counter()
+    built = host_build.result()
+    print(f"  phase 43: the host built in {built['seconds']:.1f} s",
+          flush=True)
+    served = {}
+    for name in NATIVE_PACKAGES:
+        served[name] = native_serve_check(
+            torch, dev, card, name, pending[name], cfg, state, rgbd, p2p,
+            served["f32"]["eager"] if name == "bf16" else None)
+
+    # 44. timing: each host beside the Python engine's fused f32 frame
+    fn = served["f32"].pop("fn")
+    served["bf16"].pop("fn")
     py_ms = (benchmark.frame_latency_ms(fn, rgbd, p2p)
              if dev.type == "cuda" else float("nan"))
-    print(f"phase 44 native timing: the host {report['per_frame_ms']:.3f} "
-          f"ms/frame (p50 {report['per_frame_p50_ms']:.3f}) = "
-          f"{report['hz']:.2f} Hz over {report['iters']} fresh "
-          f"device-resident frames ({report['clock']}), the Python engine's "
-          f"fused f32 frame {py_ms:.3f} ms in this process; streamed from "
-          f"pinned host memory, {', '.join(NATIVE_FETCH)} read back: "
-          f"pipeline 1 {report['seq_stream_per_frame_ms']:.3f} ms/frame "
-          f"(H2D {report['seq_h2d_ms']:.3f}, execute "
-          f"{report['seq_exec_ms']:.3f}, D2H {report['seq_d2h_ms']:.3f}), "
-          f"pipeline {report['pipeline_depth']} "
-          f"{report['pipeline_per_frame_ms']:.3f} ms/frame = "
-          f"{report['pipeline_hz']:.2f} Hz ({report['pipeline_speedup']:.3f}x);"
-          f" package compile {package_s:.1f} s, load "
-          f"{report['load_s']:.3f} s; phases 43-44 "
-          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
-    return dict(launches=launches, frames=frames, err=err, report=report,
-                package_s=package_s, python_ms=py_ms, gaps=gaps)
+    for name, res in served.items():
+        report = res["report"]
+        print(f"phase 44 native timing ({name}): the host "
+              f"{report['per_frame_ms']:.3f} ms/frame (p50 "
+              f"{report['per_frame_p50_ms']:.3f}) = {report['hz']:.2f} Hz "
+              f"over {report['iters']} fresh device-resident frames "
+              f"({report['clock']}); streamed from pinned host memory, "
+              f"{', '.join(NATIVE_FETCH)} read back: pipeline 1 "
+              f"{report['seq_stream_per_frame_ms']:.3f} ms/frame (H2D "
+              f"{report['seq_h2d_ms']:.3f}, execute "
+              f"{report['seq_exec_ms']:.3f}, D2H {report['seq_d2h_ms']:.3f}),"
+              f" pipeline {report['pipeline_depth']} "
+              f"{report['pipeline_per_frame_ms']:.3f} ms/frame = "
+              f"{report['pipeline_hz']:.2f} Hz "
+              f"({report['pipeline_speedup']:.3f}x); package compile "
+              f"{res['package_s']:.1f} s, waited {res['waited']:.1f} s, load "
+              f"{report['load_s']:.3f} s [{card}]", flush=True)
+    f32, b16 = (served[n]["report"] for n in NATIVE_PACKAGES)
+    print(f"phase 44 native timing: the bf16 host {b16['per_frame_ms']:.3f} "
+          f"ms/frame ({b16['hz']:.2f} Hz) against the f32 host "
+          f"{f32['per_frame_ms']:.3f} ms/frame ({f32['hz']:.2f} Hz), "
+          f"{f32['per_frame_ms'] / b16['per_frame_ms']:.3f}x; the Python "
+          f"engine's fused f32 frame {py_ms:.3f} ms in this process; "
+          f"phases 43-44 {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return dict(launches=served["f32"]["launches"],
+                frames=served["f32"]["frames"], err=served["f32"]["err"],
+                served=served, python_ms=py_ms)
 
 
 # the phase groups in the order they run (phase 1, the build, always runs),
@@ -5699,6 +6040,10 @@ def main() -> None:
         "native_host_launches": native["launches"],
         "native_host_frames": native["frames"],
         "native_host_max_abs_err": native["err"],
+        "spatial_variant_launches_per_rank": spatial["variant_launches"],
+        "native_host_bf16_launches": native["served"]["bf16"]["launches"],
+        "native_host_bf16_frames": native["served"]["bf16"]["frames"],
+        "native_host_bf16_max_abs_err": native["served"]["bf16"]["err"],
     }] + mdp_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

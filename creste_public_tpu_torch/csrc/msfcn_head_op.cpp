@@ -14,7 +14,7 @@
 // workspace, and the four launches of csrc/msfcn_chain.cu (its C entry
 // msfcn_head) on the current stream; a launch error raises, and nothing
 // falls back to the plain version. creste_msfcn_head_launches() counts the
-// kernels launched. CPU: the plain version in ATen, the twin of
+// kernels launched, creste_msfcn_head_calls() the operator's calls. CPU: the plain version in ATen, the twin of
 // reward_kernel.msfcn_plain, so that the host also runs on the CPU.
 //
 // Never load this library into a Python process that imported
@@ -38,6 +38,7 @@ extern "C" const char* msfcn_error_string(int err);
 namespace {
 
 std::atomic<int64_t> g_launches{0};
+std::atomic<int64_t> g_calls{0};
 
 // reward_kernel.HEAD in order: prepool 0-1, skip 2-3, trunk 4-5, postpool 6.
 // k = 0 and ci = 0 mean any (the first layer: an odd k0 <= 5, Ci the input
@@ -102,6 +103,7 @@ at::Tensor conv_affine_plain(const at::Tensor& x, const at::Tensor& kernel,
 
 // reward_kernel.msfcn_plain (msfcn_chain with conv_affine_plain).
 at::Tensor msfcn_head_cpu(const at::Tensor& x_in, at::TensorList w) {
+  ++g_calls;
   check_head(w, x_in.device());
   const at::Tensor x = x_in.to(at::kFloat).contiguous();
   TORCH_CHECK(x.dim() == 4, "x must be [B,H,W,C], got ", x.sizes());
@@ -130,6 +132,7 @@ at::Tensor msfcn_head_cpu(const at::Tensor& x_in, at::TensorList w) {
 #ifdef CRESTE_WITH_CUDA
 // reward_kernel.msfcn_head_cuda: the four launches of csrc/msfcn_chain.cu.
 at::Tensor msfcn_head_cuda(const at::Tensor& x, at::TensorList w) {
+  ++g_calls;
   TORCH_CHECK(x.is_cuda(), "x must be a CUDA tensor, got ", x.device());
   TORCH_CHECK(x.scalar_type() == at::kFloat, "x must be float32, got ",
               x.scalar_type());
@@ -185,6 +188,10 @@ at::Tensor msfcn_head_cuda(const at::Tensor& x, at::TensorList w) {
 
 // The kernels this library launched so far in this process (four per head).
 extern "C" int64_t creste_msfcn_head_launches() { return g_launches.load(); }
+
+// The operator's calls so far in this process, on either device (one per
+// head).
+extern "C" int64_t creste_msfcn_head_calls() { return g_calls.load(); }
 
 TORCH_LIBRARY(creste, m) {
   m.def("msfcn_head(Tensor x, Tensor[] weights) -> Tensor");

@@ -44,10 +44,15 @@
 // are taken with TF32 off, so the host turns it off for cuDNN and cuBLAS
 // and sets the f32 matmul precision to highest, unless given --tf32.
 //
+// Inputs and outputs follow the manifest's dtypes (an f32 or a bf16
+// graph's): --in files, the synthetic fill, the read-back buffers and the
+// dumps are laid out by them, and an output whose dtype or dims differ from
+// the manifest's is an error (exit 1).
+//
 // Prints one JSON line: per_frame_ms, hz, load_s, iters, distinct, the
 // seq_* and pipeline_* fields when streaming, outputs (name, dims,
-// checksum), msfcn_head_launches with frames_run, and the registered
-// operator's schema.
+// checksum), msfcn_head_launches and msfcn_head_calls with frames_run, and
+// the registered operator's schema.
 #include <ATen/ATen.h>
 #include <ATen/CPUGeneratorImpl.h>
 #include <ATen/core/dispatch/Dispatcher.h>
@@ -72,6 +77,7 @@
 #endif
 
 extern "C" int64_t creste_msfcn_head_launches();
+extern "C" int64_t creste_msfcn_head_calls();
 
 namespace {
 
@@ -123,8 +129,9 @@ std::vector<std::string> output_names(const std::string& out_spec) {
   return names;
 }
 
-// Deterministic xorshift fill, uniform in [0, 1) for f32 (as the JAX host's
-// synthetic inputs).
+// Deterministic xorshift fill, uniform in [0, 1) for a floating dtype (as
+// the JAX host's synthetic inputs; drawn in f32, then cast), random bytes
+// for any other.
 void fill(at::Tensor& t, uint64_t seed) {
   uint64_t s = seed * 2654435761u + 1;
   auto next = [&s]() {
@@ -133,10 +140,12 @@ void fill(at::Tensor& t, uint64_t seed) {
     s ^= s << 17;
     return s;
   };
-  if (t.scalar_type() == at::kFloat) {
-    float* p = t.data_ptr<float>();
-    for (int64_t i = 0; i < t.numel(); ++i)
+  if (at::isFloatingType(t.scalar_type())) {
+    at::Tensor f = at::empty(t.sizes(), t.options().dtype(at::kFloat));
+    float* p = f.data_ptr<float>();
+    for (int64_t i = 0; i < f.numel(); ++i)
       p[i] = (float)((next() >> 40) & 0xffffff) / (float)0x1000000;
+    t.copy_(f);
   } else {
     uint8_t* p = static_cast<uint8_t*>(t.data_ptr());
     for (int64_t i = 0; i < t.nbytes(); ++i) p[i] = (uint8_t)(next() >> 56);
@@ -493,6 +502,15 @@ int main(int argc, char** argv) {
     sync();
     std::string outs_json = "[";
     for (size_t o = 0; o < outs.size(); ++o) {
+      // every output has the manifest's dtype and dims: the dumps and the
+      // streamed frames' buffers are laid out by them
+      if (outs[o].scalar_type() != scalar_type(out_specs[o].dtype) ||
+          outs[o].sizes() != at::IntArrayRef(out_specs[o].dims))
+        throw std::runtime_error(
+            "the package's output " + out_specs[o].name + " is " +
+            std::string(c10::toString(outs[o].scalar_type())) + " " +
+            c10::str(outs[o].sizes()) + ", the manifest says " +
+            out_specs[o].dtype + " " + c10::str(out_specs[o].dims));
       const at::Tensor host = outs[o].to(at::kCPU).contiguous();
       const uint8_t* bytes = static_cast<const uint8_t*>(host.data_ptr());
       uint64_t sum = 0;
@@ -519,13 +537,14 @@ int main(int argc, char** argv) {
            "\"hz\": %.6f, \"load_s\": %.6f, \"iters\": %d, "
            "\"distinct\": %d, %s\"device\": \"%s\", \"clock\": \"%s\", "
            "\"tf32\": %s, \"frames_run\": %lld, "
-           "\"msfcn_head_launches\": %lld, \"msfcn_head_schema\": \"%s\", "
-           "\"outputs\": %s}\n",
+           "\"msfcn_head_launches\": %lld, \"msfcn_head_calls\": %lld, "
+           "\"msfcn_head_schema\": \"%s\", \"outputs\": %s}\n",
            per_frame_ms, p50_ms, 1e3 / per_frame_ms, load_s, iters, distinct,
            stream_json.c_str(), device_name.c_str(),
            cuda ? "cuda_events" : "host", cuda && tf32 ? "true" : "false",
            (long long)frames_run, (long long)creste_msfcn_head_launches(),
-           json_escape(schema).c_str(), outs_json.c_str());
+           (long long)creste_msfcn_head_calls(), json_escape(schema).c_str(),
+           outs_json.c_str());
     fflush(stdout);
   } catch (const std::exception& e) {
     fprintf(stderr, "creste_serve_host: %s\n", e.what());

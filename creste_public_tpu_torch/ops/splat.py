@@ -11,7 +11,8 @@ splat_projection.py:262-354). Semantics:
 Plain PyTorch scatter (``index_add_`` / ``scatter_reduce_``), with the
 density folded in as channel F+1 so that mean and sum take one scatter
 (``splat_sums``; ``finish_splat`` divides, so that sums made apart, on
-the ranks of a width-sharded frame, can be added first). On
+the ranks of a width-sharded frame, can be added first; ``splat_max``'s
+grids combine by their maximum). On
 CUDA ``index_add_`` of floats is atomic: the order of the additions, and
 so the last bits of a voxel's sum, vary from run to run.
 """
@@ -106,6 +107,19 @@ def splat_bilinear(
     if mode != "max":
         return finish_splat(splat_sums(xy, feats, grid_hw), mode, min_weight,
                             feats.dtype)
+    features, densities = splat_max(xy, feats, grid_hw)
+    return features.to(feats.dtype), densities
+
+
+def splat_max(xy: torch.Tensor, feats: torch.Tensor,
+              grid_hw: tuple[int, int]
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A 'max' splat before its cast: [B, H*W, F] f32, each voxel's
+    largest bilinearly weighted feature over a zero grid
+    (``scatter_reduce_(amax, include_self=True)``), and its density
+    [B, H*W]. The maxima of disjoint point sets combine by their maximum
+    (every grid starts at the same zeros), their densities by their
+    sum."""
     H, W = grid_hw
     B, P, F = feats.shape
     n_vox = H * W
@@ -116,7 +130,7 @@ def splat_bilinear(
     features = torch.zeros(B * n_vox, F, device=w4.device).scatter_reduce_(
         0, flat[:, None].expand(-1, F), upd.reshape(-1, F), reduce="amax",
         include_self=True).reshape(B, n_vox, F)
-    return features.to(feats.dtype), densities
+    return features, densities
 
 
 def splat_to_bev(

@@ -25,18 +25,30 @@ holding this rank's columns of a tensor ``width`` wide):
   sums all-reduced, then divided by the global H * W);
 - ``gather_columns``: a sharded tensor back in the one-rank layout.
 
-Eval BatchNorm, SiLU and ReLU are per pixel and run on the strip as the
-modules do. The walkers below (``effnet``, ``depth_completion``,
-``cam2map``, ``decoder``, ``reward``) run the port's modules with these
-primitives: the EffNet-b0 trunk and its ``Up`` decoder, the depth and
-DINO heads, the splat (each rank splats its pixels into full-grid sums,
-the sums are all-reduced, then divided), the BEV decoder on each rank's
-columns of the grid, and the reward head, on the card one launch of
-``creste::msfcn_head`` per rank on its columns of the input view plus a
-halo (``HEAD_HALO``). ``runtime.export.build_spatial_inference_fn``
-puts them together. The split graph is the f32 eval deployment graph:
-its merged-heads and bf16 serving variants, and the training and stage-1
-branches, raise ``NotImplementedError``.
+Eval BatchNorm (folded or not), SiLU and ReLU are per pixel and run on
+the strip as the modules do. The walkers below (``effnet``,
+``depth_completion``, ``cam2map``, ``decoder``, ``reward``) run the
+port's modules with these primitives: the EffNet-b0 trunk and its ``Up``
+decoder, the depth and DINO heads, the splat (each rank splats its pixels
+into full-grid sums, or in ``max`` mode full-grid maxima from a zero grid,
+which are all-reduced), the BEV decoder on each rank's columns of the
+grid (its heads one by one or merged), and the reward head, on the card
+one launch of ``creste::msfcn_head`` per rank on its columns of the input
+view plus a halo (``HEAD_HALO``).
+``runtime.export.build_spatial_inference_fn`` puts them together.
+
+The split graph is the eval deployment graph in every serving variant:
+f32 or the bf16 stream (``compute_dtype``), folded BatchNorms or not,
+merged heads or not, the fused head or the unfused one, a ``mean``,
+``sum`` or ``max`` splat. Each primitive computes in the dtype the module
+it stands for computes in: a convolution in the promotion of its input's
+and its weights' dtypes (``convnets.promoted``: a bf16-rounded weight on
+an f32 island computes in f32), a resize and a mean in f32 for a bf16
+stream (torch's kernels accumulate bf16 in f32 and round once), and the
+trunk casts its stream after the stem and the depth head reads it in f32,
+as ``effnet`` and ``DepthCompletion`` do. What the split refuses raises
+``NotImplementedError``: the temporal merge, stage 1's branches of the
+backbone and training mode.
 
 The exchange is built from ``all_gather`` of each rank's edge slabs (one
 call per exchange), which gloo takes on the CPU and on CUDA tensors and
@@ -104,10 +116,12 @@ class SpatialMesh:
         dist.all_gather(parts, t.contiguous(), group=self.group)
         return parts
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the ranks, in place."""
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` summed (``op`` "sum") or maximised ("max") over the ranks,
+        in place."""
         if self.group is not None:
-            dist.all_reduce(t, group=self.group)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
+                            else dist.ReduceOp.SUM, group=self.group)
         return t
 
 
@@ -312,7 +326,8 @@ def resize_bilinear(x: Strip, size: Sequence[int],
     fetched from their owners) as ``fma(left, 1 - w, right * w)``, then
     the rows are resized as on one rank: the order and the rounding of
     torch's kernel, equal to it on the card at the graph's sizes and on
-    the CPU at its larger ones."""
+    the CPU at its larger ones. A bf16 strip is resized in f32 and
+    rounded once, as torch's kernel does."""
     ho, wout = int(size[0]), int(size[1])
     parts = mesh.partition(wout)
     cols = [_source_columns(x.width, wout, o0, o1) for o0, o1 in parts]
@@ -325,22 +340,30 @@ def resize_bilinear(x: Strip, size: Sequence[int],
         return Strip(_empty(xs, B, C, ho, 0), wout)
     a = need[mesh.rank][0]
     dev = xs.device
+    acc = _accumulator(xs.dtype)
     w1 = torch.from_numpy(lam).to(dev)
-    left = xs.index_select(-1, torch.from_numpy(i0 - a).to(dev))
-    right = xs.index_select(-1, torch.from_numpy(i1 - a).to(dev))
+    left = xs.index_select(-1, torch.from_numpy(i0 - a).to(dev)).to(acc)
+    right = xs.index_select(-1, torch.from_numpy(i1 - a).to(dev)).to(acc)
     # f64 holds the product exactly: one rounding, as a fused multiply-add
-    y = (left.double() * (1 - w1).double() + (right * w1).double()).to(
-        xs.dtype)
+    y = (left.double() * (1 - w1).double() + (right * w1).double()).to(acc)
     if y.shape[-2] != ho:
         y = F.interpolate(y, size=(ho, y.shape[-1]), mode="bilinear",
                           align_corners=False)
-    return Strip(y, wout)
+    return Strip(y.to(xs.dtype), wout)
+
+
+def _accumulator(dtype: torch.dtype) -> torch.dtype:
+    """The dtype torch's resize and mean kernels accumulate ``dtype`` in:
+    f32 for bf16 and f16 (rounded once at the end), else ``dtype``."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def mean_hw(x: Strip, mesh: SpatialMesh) -> torch.Tensor:
     """The mean over the frame's H and W [B, C, 1, 1] on every rank: the
-    strips' f32 sums all-reduced, then divided by the global H * W."""
-    s = mesh.all_reduce(x.t.float().sum(dim=(2, 3), keepdim=True))
+    strips' sums, in the dtype the one-rank ``mean`` accumulates in (f32
+    for a bf16 strip), all-reduced, then divided by the global H * W."""
+    acc = _accumulator(x.t.dtype)
+    s = mesh.all_reduce(x.t.to(acc).sum(dim=(2, 3), keepdim=True))
     return (s / (x.t.shape[2] * x.width)).to(x.t.dtype)
 
 
@@ -424,6 +447,8 @@ def effnet(m, x: Strip, mesh: SpatialMesh) -> tuple[Strip, Strip]:
     tensor)."""
     tr = m.trunk
     h = _map(conv(tr.conv_stem, x, mesh), lambda t: F.silu(tr.bn0(t)))
+    if tr.compute_dtype is not None:  # the stream after the f32 stem
+        h = _map(h, lambda t: t.to(tr.compute_dtype))
     endpoints: dict[str, Strip] = {}
     prev = h
     for idx in range(tr.n_blocks):
@@ -446,9 +471,11 @@ def _nhwc(x: Strip, shape: tuple | None = None) -> Cols:
 
 def predict_depth(m, feats: Strip, mesh: SpatialMesh) -> dict[str, Cols]:
     """``DepthCompletion.predict_depth`` on the trunk's feature strip
-    [B, Z, Hs, ws]: the depth head, then the metric depth and the bins
-    per pixel."""
+    [B, Z, Hs, ws]: the depth head (reading a bf16 stream in f32), then
+    the metric depth and the bins per pixel."""
     disc = m.cfg["discretize"]
+    if m.compute_dtype is not None:
+        feats = _map(feats, lambda t: t.float())
     logits = multi_layer_conv(m.depth_head, feats, mesh)
     lg = logits.t.permute(0, 2, 3, 1)
     metric_mm = du.metric_depth_from_logits(
@@ -474,15 +501,15 @@ def depth_completion(m, x: Strip, mesh: SpatialMesh
 
 def backbone(m, rgbd: torch.Tensor, width: int, mesh: SpatialMesh
              ) -> dict[str, Cols]:
-    """TerrainNet's image backbone (an f32 ``DistillationBackbone``
-    without stage 1's PE map and multiview splat) on this rank's columns
-    of rgbd [B, V, H, W, 4] (``width`` in all)."""
+    """TerrainNet's image backbone (a ``DistillationBackbone`` without
+    stage 1's PE map and multiview splat, in f32 or a bf16 stream) on
+    this rank's columns of rgbd [B, V, H, W, 4] (``width`` in all)."""
     if (not isinstance(m, DistillationBackbone) or m.cam2map is not None
-            or m.learnable_pe_map is not None
-            or m.depthcomp.compute_dtype is not None):
+            or m.learnable_pe_map is not None):
         raise NotImplementedError(
-            "spatial inference runs the deployment graph's f32 backbone (a "
-            "DistillationBackbone without stage 1's branches)")
+            "spatial inference runs the deployment graph's backbone (a "
+            "DistillationBackbone without stage 1's PE map and multiview "
+            "splat, which no deployment graph runs)")
     B, V, H, W, C = rgbd.shape
     x = Strip(rgbd.reshape(B * V, H, W, C).permute(0, 3, 1, 2).contiguous(),
               width)
@@ -501,14 +528,16 @@ def dino_head(m, feats: Strip, B: int, V: int, mesh: SpatialMesh) -> Cols:
 
 def cam2map(m, depth: torch.Tensor, feats: torch.Tensor, p2p: torch.Tensor,
             width: int, mesh: SpatialMesh) -> dict[str, Any]:
-    """``Camera2MapMulti`` (mean or sum mode, eval) on this rank's columns
-    of depth [B, N, H, W] and feats [B, N, H, W, F] (``width`` in all):
-    every rank splats its own pixels into full-grid sums and densities,
-    the sums are all-reduced, then divided, so every rank holds the whole
+    """``Camera2MapMulti`` (eval) on this rank's columns of depth
+    [B, N, H, W] and feats [B, N, H, W, F] (``width`` in all): every rank
+    splats its own pixels into full-grid sums and densities, the sums are
+    all-reduced, then divided (``mean``, ``sum``); in ``max`` mode every
+    rank takes its pixels' maxima over a zero grid, as the one-rank splat
+    does, and the grids are all-reduced by their maximum (max is
+    associative and every grid starts at the same zeros: the one-rank
+    grid to the bit), the densities summed. Every rank holds the whole
     ``bev_features`` and ``bev_densities``; ``bev_coords`` stays sharded
     (a ``Cols`` in the one-rank pixel order once gathered)."""
-    if m.scatter_mode not in ("mean", "sum"):
-        raise NotImplementedError(f"a {m.scatter_mode} splat across ranks")
     B, N, H, W = depth.shape
     lo, _ = mesh.columns(width)
     xyz = geo.backproject_depth(depth, p2p, col0=lo)
@@ -526,11 +555,15 @@ def cam2map(m, depth: torch.Tensor, feats: torch.Tensor, p2p: torch.Tensor,
         raise ValueError(f"Number of frames must be divisible by {m.nc}")
     ns = N // m.nc
     xy = geo.points_to_voxels(xyz, m.l2m.to(g), m.voxel_xy.to(g))
-    acc = splat_ops.splat_sums(xy.reshape(B * ns, m.nc * H * W, 2),
-                               fused.reshape(B * ns, m.nc * H * W, C),
-                               m.grid_hw)
-    mesh.all_reduce(acc)
-    f, d = splat_ops.finish_splat(acc, m.scatter_mode, 1.0, fused.dtype)
+    pts = (xy.reshape(B * ns, m.nc * H * W, 2),
+           fused.reshape(B * ns, m.nc * H * W, C), m.grid_hw)
+    if m.scatter_mode == "max":
+        f, d = splat_ops.splat_max(*pts)
+        f = mesh.all_reduce(f, "max").to(fused.dtype)
+        mesh.all_reduce(d)
+    else:
+        acc = mesh.all_reduce(splat_ops.splat_sums(*pts))
+        f, d = splat_ops.finish_splat(acc, m.scatter_mode, 1.0, fused.dtype)
     Hg, Wg = m.grid_hw
     return {"bev_features": f.reshape(B * ns, Hg, Wg, C),
             "bev_densities": d.reshape(B * ns, Hg, Wg, 1),
@@ -547,9 +580,10 @@ def basic_block(m, x: Strip, mesh: SpatialMesh) -> Strip:
 
 def decoder(m, bev: torch.Tensor, mesh: SpatialMesh
             ) -> tuple[dict[str, Cols], dict[str, Strip]]:
-    """``InpaintingResNet18MultiHead`` (eval) on this rank's columns of the
-    whole grid ``bev`` [B, Hg, Wg, C] (NHWC): the outputs as ``Cols`` and
-    the heads' predictions as NCHW strips (by output key)."""
+    """``InpaintingResNet18MultiHead`` (eval, its heads one by one or
+    merged) on this rank's columns of the whole grid ``bev`` [B, Hg, Wg,
+    C] (NHWC): the outputs as ``Cols`` and the heads' predictions as NCHW
+    strips (by output key)."""
     Wg = bev.shape[2]
     lo, hi = mesh.columns(Wg)
     x = Strip(bev[:, :, lo:hi].permute(0, 3, 1, 2).contiguous(), Wg)
@@ -558,8 +592,8 @@ def decoder(m, bev: torch.Tensor, mesh: SpatialMesh
     x1 = x
     x = basic_block(m.layer2_1, basic_block(m.layer2_0, x, mesh), mesh)
     x = basic_block(m.layer3_1, basic_block(m.layer3_0, x, mesh), mesh)
-    heads = []
-    for i in range(len(m.num_classes)):
+    heads = merged_heads(m, x, x1, mesh) if m.merged_heads else []
+    for i in range(0 if m.merged_heads else len(m.num_classes)):
         h = getattr(m, f"head_{i}")
         y = up(h.up1, x, x1, mesh)
         y = resize_bilinear(y, (y.t.shape[-2] * 2, y.width * 2), mesh)
@@ -575,6 +609,25 @@ def decoder(m, bev: torch.Tensor, mesh: SpatialMesh
     if m.log_var is not None:
         out["log_variance"] = m.log_var
     return out, strips
+
+
+def merged_heads(m, x: Strip, x1: Strip, mesh: SpatialMesh
+                 ) -> list[tuple[Strip, Strip]]:
+    """``InpaintingResNet18MultiHead._merged`` on strips: the heads' first
+    convolution as one (``mh_conv0``), the later ones grouped by head
+    (``mh_conv1``, ``mh_up2``), one resize per layer and the
+    block-diagonal projection (``mh_proj``), split into each head's
+    (preds, features) as the module splits them."""
+    y = _cat([x1, resize_bilinear(x, (x1.t.shape[-2], x1.width), mesh)])
+    y = _map(conv(m.mh_conv0, y, mesh), lambda t: F.relu(m.mh_bn0(t)))
+    y = _map(conv(m.mh_conv1, y, mesh), lambda t: F.relu(m.mh_bn1(t)))
+    y = resize_bilinear(y, (y.t.shape[-2] * 2, y.width * 2), mesh)
+    y = _map(conv(m.mh_up2, y, mesh), lambda t: F.relu(m.mh_up2_bn(t)))
+    preds = conv(m.mh_proj, y, mesh)
+    offs = np.cumsum([0] + m.num_classes)
+    return [(_map(preds, lambda t, i=i: t[:, offs[i]:offs[i + 1]]),
+             _map(y, lambda t, i=i: t[:, i * 128:(i + 1) * 128]))
+            for i in range(len(m.num_classes))]
 
 
 def msfcn(m, x: Strip, mesh: SpatialMesh) -> Strip:
@@ -638,21 +691,34 @@ def reward(vin, maps: dict[str, Strip], mesh: SpatialMesh,
            head_tensors: list[torch.Tensor] | None) -> dict[str, Cols]:
     """``VIN`` without the MDP solve on the decoder's prediction strips
     (``maps``): the input view (max-pool by ``ds``, the front half of the
-    rows), the reward (``head_tensors``: the folded head, fused; None: the
-    unfused ``MultiScaleFCN``) and its full-size map."""
+    rows, in f32), then ``reward_from_view``."""
     rc = vin.reward_cfg
     keys, ds = rc["input_keys"], int(rc["ds"])
-    Ho, Wo = maps[keys[0]].t.shape[2], maps[keys[0]].width
     x = max_pool2d(_cat([maps[k] for k in keys]), ds, ds, mesh)
     iv = _map(x, lambda t: t[:, :, :t.shape[2] // 2].float())
+    m0 = maps[keys[0]]
+    out = reward_from_view(vin, iv, (m0.t.shape[2], m0.width), mesh,
+                           head_tensors)
+    out["input_view"] = _nhwc(iv)
+    return out
+
+
+def reward_from_view(vin, iv: Strip, size: tuple[int, int],
+                     mesh: SpatialMesh,
+                     head_tensors: list[torch.Tensor] | None
+                     ) -> dict[str, Cols]:
+    """The reward of the input view's strip ``iv`` (``head_tensors``: the
+    folded head, fused; None: the unfused ``MultiScaleFCN``) and its
+    full-size map, the size (rows, columns) of the maps the view was
+    pooled from."""
+    Ho, Wo = size
     r = (fused_head(head_tensors, iv, mesh) if head_tensors is not None
          else msfcn(vin.r, iv, mesh))
     top = resize_bilinear(r, (Ho // 2, Wo), mesh).t
     full = torch.cat([top, top.new_zeros(*top.shape[:2], Ho - Ho // 2,
                                          top.shape[-1])], dim=2)
-    prefix = rc["output_prefix"][0]
-    return {prefix: _nhwc(r), f"{prefix}_full": _nhwc(Strip(full, Wo)),
-            "input_view": _nhwc(iv)}
+    prefix = vin.reward_cfg["output_prefix"][0]
+    return {prefix: _nhwc(r), f"{prefix}_full": _nhwc(Strip(full, Wo))}
 
 
 def deployment_graph(model, rgbd: torch.Tensor, p2p: torch.Tensor,
@@ -665,11 +731,18 @@ def deployment_graph(model, rgbd: torch.Tensor, p2p: torch.Tensor,
     reward head (``reward_kernel.head_tensors``), or None for the unfused
     one."""
     tn = model.backbone
-    if (model.training or tn.use_temporal or not tn.has_decoder
-            or tn.bevclassifier.merged_heads):
+    if model.training:
         raise NotImplementedError(
-            "spatial inference runs the eval deployment graph (no temporal "
-            "merge; a BEV decoder, its heads unmerged)")
+            "spatial inference runs the eval deployment graph, not training "
+            "mode (train-mode BatchNorms would need the frame's statistics "
+            "across ranks)")
+    if tn.use_temporal:
+        raise NotImplementedError(
+            "spatial inference does not split the temporal merge (no "
+            "inference config runs it)")
+    if not tn.has_decoder:
+        raise NotImplementedError(
+            "spatial inference needs the BEV decoder the reward reads")
     B, N = rgbd.shape[:2]
     outputs = backbone(tn.depthcomp, rgbd, width, mesh)
     feats = outputs[tn.splat_key]

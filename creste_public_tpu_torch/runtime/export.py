@@ -144,35 +144,33 @@ def build_inference_fn(
 
 
 def build_spatial_inference_fn(
-    model: MaxEntIRL | InferenceGraph, mesh: spatial.SpatialMesh,
-    fused_reward: bool = True, output_keys: Sequence[str] | None = None,
-    device: str = "cuda",
+    graph: InferenceGraph, mesh: spatial.SpatialMesh,
+    output_keys: Sequence[str] | None = None, device: str = "cuda",
 ) -> Callable[[Any, Any], dict[str, torch.Tensor]]:
-    """``fn(rgbd, p2p) -> outputs``: the deployment graph of ``model`` (a
-    MaxEntIRL with its weights, or an ``InferenceGraph``, run in eval
-    without the MDP solve) with one frame's width split across the ranks
-    of ``mesh`` (``parallel.spatial.make_spatial_mesh``), the JAX
+    """``fn(rgbd, p2p) -> outputs``: ``graph`` (an ``InferenceGraph`` from
+    ``build_inference_graph``) with one frame's width split across the
+    ranks of ``mesh`` (``parallel.spatial.make_spatial_mesh``), the JAX
     package's ``jit(..., in_shardings=spatial_inference_shardings(mesh))``.
-    Every rank calls ``fn`` with the whole frame (f32 rgbd
+    The serving variant is the graph's own: its stream dtype (f32 or
+    bf16), its folded BatchNorms, its merged heads, its splat's mode and
+    its fused head. Every rank calls ``fn`` with the whole frame (f32 rgbd
     [B, N, H, W, 4] and p2p [B, N, 4, 4], arrays or tensors) and keeps its
     columns of rgbd (``spatial_inference_shardings``); the weights and p2p
-    are replicated. It returns, on every rank, ``InferenceGraph``'s
-    outputs in the one-rank layout (``output_keys`` only, when given:
-    the others are not gathered). With ``fused_reward`` each rank runs the
-    folded reward head once per frame on its columns of the input view
-    plus a halo (``creste::msfcn_head``: the kernel on the card);
-    ``fn.head_columns(width)`` gives each rank's columns of it. The model
-    is moved to ``device`` (on CUDA, this process's current card)."""
-    if isinstance(model, InferenceGraph):
-        model = model.model
+    are replicated. It returns, on every rank, the graph's outputs in the
+    one-rank layout (``output_keys`` only, when given: the others are not
+    gathered). Fused, each rank runs the folded reward head once per frame
+    on its columns of the input view plus a halo (``creste::msfcn_head``:
+    the kernel on the card); ``fn.head_columns(width)`` gives each rank's
+    columns of it. The graph is moved to ``device`` (on CUDA, this
+    process's current card)."""
     if mesh.rank < 0:
         raise ValueError("this rank is not a member of the spatial mesh")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    model.to(dev).eval()
-    tensors = (reward_kernel.head_tensors(reward_kernel.fold_msfcn_params(
-        model.traversability_head.r)) if fused_reward else None)
+    graph = graph.to(dev).eval()
+    model = graph.model
+    tensors = graph.head_tensors() if graph.fused_reward else None
 
     @torch.no_grad()
     def fn(rgbd, p2p) -> dict[str, torch.Tensor]:

@@ -8,7 +8,9 @@ head running as the C++ registration of ``creste::msfcn_head``
 card). This module builds both from the checkout's sources
 (``ops._build.build_host``), runs the host, and parses its one JSON line:
 the port's version of the JAX end-to-end script's native leg, which runs
-``native/creste_serve`` over its artifact.
+``native/creste_serve`` over its artifact. ``eager_stages`` runs each
+stage of the eager graph from the host's dumped input to it, to hold a
+package stage by stage.
 
     python -m creste_public_tpu_torch.runtime.native_serve --artifact D \\
         [--device cuda|cpu] [--iters 30] [--warmup 3] [--distinct 8] \\
@@ -25,11 +27,16 @@ import argparse
 import json
 import os
 import subprocess
+import tempfile
 from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from creste_public_tpu_torch.models.blocks.vin import (
+    build_input_view,
+    full_reward_map,
+)
 from creste_public_tpu_torch.ops import _build
 from creste_public_tpu_torch.runtime.export import MANIFEST_FILE
 from creste_public_tpu_torch.utils.device import resolve_device
@@ -56,14 +63,19 @@ def read_manifest(artifact: str) -> dict[str, Any]:
     return spec
 
 
-def write_inputs(directory: str, arrays: Mapping[str, Any]) -> dict[str, str]:
-    """Each array as a raw row-major f32 file ``directory/<name>.bin``, the
-    host's ``--in`` format; returns name -> path."""
+def write_inputs(directory: str, arrays: Mapping[str, Any],
+                 artifact: str | None = None) -> dict[str, str]:
+    """Each array as a raw row-major file ``directory/<name>.bin`` in the
+    dtype ``artifact``'s manifest gives its input (f32 without an
+    artifact), the host's ``--in`` format; returns name -> path."""
+    dtypes = (read_manifest(artifact)["input"] if artifact else {})
     os.makedirs(directory, exist_ok=True)
     paths = {}
     for name, a in arrays.items():
         paths[name] = os.path.join(directory, f"{name}.bin")
-        np.ascontiguousarray(a, np.float32).tofile(paths[name])
+        t = torch.as_tensor(np.asarray(a)).to(
+            _DTYPES[dtypes.get(name, ("f32",))[0]]).contiguous()
+        t.view(torch.uint8).numpy().tofile(paths[name])
     return paths
 
 
@@ -76,6 +88,44 @@ def read_dump(dump_dir: str, artifact: str) -> dict[str, torch.Tensor]:
             data = bytearray(f.read())
         out[name] = torch.frombuffer(data, dtype=_DTYPES[dtype]).reshape(dims)
     return out
+
+
+def eager_stages(graph: torch.nn.Module, got: Mapping[str, torch.Tensor],
+                 p2p: Any) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
+    """Each stage of ``graph`` (the ``InferenceGraph`` a package was
+    exported from) after its trunk, run eagerly from the host's own
+    outputs (``got``, ``read_dump``'s) as that stage's input: the depth
+    head from the trunk's features, the splat from the metric depth and
+    the features, the decoder from the BEV grid, the input view from the
+    decoder's maps, and the full reward map from the reward. Returns
+    ``"<stage> <key>" -> (eager, host)`` for each key the host served,
+    both on the CPU, in the graph's dtypes (a bf16 stream's maps in bf16,
+    its f32 islands in f32)."""
+    bb = graph.model.backbone
+    dev = next(graph.parameters()).device
+    fed = {k: v.to(dev) for k, v in got.items()}
+    p2p = torch.as_tensor(p2p, dtype=torch.float32, device=dev)
+    B, N = p2p.shape[:2]
+    feats = fed[bb.splat_key]
+    Hs, Ws, Z = feats.shape[1:]
+    depth_model = getattr(bb.depthcomp, "depthcomp", bb.depthcomp)
+    Ho, Wo = fed[graph.input_keys[0]].shape[1:3]
+    with torch.no_grad():
+        stages = {
+            "depth head": depth_model.predict_depth(
+                fed["depth_preds_feats"].permute(0, 3, 1, 2)),
+            "splat": bb.cam2map(
+                fed["depth_preds_metric"].reshape(B, N, Hs, Ws),
+                feats.reshape(B, N, Hs, Ws, Z), p2p),
+            "decoder": bb.bevclassifier(fed),
+            "input view": {"input_view": build_input_view(
+                fed, graph.input_keys, graph.ds)},
+            "reward map": {f"{graph.prefix}_full": full_reward_map(
+                fed[graph.prefix], Ho, Wo)},
+        }
+    return {f"{stage} {k}": (v.cpu(), got[k])
+            for stage, outs in stages.items() for k, v in outs.items()
+            if k in got}
 
 
 def host_argv(artifact: str, device: str = "cuda", iters: int = 30,
@@ -106,11 +156,15 @@ def run_host(artifact: str, device: str = "cuda", timeout: float = 600.0,
     built = _build.build_host(resolve_device(device).type == "cuda")
     if options.get("dump"):
         os.makedirs(options["dump"], exist_ok=True)
-    env = dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads()))
-    r = subprocess.run([built["host"], *host_argv(artifact, device,
-                                                  **options)],
-                       capture_output=True, text=True, timeout=timeout,
-                       env=env)
+    # a TMPDIR of its own, removed after: the package loader unpacks the
+    # package there and leaves it behind
+    with tempfile.TemporaryDirectory(prefix="creste_host_") as tmp:
+        env = dict(os.environ, TMPDIR=tmp,
+                   OMP_NUM_THREADS=str(torch.get_num_threads()))
+        r = subprocess.run([built["host"], *host_argv(artifact, device,
+                                                      **options)],
+                           capture_output=True, text=True, timeout=timeout,
+                           env=env)
     if r.returncode != 0:
         raise RuntimeError(f"the host exited {r.returncode}:\n"
                            f"{r.stderr[-4000:]}")

@@ -28,6 +28,7 @@ rtol 1e-3, atol 1e-3, the bar of ``tests/test_torch_main_path.py``.
 import json
 import os
 import subprocess
+import tempfile
 
 import numpy as np
 import pytest
@@ -95,8 +96,11 @@ def served(tmp_path_factory):
 
 
 def run(host: str, *argv: str) -> subprocess.CompletedProcess:
-    return subprocess.run([host, *argv], capture_output=True, text=True,
-                          timeout=120)
+    """The host with a TMPDIR of its own (the package loader unpacks the
+    package there and leaves it behind)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return subprocess.run([host, *argv], capture_output=True, text=True,
+                              timeout=120, env=dict(os.environ, TMPDIR=tmp))
 
 
 def test_manifest_matches_jax(served, tmp_path):
@@ -135,6 +139,7 @@ def test_round_trip_report_matches_manifest(served):
     # warm-up, timed, sequential and pipelined streaming, the dumped frame
     assert report["frames_run"] == WARMUP + 3 * ITERS + 1
     assert report["msfcn_head_launches"] == 0  # the plain version on the CPU
+    assert report["msfcn_head_calls"] == report["frames_run"]  # one head
 
 
 def test_host_refuses_without_artifact_or_gpu(served, tmp_path):
