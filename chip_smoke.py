@@ -148,10 +148,11 @@ Phases, each printing one line before the final one:
     benchmark), the peak device memory of a frame, the reward's max|d| from
     the fused f32 graph, the reward-head kernel's launches per frame (4
     fused, 0 unfused), the achieved TFLOP/s of the unfused graph's FLOP
-    count against the H100's bf16, TF32 and f32 peaks, and card vs CPU for
-    every stage from the card's input to it (f32 and fold_bn to
-    STAGE_RTOL; bf16 to BF16_STAGE_RTOL, its f32 islands to STAGE_RTOL,
-    its backbone maps to BF16_NOISE_RATIO times the f32-vs-bf16 control).
+    count against the H100's bf16, TF32 and f32 peaks, and, for the four
+    fused variants, card vs CPU for every stage from the card's input to
+    it (f32 and fold_bn to STAGE_RTOL; bf16 to BF16_STAGE_RTOL, its f32
+    islands to STAGE_RTOL, its backbone maps to BF16_NOISE_RATIO times the
+    f32-vs-bf16 control); phase 6 holds the unfused head card vs CPU.
 24. export: the fused f32 graph through torch.export (creste::msfcn_head
     inside), saved, reloaded in the same process and run: every output
     equal to the eager graph's bit for bit (deterministic algorithms on),
@@ -200,17 +201,29 @@ Phases, each printing one line before the final one:
     ROS-style calibration in flow style, dense poses, splits, SAM, dynamic
     and elevation maps, DINO features [128,153,128], movability masks,
     counterfactual pickles), read at image_size 512x612 by
-    build_dataset({"name": "coda", ...}): every sample has the keys,
-    shapes and dtypes of the synthetic dataset's stage-3 contract, a
-    point planted in front of the camera comes back through p2p, the
-    expert path starts at the grid centre; the reader's samples/s in
-    thread mode with 4 workers.
+    build_dataset({"name": "coda", ...}) decoding on the card (nvJPEG, its
+    backend printed, and the assemble_rgbd kernel of csrc/frame_io.cu, one
+    launch per view, counted): every sample has the keys, shapes and
+    dtypes of the synthetic dataset's stage-3 contract, a point planted in
+    front of the camera comes back through p2p, the expert path starts at
+    the grid centre; every key but image, and image's depth channel, equal
+    to the bit to the PIL reader's (device="cpu"), its RGB within the
+    decode bars (FRAME_DECODE_MEAN, FRAME_DECODE_MAX); per frame the kernel
+    equal to the bit to its plain version on nvJPEG's pixels, nvJPEG's
+    pixels against PIL's within the bars (and a smooth image's within
+    FRAME_SMOOTH_MAX), the plain version on PIL's pixels equal to the
+    card's PIL resize on one frame per sequence and the smooth image; both
+    readers' samples/s in thread mode with 4 workers, the PIL path's
+    decode, PNG and resize ms per sample against the card path's, the
+    kernel's µs per launch (CUDA events and profiled) against its bound,
+    F.interpolate's antialiased bilinear beside it.
 33. stage 3 on CODa: train_traversability.main(trainer=smoke dataset=coda
     visualize=effnet_distillation) at the production preset, B=4, 2
     training batches and 1 validation batch, the stage-2 checkpoint of
     phase 13 grafted: finite losses, one VI and one SVF launch per
     training step, per validation batch and for the validation images'
-    forward, no reward-head launch, the eight PNGs of the JAX package's
+    forward, no reward-head launch, assemble_rgbd launched by the readers
+    (frames decoded on the card), the eight PNGs of the JAX package's
     render_stage_outputs with its shapes, none constant; a B=4 step's
     time, the loop's ms per step, the images' and the renders' times.
 34. secondary models and the repaired options, each on the card and on
@@ -242,7 +255,9 @@ Phases, each printing one line before the final one:
 37. the port's CodaDataset over the chain's tree with coda_config at
     512x612: every train and val sample has phase 32's keys, shapes and
     dtypes and finite values (the elevation bins hold +inf where a cell is
-    unknown, as the reference's do). No kernel launches in phases 35-37.
+    unknown, as the reference's do), decoded on the card (one
+    assemble_rgbd launch per sample). None of the three TPU kernels'
+    counterparts launches in phases 35-37.
 38. annotation (run on phase 36's tree before it is removed): the port's
     annotation app over HTTP on a free local port (the page, /load with
     index and regen: the expert and 4 candidates, the BEV and front-view
@@ -2912,40 +2927,50 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
         if ref_out is None:
             ref_out = {k: v.float().cpu() for k, v in out.items()}
         dev_ref, rel_ref = max_rel(out[REWARD].cpu(), ref_out[REWARD])
-        # card vs CPU: the same variant on the CPU
-        t0 = time.perf_counter()
-        fn_cpu = build_inference_fn(cfg, state, "cpu", **kw)
-        out_cpu = fn_cpu(rgbd, p2p)
-        cpu_s = time.perf_counter() - t0
-        if ref_cpu is None:
-            ref_cpu = out_cpu
-        c = {k: v.cpu() for k, v in out.items()}
-        bf16 = "compute_dtype" in kw
+        # card vs CPU: the same variant on the CPU. Not for the unfused
+        # graph: it is the fused f32 one but for its head, which phase 6
+        # holds card vs CPU; its time, launches and distance to fused f32
+        # stand
         checks = []  # (what, card vs CPU, bar, how the bar was set)
-        for sname, (got_cpu, got_card) in serving_stages(
-                torch, fn_cpu.graph, c, p2p).items():
-            _, rel = max_rel(got_card, got_cpu)
-            bar = (BF16_STAGE_RTOL if bf16 and sname not in F32_ISLANDS
-                   else STAGE_RTOL)
-            checks.append((sname, rel, bar, ""))
-        if bf16:
-            for k in BF16_NOISE_MAPS + (REWARD,):
-                _, rel = max_rel(c[k], out_cpu[k])
-                control = max_rel(ref_out[k], out_cpu[k])[1]
-                typical = typical_rel(out_cpu[k])
-                bar = BF16_NOISE_RATIO * control
-                if k != REWARD:
-                    bar = min(bar, typical)
-                checks.append((f"end to end {k}", rel, bar,
-                               f"; {BF16_NOISE_RATIO} x control "
-                               f"{control:.2e}, typical {typical:.2e}"))
-        else:
-            for k in BACKBONE_MAPS:
-                checks.append((f"end to end {k}",
-                               max_rel(c[k], out_cpu[k])[1], STAGE_RTOL, ""))
-            checks.append((f"end to end {REWARD}",
-                           max_rel(c[REWARD], out_cpu[REWARD])[1],
-                           FRAME_RTOL, ""))
+        cpu_note = "card vs CPU: phase 6 holds the unfused head"
+        if kw.get("fused_reward") is not False:
+            t0 = time.perf_counter()
+            fn_cpu = build_inference_fn(cfg, state, "cpu", **kw)
+            out_cpu = fn_cpu(rgbd, p2p)
+            cpu_s = time.perf_counter() - t0
+            if ref_cpu is None:
+                ref_cpu = out_cpu
+            c = {k: v.cpu() for k, v in out.items()}
+            bf16 = "compute_dtype" in kw
+            for sname, (got_cpu, got_card) in serving_stages(
+                    torch, fn_cpu.graph, c, p2p).items():
+                _, rel = max_rel(got_card, got_cpu)
+                bar = (BF16_STAGE_RTOL if bf16 and sname not in F32_ISLANDS
+                       else STAGE_RTOL)
+                checks.append((sname, rel, bar, ""))
+            if bf16:
+                for k in BF16_NOISE_MAPS + (REWARD,):
+                    _, rel = max_rel(c[k], out_cpu[k])
+                    control = max_rel(ref_out[k], out_cpu[k])[1]
+                    typical = typical_rel(out_cpu[k])
+                    bar = BF16_NOISE_RATIO * control
+                    if k != REWARD:
+                        bar = min(bar, typical)
+                    checks.append((f"end to end {k}", rel, bar,
+                                   f"; {BF16_NOISE_RATIO} x control "
+                                   f"{control:.2e}, typical {typical:.2e}"))
+            else:
+                for k in BACKBONE_MAPS:
+                    checks.append((f"end to end {k}",
+                                   max_rel(c[k], out_cpu[k])[1], STAGE_RTOL,
+                                   ""))
+                checks.append((f"end to end {REWARD}",
+                               max_rel(c[REWARD], out_cpu[REWARD])[1],
+                               FRAME_RTOL, ""))
+            cpu_note = "card vs CPU " + ", ".join(
+                f"{s_} {r:.2e} (bar {b:.1e}{how})"
+                for s_, r, b, how in checks) + f"; CPU frame {cpu_s:.1f} s"
+            del fn_cpu, out_cpu
         failed += [f"{name}: {s_} card vs CPU {r:.3e} > {b:.3e}"
                    for s_, r, b, _ in checks if r > b]
         rows.append(name)
@@ -2964,17 +2989,15 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
               f"{roof['share_of_tf32_peak']:.4f} of the TF32, "
               f"{roof['share_of_f32_peak']:.4f} of the f32 peak; "
               f"{roof['hbm_gbps']:.1f} GB/s of >= {cost['bytes'] / 1e6:.1f} "
-              f"MB; card vs CPU " + ", ".join(
-                  f"{s_} {r:.2e} (bar {b:.1e}{how})"
-                  for s_, r, b, how in checks)
-              + f"; CPU frame {cpu_s:.1f} s [{card}]", flush=True)
-        del fn, fn_cpu, out, out_cpu
+              f"MB; {cpu_note} [{card}]", flush=True)
+        del fn, out
         torch.cuda.empty_cache()
     if failed:
         fail("serving graphs card vs CPU: " + "; ".join(failed))
-    print(f"phase serving graphs: ok, {len(rows)} variants timed and held "
-          f"card vs CPU (the depth and reward heads <= {STAGE_RTOL} in "
-          f"every variant; f32 and fold_bn stages and backbone maps <= "
+    print(f"phase serving graphs: ok, {len(rows)} variants timed, the "
+          f"fused ones held card vs CPU (the unfused head in phase 6; the "
+          f"depth and reward heads <= {STAGE_RTOL} in every fused "
+          f"variant; f32 and fold_bn stages and backbone maps <= "
           f"{STAGE_RTOL}, reward end to end <= {FRAME_RTOL}; bf16 stages "
           f"<= {BF16_STAGE_RTOL}, end to end <= {BF16_NOISE_RATIO} x the "
           f"f32-vs-bf16 control, the backbone maps also <= their typical "
@@ -3651,6 +3674,20 @@ CODA_TAG_SHAPES = {
     "irl/policy": (64, 128, 3),
 }
 SECONDARY_RTOL = 1e-4
+# nvJPEG against PIL (phase 32): the kernel converts nvJPEG's planes to
+# RGB as libjpeg does, so only the two decoders' inverse DCTs differ. Per
+# frame, in uint8 levels: the max and mean |d| and the share of pixels
+# more than 1 level off; the max on a smooth image (the tree's gradient
+# without its noise). The limits lie between the readings on the card
+# (max 3, mean <= 0.049, share <= 0.8%; PERF.md) and a control measured in
+# the same run, which each limit must catch: the same planes with the
+# chroma one row off. The card reader's resized RGB is held to the same
+# limits against the PIL reader's. PERF.md keeps the looser bars written
+# before the first measurement (mean 4, max 64) as the prediction
+FRAME_DECODE_MAX, FRAME_DECODE_MEAN, FRAME_DECODE_SHARE = 8, 0.3, 0.02
+FRAME_SMOOTH_MAX = 4
+FRAME_KERNEL_ITERS = 200
+READER_EPOCHS = 5  # timed epochs per reader, after one warm-up epoch each
 
 
 def coda_tree_module():
@@ -3676,29 +3713,279 @@ def coda_config(root: str) -> dict:
             "use_movability": True}
 
 
+def level_gap(got: np.ndarray, want: np.ndarray) -> tuple[int, float, float]:
+    """max |d|, mean |d| and the share of |d| > 1 of two images in uint8
+    levels (float images in [0, 1] are scaled by 255 and rounded)."""
+    d = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    if got.dtype != np.uint8:
+        d = np.rint(d * 255)
+    return int(d.max()), float(d.mean()), float((d > 1).mean())
+
+
+def over_limits(gap: tuple[int, float, float], cap: int) -> bool:
+    return (gap[0] > cap or gap[1] > FRAME_DECODE_MEAN
+            or gap[2] > FRAME_DECODE_SHARE)
+
+
+def same_sample(got: dict, want: dict,
+                where: str) -> tuple[int, float, float]:
+    """The card reader's sample against the PIL reader's: every key but
+    ``image`` equal to the bit, ``image``'s depth channel too; returns its
+    RGB's ``level_gap``."""
+    def same(got: dict, want: dict, where: str) -> None:
+        if set(got) != set(want):
+            fail(f"phase 32: {where} has keys {sorted(got)}, the PIL "
+                 f"reader's {sorted(want)}")
+        for k, w in want.items():
+            g = got[k]
+            if isinstance(w, dict):
+                same(g, w, f"{where}/{k}")
+                continue
+            if k == "image":
+                g, w = g[..., 3], w[..., 3]
+            if g.dtype != w.dtype or g.shape != w.shape or \
+                    not np.array_equal(g, w, equal_nan=True):
+                fail(f"phase 32: {where} {k}"
+                     f"{' depth' if k == 'image' else ''} differs from the "
+                     "PIL reader's")
+
+    same(got, want, where)
+    return level_gap(got["image"][..., :3], want["image"][..., :3])
+
+
+def frame_checks(torch, dev, root: str, ds, cpu_ds, frames) -> dict:
+    """Phase 32's checks of the card's frame decode. For every frame of
+    the tree, and a smooth image (the tree's gradient without its noise,
+    no depth map): the kernel against its plain version on nvJPEG's
+    planes, to the bit; nvJPEG's pixels (its planes to RGB as libjpeg
+    converts them) against PIL's, within the limits. On the first frame:
+    the control, its chroma planes one row off, which every limit must
+    catch. On the first frame of each sequence and the smooth image: the
+    plain version on PIL's pixels against the reader's PIL path (the
+    card's Pillow), to the bit. Returns the readings and the last frame's
+    kernel inputs."""
+    from PIL import Image
+
+    from creste_public_tpu_torch.data import coda_constants as cc
+    from creste_public_tpu_torch.data import native_io
+    from creste_public_tpu_torch.ops import frame_kernel as fk
+
+    H, W = CODA_NATIVE_HW
+    u = np.linspace(0, 1, W)[None, :, None]
+    v = np.linspace(0, 1, H)[:, None, None]
+    smooth = os.path.join(root, "smooth.jpg")
+    Image.fromarray(np.broadcast_to(np.clip(60 * (u + v) + 20, 0, 255),
+                                    (H, W, 3)).astype(np.uint8)).save(
+        smooth, quality=90)
+    firsts = {}
+    for seq, fr in frames:
+        firsts.setdefault(seq, fr)
+    cases = [(f"{seq}/{fr}", cc.frame_path(root, cc.CAMERA_DIR, ds.cam, seq,
+                                            fr, "jpg"),
+              ds._depth_path(ds.depth_dir, seq, fr), firsts[seq] == fr)
+             for seq, fr in frames] + [("smooth", smooth, None, True)]
+    jpeg = fk.JpegDecoder(dev)
+    rows, plain_s, failed, pil_checked, last = [], [], [], 0, None
+    decode_s, pil_s = [], []  # per frame: nvJPEG's (to its sync), PIL's
+    kernel_err, control = 0.0, None
+    try:
+        for name, jpg, png, pil_check in cases:
+            depth = (None if png is None
+                     else torch.from_numpy(native_io.decode_png16(png)))
+            data = np.fromfile(jpg, np.uint8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            planes = jpeg.decode(data)
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t0)
+            d = None if depth is None else depth.to(dev)
+            got = fk.assemble_rgbd_cuda(planes, d, CODA_IMAGE_SIZE).cpu()
+            t0 = time.perf_counter()
+            nv = fk.ycc_to_rgb_plain(*planes)  # nvJPEG's pixels, as libjpeg
+            want = fk.assemble_rgbd_plain(nv, depth, CODA_IMAGE_SIZE)
+            plain_s.append(time.perf_counter() - t0)
+            err = float((got - want).abs().max())
+            if err != 0.0:
+                fail(f"phase 32: assemble_rgbd on {name} differs from its "
+                     f"plain version by {err:.3e}, not 0")
+            kernel_err = max(kernel_err, err)
+            t0 = time.perf_counter()
+            pil = native_io.decode_jpeg(jpg)
+            pil_s.append(time.perf_counter() - t0)
+            if pil_check:
+                zero = np.zeros((H, W), np.float32)
+                r, dd = cpu_ds._resized(
+                    pil.astype(np.float32) / 255.0,
+                    zero if depth is None else depth.numpy().astype(
+                        np.float32))
+                ref = np.concatenate([r, dd[..., None]], axis=-1)
+                plain = fk.assemble_rgbd_plain(torch.from_numpy(pil.copy()),
+                                               depth, CODA_IMAGE_SIZE)
+                if not np.array_equal(plain.numpy(), ref):
+                    fail(f"phase 32: the plain assembly of PIL's pixels of "
+                         f"{name} differs from the reader's PIL resize")
+                pil_checked += 1
+            gap = level_gap(nv.numpy(), pil)
+            rows.append((name, *gap))
+            cap = FRAME_SMOOTH_MAX if png is None else FRAME_DECODE_MAX
+            if over_limits(gap, cap):
+                failed.append(f"{name} max|d| {gap[0]} (limit {cap}), mean "
+                              f"{gap[1]:.4f}, share > 1 level {gap[2]:.4f}")
+            if control is None and png is not None:
+                y, cb, cr = (q.cpu() for q in planes)
+                control = level_gap(fk.ycc_to_rgb_plain(
+                    y, cb.roll(1, 0), cr.roll(1, 0)).numpy(), pil)
+                if not (control[0] > FRAME_DECODE_MAX
+                        and control[1] > FRAME_DECODE_MEAN
+                        and control[2] > FRAME_DECODE_SHARE):
+                    fail(f"phase 32: the control (chroma one row off) on "
+                         f"{name} reads max|d| {control[0]}, mean "
+                         f"{control[1]:.4f}, share > 1 level "
+                         f"{control[2]:.4f}: not over every limit")
+            if png is not None:
+                last = (planes, d, nv)
+    finally:
+        jpeg.close()
+    if failed:
+        fail("phase 32: nvJPEG against PIL over the limits: "
+             + "; ".join(failed))
+    return dict(rows=rows, plain_ms=statistics.median(plain_s) * 1e3,
+                kernel_err=kernel_err, control=control,
+                decode_ms=statistics.median(decode_s) * 1e3,
+                pil_decode_ms=statistics.median(pil_s) * 1e3,
+                pil_checked=pil_checked, frames=len(cases) - 1, last=last)
+
+
+def frame_kernel_timing(torch, planes, depth, rgb) -> dict:
+    """``assemble_rgbd`` at this run's frame size: µs per launch (CUDA
+    events back to back, and under the profiler), its bound, and
+    ``F.interpolate``'s antialiased bilinear on the same frame's RGB
+    (``rgb``, uint8 on the host) in f32 on the card."""
+    import torch.nn.functional as F
+
+    from creste_public_tpu_torch.ops import frame_kernel as fk
+
+    def kernel():
+        fk.assemble_rgbd_cuda(planes, depth, CODA_IMAGE_SIZE)
+
+    ms = time_ms(torch, kernel, iters=FRAME_KERNEL_ITERS)
+    # device time per launch under the profiler, over the launches it
+    # recorded (a session on the card's machine can record none: up to 3,
+    # as phase 8 does for SVF), and by CUDA events with the launches queued
+    # behind a sleep, so that the wrapper's host time does not count
+    n = 20
+    for attempt in range(1, 4):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                kernel()
+            torch.cuda.synchronize()
+        found = [e for e in device_kernels(torch, prof)
+                 if "assemble_rgbd" in e.key]
+        if found and found[0].count >= n // 2:
+            break
+        print(f"  profiler session {attempt} recorded "
+              f"{found[0].count if found else 0} of {n} assemble_rgbd "
+              "launches", flush=True)
+    else:
+        fail(f"three profiler sessions each recorded fewer than {n // 2} of "
+             f"{n} assemble_rgbd launches")
+    profiled_us = found[0].self_device_time_total / found[0].count
+    queued = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)  # ~10 ms to queue the launches
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            kernel()
+        b.record()
+        b.synchronize()
+        queued.append(a.elapsed_time(b) * 1e3 / n)
+    x = rgb.to(planes[0].device).permute(2, 0, 1)[None].float()
+    library_ms = time_ms(torch, lambda: F.interpolate(
+        x, size=CODA_IMAGE_SIZE, mode="bilinear", align_corners=False,
+        antialias=True), iters=FRAME_KERNEL_ITERS)
+    H, W = planes[0].shape
+    b = fk.frame_bound(H, W, *CODA_IMAGE_SIZE, depth is not None,
+                       *fk.subsampling(H, W, *planes[1].shape))
+    return dict(ms=ms, profiled_us=profiled_us,
+                queued_us=statistics.median(queued), library_ms=library_ms,
+                bound_ms=max(b["bytes"] / PEAK_BYTES,
+                             b["ops"] / PEAK_F32_FLOPS) * 1e3,
+                bound_by=bound_by(b["ops"], b["bytes"]), bytes=b["bytes"])
+
+
+def reader_rates(loaders: dict) -> dict:
+    """Each loader's samples/s: one warm-up epoch each, then READER_EPOCHS
+    timed epochs each, the loaders taking turns epoch by epoch. Per loader:
+    the rate over all its timed epochs, its epochs' rates, and the samples
+    timed."""
+    try:
+        for loader in loaders.values():
+            list(loader.epoch(0))
+        n = {name: 0 for name in loaders}
+        s = {name: 0.0 for name in loaders}
+        per = {name: [] for name in loaders}
+        for e in range(1, READER_EPOCHS + 1):
+            for name, loader in loaders.items():
+                t0 = time.perf_counter()
+                k = sum(len(b["image"]) for b in loader.epoch(e))
+                dt = time.perf_counter() - t0
+                n[name] += k
+                s[name] += dt
+                per[name].append(k / dt)
+        return {name: dict(rate=n[name] / s[name], epochs=per[name],
+                           samples=n[name]) for name in loaders}
+    finally:
+        for loader in loaders.values():
+            loader.close()
+
+
+def write_coda_phase_tree(root: str) -> dict:
+    """Phase 32's CODa tree under ``root``, its images encoded on a thread
+    per host core (the same bytes as one thread writes): its splits and the
+    seconds it took to write."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=os.cpu_count()) as pool:
+        splits = coda_tree_module().write_coda_tree(
+            root, seqs=CODA_SEQS, frames=CODA_FRAMES, H=CODA_NATIVE_HW[0],
+            W=CODA_NATIVE_HW[1], grid=CODA_GRID, fdim=CODA_FDIM,
+            styles=("ros",), legacy_elevation=(), labels3d=False,
+            scans=False, missing_sam=None, pool=pool,
+            feat_hw=(CODA_IMAGE_SIZE[0] // 4, -(-CODA_IMAGE_SIZE[1] // 4)))
+    return dict(splits=splits, write_s=time.perf_counter() - t0)
+
+
 def coda_reader_phase(torch, dev, card: str, root: str) -> dict:
-    """Phase 32: a CODa tree at the native 1024x1224 and the reader at
-    512x612 against the synthetic dataset's stage-3 contract."""
+    """Phase 32: a CODa tree at the native 1024x1224 written in ``root``
+    and the reader at 512x612 against the synthetic dataset's stage-3
+    contract, the card's frame decode against PIL's, and both readers'
+    rates."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from creste_public_tpu_torch.config.groups import GROUPS
     from creste_public_tpu_torch.data.coda_dataset import CodaDataset
     from creste_public_tpu_torch.data.dataloader import (
         EpochLoader,
         build_dataset,
     )
+    from creste_public_tpu_torch.ops import frame_kernel as fk
 
     tree = coda_tree_module()
-    t0 = time.perf_counter()
-    splits = tree.write_coda_tree(
-        root, seqs=CODA_SEQS, frames=CODA_FRAMES, H=CODA_NATIVE_HW[0],
-        W=CODA_NATIVE_HW[1], grid=CODA_GRID, fdim=CODA_FDIM, styles=("ros",),
-        legacy_elevation=(), labels3d=False, scans=False, missing_sam=None,
-        feat_hw=(CODA_IMAGE_SIZE[0] // 4, -(-CODA_IMAGE_SIZE[1] // 4)))
-    write_s = time.perf_counter() - t0
+    written = write_coda_phase_tree(root)
+    splits, write_s = written["splits"], written["write_s"]
     cfg = coda_config(root)
-    ds = build_dataset(cfg, "train")
+    ds, val = (build_dataset(cfg, split, dev) for split in ("train", "val"))
+    cpu_ds, cpu_val = (build_dataset(cfg, split, "cpu")
+                       for split in ("train", "val"))
     if not isinstance(ds, CodaDataset) or len(ds) != len(splits["train"]):
         fail(f"phase 32: build_dataset gave {type(ds).__name__} of "
              f"{len(ds)} samples")
+    backend = fk.nvjpeg_backend()
     synth = build_dataset(GROUPS["dataset"][TRAIN_DATASET], "train")[0]
 
     def layout(s):
@@ -3706,16 +3993,44 @@ def coda_reader_phase(torch, dev, card: str, root: str) -> dict:
                 (tuple(v.shape), str(v.dtype)) for k, v in s.items()}
 
     want = layout(synth)
-    val = build_dataset(cfg, "val")
-    for i, s in enumerate([ds[i] for i in range(len(ds))]
-                          + [val[i] for i in range(len(val))]):
+
+    def read_all(*readers) -> list:
+        """Every sample of ``readers``, read on a thread per host core."""
+        with ThreadPoolExecutor(max_workers=os.cpu_count()) as pool:
+            return list(pool.map(lambda di: di[0][di[1]], [
+                (d, i) for d in readers for i in range(len(d))]))
+
+    t0 = time.perf_counter()
+    # the card's reader over every sample: one assemble_rgbd launch a view
+    torch.cuda.synchronize()
+    fk.assemble_rgbd_cuda.launches = 0
+    samples = read_all(ds, val)
+    torch.cuda.synchronize()
+    reader_launches = fk.assemble_rgbd_cuda.launches
+    if reader_launches != len(samples) * ds.views:
+        fail(f"phase 32: {reader_launches} assemble_rgbd launches for "
+             f"{len(samples)} samples of {ds.views} view(s)")
+    for i, s in enumerate(samples):
         if layout(s) != want:
             fail(f"phase 32: sample {i} has {layout(s)}, not the synthetic "
                  f"stage-3 contract {want}")
         if not all(np.isfinite(v).all() for k, v in s.items()
                    if not isinstance(v, dict)):
             fail(f"phase 32: sample {i} has non-finite values")
-    s = ds[0]
+    card_read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pil_samples = read_all(cpu_ds, cpu_val)
+    pil_read_s = time.perf_counter() - t0
+    gaps = [same_sample(g, w, f"sample {i}")
+            for i, (g, w) in enumerate(zip(samples, pil_samples))]
+    image_gap = tuple(max(g[i] for g in gaps) for i in range(3))
+    if over_limits(image_gap, FRAME_DECODE_MAX):
+        fail(f"phase 32: the card reader's image RGB is {image_gap[0]} "
+             f"levels (mean {image_gap[1]:.4f}, share > 1 level "
+             f"{image_gap[2]:.4f}) from the PIL reader's, over the limits "
+             f"{FRAME_DECODE_MAX}, {FRAME_DECODE_MEAN}, "
+             f"{FRAME_DECODE_SHARE}")
+    s = samples[0]
     # the planted point, projected with the calibration's native
     # intrinsics, back through p2p at the feature resolution (512x612 / 4)
     cal = tree.calibration(*CODA_NATIVE_HW)
@@ -3733,14 +4048,43 @@ def coda_reader_phase(torch, dev, card: str, root: str) -> dict:
     if not np.array_equal(start, [CODA_GRID // 2] * 2):
         fail(f"phase 32: the expert path starts at {start}, not the grid "
              "centre")
-    loader = EpochLoader(ds, CODA_B, num_workers=CODA_WORKERS)
-    try:
-        list(loader.epoch(0))
-        t0 = time.perf_counter()
-        n = sum(len(b["image"]) for b in loader.epoch(1))
-        rate = n / (time.perf_counter() - t0)
-    finally:
-        loader.close()
+    t0 = time.perf_counter()
+    frames = frame_checks(torch, dev, root, ds, cpu_ds, ds.infos + val.infos)
+    checks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timing = frame_kernel_timing(torch, *frames["last"])
+    timing_s = time.perf_counter() - t0
+    # per sample, serially: the PIL path's decode, PNG and resize, and the
+    # card path's wall, each with the host CPU time it takes
+    pil_ms = np.zeros(3)
+    cpu0 = time.process_time()
+    for seq, fr in ds.infos:
+        t = [time.perf_counter()]
+        rgb = cpu_ds._image(seq, fr)
+        t.append(time.perf_counter())
+        depth = cpu_ds._depth_png(cpu_ds.depth_dir, seq, fr)
+        t.append(time.perf_counter())
+        cpu_ds._resized(rgb, depth)
+        t.append(time.perf_counter())
+        pil_ms += np.diff(t) * 1e3
+    pil_cpu = (time.process_time() - cpu0) * 1e3 / len(ds)
+    pil_ms /= len(ds)
+    cpu0, t0 = time.process_time(), time.perf_counter()
+    for seq, fr in ds.infos:
+        ds._rgbd(seq, fr)
+    card_ms = (time.perf_counter() - t0) * 1e3 / len(ds)
+    card_cpu = (time.process_time() - cpu0) * 1e3 / len(ds)
+    t0 = time.perf_counter()
+    rates = reader_rates({name: EpochLoader(d, CODA_B,
+                                            num_workers=CODA_WORKERS)
+                          for name, d in (("card", ds), ("pil", cpu_ds))})
+    rates_s = time.perf_counter() - t0
+    rate, pil_rate = rates["card"]["rate"], rates["pil"]["rate"]
+    turns = [a / b for a, b in zip(rates["card"]["epochs"],
+                                   rates["pil"]["epochs"])]
+    rows = frames["rows"]
+    noisy = [r for r in rows if r[0] != "smooth"]
+    sm = rows[-1]
     print(f"phase 32 CODa reader: ok, {len(CODA_SEQS) * CODA_FRAMES} frames "
           f"of {CODA_NATIVE_HW[0]}x{CODA_NATIVE_HW[1]} written in "
           f"{write_s:.1f} s (calibration in the ROS flow style); "
@@ -3748,13 +4092,80 @@ def coda_reader_phase(torch, dev, card: str, root: str) -> dict:
           f"{CODA_IMAGE_SIZE[0]}x{CODA_IMAGE_SIZE[1]} with the synthetic "
           f"stage-3 contract's {len(want)} keys, shapes and dtypes; the "
           f"planted point back through p2p within {err:.2e} m; the expert "
-          f"path starts at {start.tolist()}", flush=True)
+          f"path starts at {start.tolist()}; frames decoded on {ds.device} "
+          f"by nvJPEG ({backend}) and assemble_rgbd, {reader_launches} "
+          f"launches for {len(samples)} samples of one view", flush=True)
+    print(f"  phase 32 decode: assemble_rgbd equal to its plain version to "
+          f"the bit on the {frames['frames']} frames and the smooth image; "
+          f"the plain version on PIL's pixels equal to the card's PIL resize "
+          f"to the bit on {frames['pil_checked']} images; nvJPEG vs PIL "
+          f"(uint8 levels) per frame: max|d| "
+          f"{min(r[1] for r in noisy)} to {max(r[1] for r in noisy)}, mean "
+          f"{min(r[2] for r in noisy):.4f} to {max(r[2] for r in noisy):.4f},"
+          f" share > 1 level {min(r[3] for r in noisy):.4f} to "
+          f"{max(r[3] for r in noisy):.4f} (limits max <= "
+          f"{FRAME_DECODE_MAX}, mean <= {FRAME_DECODE_MEAN}, share <= "
+          f"{FRAME_DECODE_SHARE}); the control (frame {noisy[0][0]}'s chroma "
+          f"one row off) max|d| {frames['control'][0]}, mean "
+          f"{frames['control'][1]:.4f}, share {frames['control'][2]:.4f}, "
+          f"over every limit; smooth image max|d| {sm[1]}, mean "
+          f"{sm[2]:.4f}, share > 1 level {sm[3]:.4f} (limit max <= "
+          f"{FRAME_SMOOTH_MAX}); the card reader vs the PIL reader on "
+          f"{len(samples)} samples: every key but image and image's depth "
+          f"channel equal to the bit, RGB max|d| {image_gap[0]} levels, "
+          f"mean {image_gap[1]:.4f}, share > 1 level {image_gap[2]:.4f}; a "
+          f"JPEG's decode (median over the frames) "
+          f"{frames['decode_ms']:.2f} ms by nvJPEG (wall to its sync) "
+          f"against PIL's {frames['pil_decode_ms']:.2f} ms", flush=True)
     print(f"  timing phase 32: the CODa reader at "
           f"{CODA_IMAGE_SIZE[0]}x{CODA_IMAGE_SIZE[1]} (JPEG + PNG decode, "
-          f"resize, labels): {rate:.2f} samples/s in thread mode, "
-          f"{CODA_WORKERS} workers, {os.cpu_count()} host cores [{card}]",
+          f"resize, labels), thread mode, {CODA_WORKERS} workers, "
+          f"{os.cpu_count()} host cores, one warm-up epoch each, then "
+          f"{READER_EPOCHS} epochs each taking turns "
+          f"({rates['card']['samples']} samples each): "
+          f"{rate:.2f} samples/s decoding on the card (epochs "
+          f"{min(rates['card']['epochs']):.2f} to "
+          f"{max(rates['card']['epochs']):.2f}), {pil_rate:.2f} with PIL "
+          f"(epochs {min(rates['pil']['epochs']):.2f} to "
+          f"{max(rates['pil']['epochs']):.2f}), {rate / pil_rate:.3f}x "
+          f"(turn by turn {min(turns):.3f}x to {max(turns):.3f}x); per "
+          f"sample, serially: PIL path "
+          f"decode {pil_ms[0]:.2f} ms, PNG {pil_ms[1]:.2f} ms, resize "
+          f"{pil_ms[2]:.2f} ms (host CPU {pil_cpu:.2f} ms), card path wall "
+          f"{card_ms:.2f} ms (PNG on the host included; host CPU "
+          f"{card_cpu:.2f} ms); assemble_rgbd {timing['ms'] * 1e3:.2f} µs "
+          f"per launch (CUDA events, {FRAME_KERNEL_ITERS} back to back), "
+          f"{timing['profiled_us']:.2f} µs profiled, "
+          f"{timing['queued_us']:.2f} µs queued behind a sleep, bound "
+          f"{timing['bound_ms'] * 1e3:.2f} µs "
+          f"({timing['bound_by']}: {timing['bytes'] / 1e6:.2f} MB); "
+          f"F.interpolate bilinear antialias on the frame in f32 "
+          f"{timing['library_ms'] * 1e3:.2f} µs; the plain version "
+          f"{frames['plain_ms']:.1f} ms on the host; the phase's wall: the "
+          f"tree {write_s:.1f} s, the card reader's samples "
+          f"{card_read_s:.1f} s, the PIL reader's {pil_read_s:.1f} s, the "
+          f"frame checks {checks_s:.1f} s, the kernel's timing "
+          f"{timing_s:.1f} s, the readers' rates {rates_s:.1f} s [{card}]",
           flush=True)
-    return dict(rate=rate)
+    kernel = {
+        "name": "assemble_rgbd",
+        "route": "cuda",
+        "source": "creste_public_tpu_torch/csrc/frame_io.cu",
+        "replaces": "native/creste_io.cpp:156",
+        "max_abs_err": frames["kernel_err"],
+        "ms": timing["ms"],
+        "plain_ms": frames["plain_ms"],
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        "library_ms": timing["library_ms"],
+        "profiled_us": timing["profiled_us"],
+        "queued_us": timing["queued_us"],
+        "reader_launches": reader_launches,
+        "nvjpeg_backend": backend,
+        "nvjpeg_decode_ms": frames["decode_ms"],
+        "pil_decode_ms": frames["pil_decode_ms"],
+    }
+    return dict(rate=rate, pil_rate=pil_rate, rates=rates, kernel=kernel)
 
 
 def coda_train_phase(torch, dev, card: str, root: str,
@@ -3772,6 +4183,7 @@ def coda_train_phase(torch, dev, card: str, root: str,
     from creste_public_tpu_torch.data.dataloader import build_dataset
     from creste_public_tpu_torch.data.synthetic import collate
     from creste_public_tpu_torch.losses.manager import LossManager
+    from creste_public_tpu_torch.ops import frame_kernel as fk
     from creste_public_tpu_torch.ops import reward_kernel as rk
     from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
     from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
@@ -3801,13 +4213,19 @@ def coda_train_phase(torch, dev, card: str, root: str,
         argv.append(f"model.weights_path={ssc_dir}")
     torch.cuda.synchronize()
     value_iteration_cuda.launches = expected_svf_cuda.launches = 0
-    rk.msfcn_head_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = fk.assemble_rgbd_cuda.launches = 0
     t0 = time.perf_counter()
     state = train_traversability.main(argv)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = (value_iteration_cuda.launches, expected_svf_cuda.launches,
                 rk.msfcn_head_cuda.launches)
+    # the trainer's readers decode on the card (trainer.device's default);
+    # the loaders prefetch, so the count is at least the samples read
+    frame_launches = fk.assemble_rgbd_cuda.launches
+    if frame_launches < 1:
+        fail("phase 33: the trainer's CODa readers launched assemble_rgbd "
+             "no time")
     rows = [json.loads(line) for line in open(os.path.join(
         ckpt_dir, "metrics.jsonl"))]
     train_rows = [r for r in rows if "split" not in r]
@@ -3888,8 +4306,10 @@ def coda_train_phase(torch, dev, card: str, root: str,
           f"{run_s:.1f} s, losses "
           + ", ".join(f"{r['loss']:.6e}" for r in train_rows)
           + f", val loss {rows[-1]['loss']:.6e}; VI / SVF / reward-head "
-          f"launches {launches}; {len(tags)} PNGs with JAX's tags and "
-          "shapes, none constant", flush=True)
+          f"launches {launches}; frames decoded on {dev.type}:"
+          f"{torch.cuda.current_device()} (nvJPEG), assemble_rgbd launches "
+          f"{frame_launches}; {len(tags)} PNGs with JAX's tags and shapes, "
+          "none constant", flush=True)
     print(f"  timing phase 33: a B={CODA_B} training step on a CODa batch "
           f"{step_ms:.1f} ms (CUDA events, median of 3 after a warm-up: "
           + ", ".join(f"{t:.1f}" for t in times[1:])
@@ -3898,7 +4318,8 @@ def coda_train_phase(torch, dev, card: str, root: str,
           f"images (eval forward at B=1, {len(images)} renders, PNGs) "
           f"{visuals_s * 1e3:.0f} ms, the renders alone "
           f"{render_s * 1e3:.0f} ms [{card}]", flush=True)
-    return dict(launches=launches, loop_ms=loop_ms, step_ms=step_ms)
+    return dict(launches=launches, loop_ms=loop_ms, step_ms=step_ms,
+                frame_launches=frame_launches)
 
 
 def secondary_phase(torch, dev, card: str) -> dict:
@@ -4009,6 +4430,7 @@ def coda_path(torch, dev, card: str, ssc_dir: str | None) -> dict:
         trained = coda_train_phase(torch, dev, card, root, ssc_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    reader["kernel"]["launches"] = trained["frame_launches"]
     return dict(reader, launches=trained["launches"], train=trained,
                 secondary=secondary_phase(torch, dev, card))
 
@@ -4305,6 +4727,7 @@ def pre_reader_phase(torch, dev, card: str, root: str) -> dict:
     from creste_public_tpu_torch.config.groups import GROUPS
     from creste_public_tpu_torch.data.coda_dataset import CodaDataset
     from creste_public_tpu_torch.data.dataloader import build_dataset
+    from creste_public_tpu_torch.ops import frame_kernel as fk
 
     synth = build_dataset(GROUPS["dataset"][TRAIN_DATASET], "train")[0]
 
@@ -4315,14 +4738,20 @@ def pre_reader_phase(torch, dev, card: str, root: str) -> dict:
     want = layout(synth)
     cfg = coda_config(root)
     samples = []
+    torch.cuda.synchronize()
+    fk.assemble_rgbd_cuda.launches = 0
     t0 = time.perf_counter()
     for split in ("train", "val"):
-        ds = build_dataset(cfg, split)
+        ds = build_dataset(cfg, split, dev)
         if not isinstance(ds, CodaDataset) or not len(ds):
             fail(f"phase 37: build_dataset gave {type(ds).__name__} of "
                  f"{len(ds)} {split} samples")
         samples += [ds[i] for i in range(len(ds))]
     read_s = time.perf_counter() - t0
+    launches = fk.assemble_rgbd_cuda.launches
+    if launches != len(samples) * ds.views:
+        fail(f"phase 37: {launches} assemble_rgbd launches for "
+             f"{len(samples)} samples of {ds.views} view(s)")
     for i, s in enumerate(samples):
         if layout(s) != want:
             fail(f"phase 37: sample {i} has {layout(s)}, not phase 32's "
@@ -4342,8 +4771,10 @@ def pre_reader_phase(torch, dev, card: str, root: str) -> dict:
           f"{len(samples)} samples (train and val splits) at "
           f"{CODA_IMAGE_SIZE[0]}x{CODA_IMAGE_SIZE[1]} with phase 32's "
           f"{len(want)} keys, shapes and dtypes, finite (elevation: +inf "
-          f"where unknown); read in {read_s:.1f} s [{card}]", flush=True)
-    return dict(samples=len(samples))
+          f"where unknown); decoded on {ds.device} by nvJPEG and "
+          f"assemble_rgbd, {launches} launches; read in {read_s:.1f} s "
+          f"[{card}]", flush=True)
+    return dict(samples=len(samples), frame_launches=launches)
 
 
 def preprocessing_path(torch, dev, card: str, root: str) -> dict:
@@ -6044,7 +6475,9 @@ def main() -> None:
         "native_host_bf16_launches": native["served"]["bf16"]["launches"],
         "native_host_bf16_frames": native["served"]["bf16"]["frames"],
         "native_host_bf16_max_abs_err": native["served"]["bf16"]["err"],
-    }] + mdp_kernels}))
+    }] + mdp_kernels + [dict(
+        coda["kernel"],
+        chain_reader_launches=pre["reader"]["frame_launches"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -201,7 +201,7 @@ class AnnotationBackend:
             self._dataset = CodaDataset(
                 {"root": self.root, "grid": self.grid,
                  "map_range": self.map_range, "horizon": self.horizon},
-                split="train",
+                split="train", device="cpu",  # poses and the PIL front view
             )
         return self._dataset
 

@@ -10,7 +10,10 @@ on the synthetic or the CODa dataset: one dataset, or with
 (``MultiTaskIterator``), augmented with ``dataset.do_augmentation``. The port has no ``JAX_PLATFORMS``:
 ``trainer.device`` (default ``cuda``) picks the device, and
 ``trainer.device=cpu`` runs on the CPU. ``dataset=coda dataset.root=DIR``
-reads a UT CODa directory tree (``data.coda_dataset``), and
+reads a UT CODa directory tree (``data.coda_dataset``), its frames
+decoded on ``trainer.device`` (nvJPEG and a kernel on a rank's card; PIL
+with ``trainer.device=cpu``; process-mode loader workers refuse the
+card), and
 ``visualize=effnet_distillation`` writes the validation images as PNGs
 under ``visualize.save_dir``.
 
@@ -34,9 +37,11 @@ from creste_public_tpu_torch.data.dataloader import (
     build_dataset,
 )
 from creste_public_tpu_torch.parallel import launch as pl
+from creste_public_tpu_torch.parallel.mesh import rank_device
 from creste_public_tpu_torch.training.loop import run_training
 from creste_public_tpu_torch.training.optim import LOAD_SETTING_FROZEN
 from creste_public_tpu_torch.training.state import TrainState
+from creste_public_tpu_torch.utils.device import resolve_device
 
 
 def launch(root: str, argv: list[str] | None = None) -> TrainState | None:
@@ -78,6 +83,10 @@ def _train(cfg: Config) -> TrainState:
         if vz.get("save_dir"):
             tcfg["visuals_dir"] = vz["save_dir"]
 
+    # the CODa reader decodes on the rank's card (or the CPU)
+    reader_device = resolve_device(tcfg.get("device", "cuda"))
+    if world > 1:
+        reader_device = rank_device(reader_device)
     batch = int(model_cfg.get("batch_size", 4))
     workers = int(tcfg.get("num_workers", 4))
     worker_mode = str(tcfg.get("loader_worker_mode", "thread"))
@@ -88,14 +97,16 @@ def _train(cfg: Config) -> TrainState:
         transform = augment_sample
 
     def train_loader(sub: Config) -> EpochLoader:
-        return EpochLoader(build_dataset(sub, "train"), batch, shuffle=True,
+        return EpochLoader(build_dataset(sub, "train", reader_device), batch,
+                           shuffle=True,
                            seed=int(tcfg.get("seed", 0)),
                            transform=transform, num_workers=workers,
                            worker_mode=worker_mode, rank=rank,
                            world_size=world)
 
     def val_loader(sub: Config) -> EpochLoader:
-        return EpochLoader(build_dataset(sub, "val"), batch, shuffle=False,
+        return EpochLoader(build_dataset(sub, "val", reader_device), batch,
+                           shuffle=False,
                            drop_last=False, num_workers=workers,
                            worker_mode=worker_mode, rank=rank,
                            world_size=world)

@@ -1,9 +1,13 @@
 """UT CODa on-disk dataset reader.
 
 A copy of ``creste_public_tpu/data/coda_dataset.py``: the same samples,
-bit for bit, from the same directory tree. Its differences: frames are
-decoded by the port's PIL-backed ``native_io`` (the JAX reader's PIL
-branch), the calibration files are read without YAML
+bit for bit, from the same directory tree. Its differences: on the CPU
+(``device="cpu"``) frames are decoded by the port's PIL-backed
+``native_io`` (the JAX reader's PIL branch); on a card (the default) the
+RGBD ``image`` is decoded by nvJPEG and assembled and resized by the
+kernel of ``ops/frame_kernel.py`` (``native_io.DeviceFrameDecoder``),
+equal to the PIL path's from the same pixels, its RGB within JPEG
+decoders' rounding of PIL's; the calibration files are read without YAML
 (``calib.read_calibration_yaml``), the per-sequence calibration and pose
 caches are instance dicts (the dataset pickles into the process-mode
 loader's workers), and the two helpers it takes from the JAX package's
@@ -25,8 +29,9 @@ data/synthetic.py (the framework-wide contract), read from the CODa layout
   traversability_label [T, 3, 3]     expert SE(2) chain on the BEV grid
   counterfactuals_label {trajectories [N,T,2], rank [N], valid [N]}
 
-Host design: all decode work is NumPy/PIL on the host (the device
-path starts at the collated batch); ragged counterfactual pickles are padded
+Host design: every key but ``image`` is read with NumPy/PIL on the host,
+and the sample stays numpy on either device (augmentation, collate and
+the loader's workers stay on the host); ragged counterfactual pickles are padded
 to static [N_max, T, 2] with validity masks (replacing the reference's
 python-list collate, codapefree_dataloader.py:251-275).
 """
@@ -34,10 +39,12 @@ from __future__ import annotations
 
 import os
 import pickle
+import threading
 import warnings
 from typing import Any
 
 import numpy as np
+import torch
 from PIL import Image
 
 from creste_public_tpu_torch.data import coda_constants as cc
@@ -48,7 +55,11 @@ from creste_public_tpu_torch.data.calib import (
     load_calibration,
     load_poses,
 )
+from creste_public_tpu_torch.ops.frame_kernel import cuda_device
 from creste_public_tpu_torch.utils import geometry as geo
+from creste_public_tpu_torch.utils.device import resolve_device
+
+_DECODER_LOCK = threading.Lock()
 
 
 def read_split(root: str, split: str) -> list[tuple[str, int]]:
@@ -187,9 +198,16 @@ def remap_contiguous(labels: np.ndarray, ignore: int = 0) -> np.ndarray:
 
 
 class CodaDataset:
-    """Reads the CODa directory layout; one sample per (seq, frame)."""
+    """Reads the CODa directory layout; one sample per (seq, frame).
+    ``device`` decodes the frames' ``image``: a card (the default; raises
+    without one) or ``"cpu"`` (PIL, bit-equal to the JAX reader)."""
 
-    def __init__(self, cfg: Any, split: str = "train"):
+    def __init__(self, cfg: Any, split: str = "train",
+                 device: str | torch.device = "cuda"):
+        device = resolve_device(device)
+        self.device = (cuda_device(device) if device.type == "cuda"
+                       else device)
+        self._decoder = None  # made at first use
         self.root = cfg["root"]
         self.cam = cfg.get("cam", cc.DEFAULT_CAM)
         self.views = int(cfg.get("views", 1))
@@ -254,7 +272,7 @@ class CodaDataset:
         path = cc.frame_path(self.root, cc.CAMERA_DIR, self.cam, seq, frame, "jpg")
         return native_io.decode_jpeg(path).astype(np.float32) / 255.0
 
-    def _depth_png(self, dirname: str, seq: str, frame: int) -> np.ndarray:
+    def _depth_path(self, dirname: str, seq: str, frame: int) -> str:
         path = os.path.join(
             self.root, dirname, self.cam, str(seq), f"{frame}.png"
         )
@@ -262,7 +280,33 @@ class CodaDataset:
             path = cc.frame_path(
                 self.root, dirname, self.cam, seq, frame, "png"
             )
+        return path
+
+    def _depth_png(self, dirname: str, seq: str, frame: int) -> np.ndarray:
+        path = self._depth_path(dirname, seq, frame)
         return native_io.decode_png16(path).astype(np.float32)  # mm
+
+    def _frame_decoder(self) -> native_io.DeviceFrameDecoder:
+        with _DECODER_LOCK:
+            if self._decoder is None:
+                self._decoder = native_io.DeviceFrameDecoder(self.device)
+            return self._decoder
+
+    def _rgbd(self, seq: str, frame: int) -> tuple[np.ndarray, np.ndarray]:
+        """(rgbd [h, w, 4] f32, its depth channel [h, w] f32) of a frame at
+        cfg image_size: on a card decoded and assembled there, on the CPU
+        by PIL."""
+        if self.device.type == "cuda":
+            rgbd = self._frame_decoder().assemble(
+                cc.frame_path(self.root, cc.CAMERA_DIR, self.cam, seq, frame,
+                              "jpg"),
+                self._depth_path(self.depth_dir, seq, frame),
+                None if self.image_size is None else tuple(self.image_size))
+            return rgbd, rgbd[..., 3]
+        rgb = self._image(seq, frame)
+        depth = self._depth_png(self.depth_dir, seq, frame)
+        rgb, depth = self._resized(rgb, depth)
+        return np.concatenate([rgb, depth[..., None]], axis=-1), depth
 
     def _fimg(self, seq: str, frame: int) -> np.ndarray:
         path = os.path.join(
@@ -396,10 +440,7 @@ class CodaDataset:
 
     def _view_sample(self, seq: str, frame: int, anchor_pose: np.ndarray):
         """(rgbd [H,W,4], p2p-into-anchor-frame [4,4]) for one view."""
-        rgb = self._image(seq, frame)
-        depth = self._depth_png(self.depth_dir, seq, frame)
-        rgb, depth = self._resized(rgb, depth)
-        rgbd = np.concatenate([rgb, depth[..., None]], axis=-1)
+        rgbd, _ = self._rgbd(seq, frame)
         p2p = self._p2p(seq)
         pose = self._se3_poses(seq)[frame]
         rel = np.linalg.inv(anchor_pose) @ pose  # anchor_from_view
@@ -450,10 +491,7 @@ class CodaDataset:
         seq, frame = self.infos[idx]
         if self.views > 1:
             return self._getitem_multiview(seq, frame, idx)
-        rgb = self._image(seq, frame)
-        depth = self._depth_png(self.depth_dir, seq, frame)
-        rgb, depth = self._resized(rgb, depth)
-        rgbd = np.concatenate([rgb, depth[..., None]], axis=-1)
+        rgbd, depth = self._rgbd(seq, frame)
 
         gt_depth = (
             depth

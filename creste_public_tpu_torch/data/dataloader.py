@@ -55,9 +55,11 @@ def _proc_fetch(job):
     return s
 
 
-def build_dataset(ds_cfg: Any, split: str = "train"):
+def build_dataset(ds_cfg: Any, split: str = "train", device="cuda"):
     """Dataset factory by config name: 'synthetic' | 'coda' (the whole
-    dataset config goes to the reader, which picks its split's list)."""
+    dataset config goes to the reader, which picks its split's list, and
+    decodes its frames on ``device``: a card, or ``"cpu"`` for PIL; the
+    synthetic dataset ignores it)."""
     name = ds_cfg.get("name", "synthetic")
     if name == "synthetic":
         return SyntheticCodaDataset(
@@ -67,7 +69,7 @@ def build_dataset(ds_cfg: Any, split: str = "train"):
     if name == "coda":
         from creste_public_tpu_torch.data.coda_dataset import CodaDataset
 
-        return CodaDataset(ds_cfg, split=split)
+        return CodaDataset(ds_cfg, split=split, device=device)
     raise ValueError(f"Unknown dataset: {name}")
 
 
@@ -76,7 +78,9 @@ class EpochLoader:
     producer thread keeps ``_PREFETCH`` collated batches ready, fetching the
     samples of a batch on ``num_workers`` threads (``worker_mode="thread"``)
     or through a persistent pool of ``num_workers`` spawned processes
-    (``"process"``: the dataset and ``transform`` must pickle).
+    (``"process"``: the dataset and ``transform`` must pickle, and the
+    dataset must decode on the host: a CODa reader that decodes on a card
+    is refused there).
     ``transform(sample, rng)`` (augmentation) gets the sample's own
     generator, ``_sample_rng(seed, epoch, j)``.
 
@@ -93,6 +97,15 @@ class EpochLoader:
                  rank: int = 0, world_size: int = 1):
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"worker_mode: {worker_mode!r}")
+        if worker_mode == "process" and getattr(
+                getattr(dataset, "device", None), "type", None) == "cuda":
+            raise ValueError(
+                "process-mode loader workers do not decode on the card: "
+                "each spawned worker would hold its own CUDA context and "
+                "nvJPEG handle on it, and the card's decode already runs "
+                "outside the GIL in threads. Use loader_worker_mode=thread, "
+                "or trainer.device=cpu (a reader with device='cpu') for "
+                "PIL decoding in worker processes")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle

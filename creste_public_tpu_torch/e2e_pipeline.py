@@ -304,7 +304,7 @@ def direct_forward(root: str, ckpt_dir: str, grid: int, map_range: float,
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     s = CodaDataset(reader_config(root, grid, map_range, horizon, image_size),
-                    split="train")[0]
+                    split="train", device=dev)[0]
     # sample contract: image [V, H, W, 4] RGB/255 + depth-mm channel,
     # p2p [V, 4, 4]: the deployment graph's input layout
     rgbd = s["image"][None].astype(np.float32)

@@ -6,7 +6,9 @@ C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC``) under ``build/kernels/`` at the root of the checkout.
 The library's file name carries a hash of its source, so an edited source
 is rebuilt and a stale library is never loaded. Sources come only from the
-package's ``csrc/`` directory.
+package's ``csrc/`` directory. A source that calls a CUDA toolkit library
+links it (``LINK_LIBS``: ``frame_io.cu`` links nvJPEG, with the toolkit's
+library directory as its run path); the others link nothing more.
 
 ``build_host`` compiles the C++ registration of ``creste::msfcn_head``
 (``csrc/msfcn_head_op.cpp``, with ``csrc/msfcn_chain.cu`` compiled in for
@@ -36,6 +38,7 @@ OP_SOURCE, HOST_SOURCE, KERNEL_SOURCE = (
     "msfcn_head_op.cpp", "serve_host.cpp", "msfcn_chain.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_LIBS = {"frame_io": ["-lnvjpeg"]}
 
 
 def nvcc() -> str:
@@ -48,6 +51,16 @@ def nvcc() -> str:
 def sources() -> list[str]:
     """Names (file stems) of every CUDA source of the package."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def nvcc_command(name: str, out: Path) -> list[str]:
+    """The nvcc command that builds ``csrc/<name>.cu`` into ``out``."""
+    libs = LINK_LIBS.get(name, [])
+    if libs:
+        libdir = cuda_home() / "lib64"
+        libs = [f"-L{libdir}", *libs, "-Xlinker", f"-rpath,{libdir}"]
+    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu"),
+            *libs]
 
 
 def library_path(name: str) -> Path:
@@ -69,7 +82,7 @@ def build(names: list[str] | None = None) -> dict[str, dict]:
             report[name] = {"seconds": 0.0, "log": ""}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = nvcc_command(name, tmp)
         started[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out, time.perf_counter())

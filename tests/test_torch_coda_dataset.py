@@ -79,11 +79,11 @@ def test_samples_equal_jax(tree, name):
     cfg = config(root, **CONFIGS[name])
     for split in ("train", "val"):
         want = jcd.CodaDataset(cfg, split=split)
-        got = cd.CodaDataset(cfg, split=split)
+        got = cd.CodaDataset(cfg, split=split, device="cpu")
         assert got.infos == want.infos and len(got) > 0
         for i in range(len(want)):
             assert_same(got[i], want[i], f"{name}/{split}/{i}")
-    train = cd.CodaDataset(cfg, split="train")
+    train = cd.CodaDataset(cfg, split="train", device="cpu")
     if name == "missing_sam":
         assert "3d_sam_label" not in train[0]
     if name == "views3":
@@ -122,15 +122,15 @@ def test_split_helpers_equal_jax(tree):
 def test_build_dataset_pickles_and_process_mode(tree):
     root, _ = tree
     cfg = config(root, use_movability=True)
-    ds = build_dataset(cfg, "train")
+    ds = build_dataset(cfg, "train", "cpu")
     assert isinstance(ds, cd.CodaDataset)
     first = ds[0]  # fills the calibration and pose caches
     again = pickle.loads(pickle.dumps(ds))
     assert_same(again[0], first)
     kw = dict(batch_size=2, shuffle=True, seed=3, num_workers=2)
     thread = EpochLoader(ds, **kw)
-    proc = EpochLoader(build_dataset(cfg, "train"), worker_mode="process",
-                       **kw)
+    proc = EpochLoader(build_dataset(cfg, "train", "cpu"),
+                       worker_mode="process", **kw)
     try:
         a, b = list(thread.epoch(1)), list(proc.epoch(1))
         assert len(a) == len(b) == len(ds) // 2

@@ -111,14 +111,24 @@ def write_coda_tree(root: str, seqs=("0", "1"), frames: int = 6,
                     legacy_elevation=("1",), labels3d: bool = True,
                     scans: bool = True, movability: bool = True,
                     missing_sam: str | None = "1", feat_hw=None,
-                    seed: int = 0) -> dict:
+                    seed: int = 0, pool=None) -> dict:
     """Writes the tree under ``root``; returns ``{"train": [(seq, frame)],
     "val": [...], "partial": [...]}``: each sequence's last frame is
     ``val``, the others ``train``. Sequence ``missing_sam`` gets one frame
     more, written without its static SAM map and listed only in
     ``partial``. The DINO features are ``feat_hw`` (default the frame's
-    size over ``ds``: set it to the feature size of a resized frame)."""
+    size over ``ds``: set it to the feature size of a resized frame).
+    ``pool`` (an executor, or None) encodes the JPEG and PNG files: the
+    same bytes, written while the next frame is drawn."""
     rng = np.random.default_rng(seed)
+    saves = []
+
+    def save(image, path: str, **kw) -> None:
+        if pool is None:
+            image.save(path, **kw)
+        else:
+            saves.append(pool.submit(image.save, path, **kw))
+
     hs, ws = feat_hw or (-(-H // ds), -(-W // ds))
     cal = calibration(H, W)
     splits: dict[str, list] = {"train": [], "val": [], "partial": []}
@@ -148,13 +158,13 @@ def write_coda_tree(root: str, seqs=("0", "1"), frames: int = 6,
             v = np.linspace(0, 1, H)[:, None, None]
             rgb = (0.5 * rng.uniform(0, 255, (H, W, 3))
                    + 60 * (u + v) + 20 * fr)
-            Image.fromarray(np.clip(rgb, 0, 255).astype(np.uint8)).save(
-                os.path.join(sub("2d_rect", CAM, seq),
-                             f"2d_rect_{CAM}_{seq}_{fr}.jpg"), quality=90)
+            save(Image.fromarray(np.clip(rgb, 0, 255).astype(np.uint8)),
+                 os.path.join(sub("2d_rect", CAM, seq),
+                              f"2d_rect_{CAM}_{seq}_{fr}.jpg"), quality=90)
             depth = rng.uniform(300, 20000, (H, W))
             depth[rng.uniform(size=(H, W)) < 0.5] = 0
-            Image.fromarray(depth.astype(np.uint16)).save(
-                os.path.join(sub("depth_5_LA_all", CAM, seq), f"{fr}.png"))
+            save(Image.fromarray(depth.astype(np.uint16)),
+                 os.path.join(sub("depth_5_LA_all", CAM, seq), f"{fr}.png"))
             np.save(os.path.join(sub("distillation", CAM, seq), f"{fr}.npy"),
                     rng.normal(size=(hs, ws, fdim)).astype(np.float32))
             sam = np.kron(rng.integers(0, 40, (grid // 4, grid // 4)),
@@ -216,4 +226,6 @@ def write_coda_tree(root: str, seqs=("0", "1"), frames: int = 6,
             f.writelines(f"{s} {fr}\n" for s, fr in rows)
     np.savetxt(os.path.join(split_dir, "train_distances.txt"),
                rng.uniform(0, 5, len(splits["train"])))
+    for job in saves:
+        job.result()
     return splits

@@ -275,3 +275,136 @@ def test_train_step_on_card_matches_cpu(cuda):
         for k in cm:
             torch.testing.assert_close(m[k].cpu(), cm[k], rtol=1e-2,
                                        atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W,size,sub", [
+    (1024, 1224, (512, 612), (2, 2)), (64, 80, (37, 53), (2, 2)),
+    (32, 40, (64, 80), (2, 1)), (63, 81, (64, 40), (2, 2)),
+    (64, 80, None, (1, 1))])
+@pytest.mark.parametrize("with_depth", [True, False])
+def test_frame_kernel_matches_plain_on_card(cuda, H, W, size, sub,
+                                            with_depth):
+    """``assemble_rgbd`` on the card equals its plain version
+    (``ycc_to_rgb_plain`` then ``assemble_rgbd_plain``) to the bit, in one
+    launch, from random planes at 4:2:0, 4:2:2 and 4:4:4 (odd sizes
+    included)."""
+    from creste_public_tpu_torch.ops import frame_kernel as fk
+
+    g = torch.Generator().manual_seed(H + W)
+    ch, cw = -(-H // sub[1]), -(-W // sub[0])
+    planes = [torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
+              for shape in ((H, W), (ch, cw), (ch, cw))]
+    depth = (torch.randint(0, 65536, (H, W), generator=g,
+                           dtype=torch.int32).to(torch.uint16)
+             if with_depth else None)
+    before = fk.assemble_rgbd_cuda.launches
+    got = fk.assemble_rgbd_cuda([p.to(cuda) for p in planes],
+                                None if depth is None else depth.to(cuda),
+                                size)
+    torch.cuda.synchronize()
+    assert fk.assemble_rgbd_cuda.launches == before + 1
+    want = fk.assemble_rgbd_plain(fk.ycc_to_rgb_plain(*planes), depth, size)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_device_decoder_matches_pil_reader(cuda, tmp_path):
+    """nvJPEG + the kernel against the reader's PIL path on one JPEG and
+    depth PNG: the depth channel equal, the RGB within the decode limits
+    of chip_smoke phase 32 (in uint8 levels: max |d| <= 8, mean <= 0.3,
+    share of pixels more than 1 level off <= 2%)."""
+    import numpy as np
+    from PIL import Image
+
+    from creste_public_tpu_torch.data import native_io
+    from creste_public_tpu_torch.data.coda_dataset import CodaDataset
+    from creste_public_tpu_torch.ops import frame_kernel as fk
+
+    rng = np.random.default_rng(0)
+    H, W = 256, 320
+    u = np.linspace(0, 1, W)[None, :, None]
+    v = np.linspace(0, 1, H)[:, None, None]
+    rgb = np.clip(0.5 * rng.uniform(0, 255, (H, W, 3)) + 60 * (u + v), 0,
+                  255).astype(np.uint8)
+    depth = rng.integers(0, 65536, (H, W)).astype(np.uint16)
+    jpg, png = str(tmp_path / "f.jpg"), str(tmp_path / "f.png")
+    Image.fromarray(rgb).save(jpg, quality=90)
+    Image.fromarray(depth).save(png)
+    decoder = native_io.DeviceFrameDecoder(cuda)
+    before = fk.assemble_rgbd_cuda.launches
+    got = decoder.assemble(jpg, png, (128, 160))
+    assert fk.assemble_rgbd_cuda.launches == before + 1
+    stub = type("Reader", (), {"image_size": (128, 160)})()
+    r, d = CodaDataset._resized(stub, native_io.decode_jpeg(jpg).astype(
+        np.float32) / 255.0, native_io.decode_png16(png).astype(np.float32))
+    assert got.shape == (128, 160, 4) and got.dtype == np.float32
+    assert np.array_equal(got[..., 3], d)
+    diff = np.rint(np.abs(got[..., :3].astype(np.float64) - r) * 255)
+    assert diff.max() <= 8 and diff.mean() <= 0.3
+    assert (diff > 1).mean() <= 0.02
+
+
+@pytest.mark.gpu
+def test_frame_kernel_rejects_bad_input(cuda):
+    import numpy as np
+
+    from creste_public_tpu_torch.ops import frame_kernel as fk
+
+    y = torch.zeros((8, 8), dtype=torch.uint8, device=cuda)
+    c = torch.zeros((4, 4), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.assemble_rgbd_cuda((y.t(), c, c), None, (4, 4))
+    with pytest.raises(ValueError, match="device"):
+        fk.assemble_rgbd_cuda((y, c, c),
+                              torch.zeros((8, 8), dtype=torch.uint16), (4, 4))
+    with pytest.raises(ValueError, match="positive"):
+        fk.assemble_rgbd_cuda((y, c, c), None, (0, 4))
+    decoder = fk.JpegDecoder(cuda)
+    try:
+        with pytest.raises(RuntimeError, match="nvjpeg"):
+            decoder.decode(np.frombuffer(b"not a jpeg", np.uint8).copy())
+    finally:
+        decoder.close()
+
+
+@pytest.mark.gpu
+def test_device_decoder_threads(cuda, tmp_path):
+    """More threads than cores decode through one decoder at once (each
+    takes a context of its own): every result equals the serial one, and
+    every launch is counted."""
+    import os
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from creste_public_tpu_torch.data import native_io
+    from creste_public_tpu_torch.ops import frame_kernel as fk
+
+    rng = np.random.default_rng(1)
+    pairs = []
+    for i in range(4):
+        jpg, png = str(tmp_path / f"{i}.jpg"), str(tmp_path / f"{i}.png")
+        Image.fromarray(rng.integers(0, 256, (128, 160, 3), dtype=np.uint8)
+                        ).save(jpg, quality=90)
+        Image.fromarray(rng.integers(0, 65536, (128, 160)).astype(
+            np.uint16)).save(png)
+        pairs.append((jpg, png))
+    decoder = native_io.DeviceFrameDecoder(cuda)
+    want = [decoder.assemble(j, p, (64, 80)) for j, p in pairs]
+    n = 2 * (os.cpu_count() or 4)
+    before = fk.assemble_rgbd_cuda.launches
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with ThreadPoolExecutor(n) as pool:
+            futures = [pool.submit(decoder.assemble, *pairs[i % 4], (64, 80))
+                       for i in range(4 * n)]
+            got = [f.result(timeout=120) for f in futures]
+    finally:
+        sys.setswitchinterval(interval)
+    assert fk.assemble_rgbd_cuda.launches == before + 4 * n
+    for i, g in enumerate(got):
+        assert np.array_equal(g, want[i % 4]), i

@@ -201,7 +201,7 @@ def test_counterfactuals_label_matches_jax_reader(pipeline, monkeypatch):
     cfg = e2e.reader_config(os.path.join(work, "data"), GRID, RANGE,
                             HORIZON)
     for split in ("train", "val"):
-        port, jax_ = CodaDataset(cfg, split), JCoda(cfg, split)
+        port, jax_ = CodaDataset(cfg, split, "cpu"), JCoda(cfg, split)
         assert port.infos == jax_.infos
         for i in range(len(port)):
             got, want = (port[i]["counterfactuals_label"],
@@ -241,7 +241,7 @@ def test_exported_tiny_program_matches_jax(pipeline, tmp_path, monkeypatch):
     monkeypatch.setattr(jnative_io, "available", lambda: False)
     cfg = e2e.reader_config(os.path.join(work, "data"), GRID, RANGE,
                             HORIZON)
-    s = CodaDataset(cfg, "train")[0]
+    s = CodaDataset(cfg, "train", "cpu")[0]
     js = JCoda(cfg, "train")[0]
     rgbd, p2p = s["image"][None], s["p2p"][None]
     np.testing.assert_array_equal(rgbd, js["image"][None])

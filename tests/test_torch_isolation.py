@@ -99,10 +99,11 @@ def test_parallel_modules_are_checked(rel_path):
     test_source_imports(path)
 
 
-# the CODa reader's, the validation images' and the secondary models'
-# modules
+# the CODa reader's (with its frame decode on the card), the validation
+# images' and the secondary models' modules
 CODA_MODULES = ("data/coda_constants.py", "data/taxonomy.py", "data/calib.py",
                 "data/native_io.py", "data/coda_dataset.py",
+                "ops/frame_kernel.py",
                 "utils/colormaps.py", "utils/visualization.py",
                 "training/visual_log.py", "models/stereodepth.py",
                 "models/foundation.py", "models/blocks/vit.py",

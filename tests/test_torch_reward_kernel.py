@@ -337,4 +337,5 @@ def test_kernel_build_needs_nvcc(monkeypatch):
         pytest.skip("a built kernel library is present")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build()
-    assert _build.sources() == ["msfcn_chain", "svf", "value_iteration"]
+    assert _build.sources() == ["frame_io", "msfcn_chain", "svf",
+                                "value_iteration"]

@@ -628,6 +628,7 @@ def test_unported_options_raise(tmp_path):
                     labels3d=False, scans=False, movability=False,
                     missing_sam=None)
     coda = build_dataset({"name": "coda", "root": str(tmp_path / "coda"),
-                          "grid": 32, "map_range": 1.6, "horizon": 10})
+                          "grid": 32, "map_range": 1.6, "horizon": 10},
+                         "train", "cpu")
     assert isinstance(coda, CodaDataset) and len(coda) == 1
     assert coda[0]["image"].shape == (1, 64, 80, 4)

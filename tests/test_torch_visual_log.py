@@ -122,7 +122,7 @@ def test_coda_training_writes_the_jax_tags(coda_root, tmp_path, stage,
     assert any(r.get("split") == "val" for r in rows)
 
     cfg = compose_cli(root_cfg, argv)
-    ds = build_dataset(cfg["dataset"], "val")
+    ds = build_dataset(cfg["dataset"], "val", "cpu")
     batch = collate([ds[i] for i in range(min(2, len(ds)))])
     model_, _, _ = pipelines.init_stage(stage, cfg["model"],
                                             device="cpu")
