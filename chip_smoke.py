@@ -13,17 +13,29 @@ Phases, each printing one line before the final one:
 1. build: nvcc builds every kernel source of the port (csrc/*.cu).
 2. kernel check: the reward-head kernel (four launches per head) against
    its plain PyTorch version at [1,64,128,40], [3,32,64,40] and the ragged
-   [2,37,53,40].
+   [2,37,53,40]; the splat kernel (csrc/splat.cu) at five input sets (the
+   production [1,19584,2] / [1,19584,96] on 256x256, B=2 with P=1001 and
+   F=16, F=0, every point on one of three cells, points off the grid, on
+   integer and at negative coordinates with inf and NaN features) equal
+   to the bit to its plain version run on the CPU from the same inputs,
+   three launches equal to the bit, the card's plain version (float
+   atomics) within KERNEL_ATOL + KERNEL_RTOL of each voxel's sum of
+   |terms|, and two runs of the card's plain version against each other
+   printed as the control.
 3. main path: the production deployment graph
    (presets.traversability_model_config, RGBD [1,1,512,612,4]) through
    runtime.export.build_inference_fn, with seeded random weights; checks
-   that the kernel was launched four times (one head), that the outputs are
+   that the head kernel was launched four times (one head) and the splat
+   kernel once, that the outputs are
    finite with the JAX package's shapes, and that the reward agrees with
    the same graph run on the CPU.
 4. timing: CUDA-event times of the kernel, its plain version, the library
    yardsticks (cuDNN's seven convolutions alone, and the whole head with
    each layer on cuDNN) and the whole frame, beside the card's name and
-   power limit.
+   power limit; the splat's scatter alone on the main path's own splat
+   inputs (the kernel, each of its kernels under the profiler, the card's
+   plain version, torch.index_add of the precomputed updates, the bound,
+   the votes per voxel) and its share of the splat stage.
 5. MDP kernel check: the value-iteration kernel against its plain version
    to the bit, with the same sweep count, at [10,64,128,1] (non-negative
    reward), [3,16,32,1] (signed, with a goal bump), [20,37,53,1], with
@@ -64,9 +76,11 @@ Phases, each printing one line before the final one:
     PEFreeMSELoss) on views made from synthetic_pefree samples with the
     camera moved 0.2 m per view; then at B=1 the train-mode model with fed
     masks card vs CPU for every output (the backbone from the same image,
-    the splat's bev_features, bev_densities and bev_coords from the card's
-    depth and features), and each loss on the card's outputs, PEFreeMSELoss
-    and an overlap_only MSELoss among them.
+    the splat's bev_features and bev_coords from the card's depth and
+    features; bev_densities, the splat kernel's, equal to the bit to the
+    plain version on the CPU from the card's bev_coords), and each loss on
+    the card's outputs, PEFreeMSELoss and an overlap_only MSELoss among
+    them.
 19. timing stage 0/1: ms per step (CUDA events, inputs on the card) of the
     B=8 depth step, the B=4 distillation step and the B=4 x V=3 PE-free
     step, with the peak memory, the idle share and the top kernels under
@@ -348,6 +362,12 @@ Phases, each printing one line before the final one:
     streaming from pinned host memory at pipeline depth 1 (with the H2D,
     execute and D2H legs) and 2, the packages' compile and load seconds.
 
+The splat kernel's launches are counted wherever the reward head's are:
+one per forward (per frame of each serving variant, the export's reload,
+the server and the host; per training step and validation batch of
+stages 2 and 3, per bf16 step and in the PE-free step; per rank in phases
+29, 30 and 41), two per movability step; an unexpected count fails.
+
 Every parity phase runs with TF32 off for cuDNN convolutions and for
 matmuls (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.
 allow_tf32 = False), so the card computes in f32 like the reference; the
@@ -380,8 +400,9 @@ PEAK_BYTES = 3.35e12  # HBM3
 # kernel vs plain version: f32 with sums in another order
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 # card vs CPU, as max|d| / max(1, max|ref|): one stage from the same input
-# (f32, cuDNN's and the CPU's sums in other orders, atomic splat adds), and
-# the whole frame (see the main-path phase for why it is looser)
+# (f32, cuDNN's and the CPU's sums in other orders; the splat's kernel
+# equals the CPU's plain version to the bit), and the whole frame (see the
+# main-path phase for why it is looser)
 STAGE_RTOL = 1e-3
 FRAME_RTOL = 1e-2
 # each MDP stage card vs CPU (the kernels against their plain versions are
@@ -1074,12 +1095,10 @@ DEPTH_TRAIN_KEYS = frozenset({
 DISTILLATION_TRAIN_KEYS = DEPTH_TRAIN_KEYS | {"MSELoss/loss"}
 # the PE-free multiview step card vs CPU at B=1: the train-mode backbone
 # from the same image and masks, and the max splat on the CPU from the
-# card's depth and features, each map to STAGE_RTOL; bev_densities come
-# from index_add_, whose atomic order varies on the card, so they are held
-# to DENSITY_RTOL of their largest entry (f32 sums of up to 4 * 19,584
-# bilinear weights per element); the losses, an overlap_only MSELoss
-# among them, to SSC_LOSS_RTOL on the card's outputs
-DENSITY_RTOL = 1e-5
+# card's depth and features, each map to STAGE_RTOL; bev_densities, the
+# splat kernel's sums, equal to the bit to the plain version's on the CPU
+# from the card's bev_coords (the splat's xy); the losses, an overlap_only
+# MSELoss among them, to SSC_LOSS_RTOL on the card's outputs
 STAGE01_LOOP_STEPS = 1  # timed steps per stage (after one warm-up)
 
 
@@ -1122,6 +1141,8 @@ def stage01_path(torch, dev, card: str) -> tuple[str, dict]:
         DistillationBackbone,
     )
     from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops import splat as splat_ops
+    from creste_public_tpu_torch.ops import splat_kernel as sk
     from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
     from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
     from creste_public_tpu_torch.training import checkpoint as ckpt
@@ -1134,12 +1155,12 @@ def stage01_path(torch, dev, card: str) -> tuple[str, dict]:
     def reset_launches():
         torch.cuda.synchronize()
         value_iteration_cuda.launches = expected_svf_cuda.launches = 0
-        rk.msfcn_head_cuda.launches = 0
+        rk.msfcn_head_cuda.launches = sk.splat_sums_cuda.launches = 0
 
     def kernel_launches():
         torch.cuda.synchronize()
         return (value_iteration_cuda.launches, expected_svf_cuda.launches,
-                rk.msfcn_head_cuda.launches)
+                rk.msfcn_head_cuda.launches, sk.splat_sums_cuda.launches)
 
     launches = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_stage01_")
@@ -1177,10 +1198,10 @@ def stage01_path(torch, dev, card: str) -> tuple[str, dict]:
                    and not np.isfinite(v)]
             if bad:
                 fail(f"{name} metrics.jsonl line {r} has non-finite {bad}")
-        if launches[f"{name} loop"] != (0, 0, 0):
-            fail(f"the {name} loop launched the VI, SVF and reward-head "
-                 f"kernels {launches[f'{name} loop']} times: its path has "
-                 "none")
+        if launches[f"{name} loop"] != (0, 0, 0, 0):
+            fail(f"the {name} loop launched the VI, SVF, reward-head and "
+                 f"splat kernels {launches[f'{name} loop']} times: its path "
+                 "has none")
         path = ckpt.latest_checkpoint(ckpt_dir)
         if path is None or os.path.basename(path) != "step_2":
             fail(f"the latest {name} checkpoint is {path}")
@@ -1224,9 +1245,10 @@ def stage01_path(torch, dev, card: str) -> tuple[str, dict]:
     reset_launches()
     metrics = step(state, to_device(pefree_np, dev), step_generator(SEED, 0))
     launches["pefree step"] = kernel_launches()
-    if launches["pefree step"] != (0, 0, 0):
-        fail(f"the PE-free step launched the kernels "
-             f"{launches['pefree step']} times: its path has none")
+    if launches["pefree step"] != (0, 0, 0, 1):
+        fail(f"the PE-free step launched the VI, SVF, reward-head and splat "
+             f"kernels {launches['pefree step']} times, not (0, 0, 0, 1): "
+             "one max splat's densities")
     bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
     if bad or "PEFreeMSELoss/loss" not in metrics:
         fail(f"the PE-free step's metrics {sorted(metrics)} (non-finite: "
@@ -1296,10 +1318,15 @@ def stage01_path(torch, dev, card: str) -> tuple[str, dict]:
             ref, what = sp_cpu[k], "splat from the card's inputs"
         else:
             ref, what = out_cpu[k], "backbone"
-        if k == "bev_densities":
-            rel = float((cpu(out[k]) - ref).abs().max()
-                        / ref.abs().max().clamp(min=1e-30))
-            bar = DENSITY_RTOL
+        if k == "bev_densities":  # the kernel's, from the card's xy
+            ref = splat_ops.splat_sums_plain(
+                cpu(out["bev_coords"]), torch.zeros(V, Hs * Ws, 0),
+                (Hg, Wg)).reshape(shp)
+            if not bit_equal(torch, out[k], ref):
+                fail("PE-free bev_densities differ from the CPU's plain "
+                     "version on the card's bev_coords")
+            rel, bar = 0.0, 0.0
+            what = "plain splat from the card's bev_coords, to the bit"
         else:
             _, rel = max_rel(cpu(out[k]), ref)
             bar = STAGE_RTOL
@@ -1460,12 +1487,13 @@ def tensor_gaps(got: dict, want: dict, keys) -> dict[str, float]:
             / max(float(want[k].abs().max()), 1e-2 * scale) for k in keys}
 
 
-def ssc_path(torch, dev, card: str, stage1_dir: str) -> str:
+def ssc_path(torch, dev, card: str, stage1_dir: str) -> tuple[str, tuple]:
     """Phases 13-15: the stage-2 trainer at the production preset through
     its entry point (train_ssc.main) from the stage-1 checkpoints in
     ``stage1_dir`` (the 1->2 graft), one step card vs CPU stage by stage,
     and the step's timing. Returns the directory of the stage-2
-    checkpoints, which the stage-3 loop grafts from."""
+    checkpoints, which the stage-3 loop grafts from, and the kernels'
+    launches of the stage-2 loop."""
     import os
     import tempfile
 
@@ -1482,6 +1510,7 @@ def ssc_path(torch, dev, card: str, stage1_dir: str) -> str:
     )
     from creste_public_tpu_torch.models.terrainnet import TerrainNet
     from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops import splat_kernel as sk
     from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
     from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
     from creste_public_tpu_torch.training import checkpoint as ckpt
@@ -1498,7 +1527,7 @@ def ssc_path(torch, dev, card: str, stage1_dir: str) -> str:
 
     def kernel_launches():
         return (value_iteration_cuda.launches, expected_svf_cuda.launches,
-                rk.msfcn_head_cuda.launches)
+                rk.msfcn_head_cuda.launches, sk.splat_sums_cuda.launches)
 
     # 13. the entry point: trainer=smoke (2 steps), validation, checkpoints,
     # the stage-1 model grafted into depthcomp and kept still by the
@@ -1524,7 +1553,7 @@ def ssc_path(torch, dev, card: str, stage1_dir: str) -> str:
             "trainer.freeze_backbone_epochs=1"]
     torch.cuda.synchronize()
     value_iteration_cuda.launches = expected_svf_cuda.launches = 0
-    rk.msfcn_head_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = sk.splat_sums_cuda.launches = 0
     t0 = time.perf_counter()
     state = train_ssc.main(argv)
     torch.cuda.synchronize()
@@ -1546,9 +1575,10 @@ def ssc_path(torch, dev, card: str, stage1_dir: str) -> str:
                and not np.isfinite(v)]
         if bad:
             fail(f"stage-2 metrics.jsonl line {r} has non-finite {bad}")
-    if launches != (0, 0, 0):
-        fail(f"stage 2 launched the VI, SVF and reward-head kernels "
-             f"{launches} times: its path has no kernel")
+    # one splat per forward: 2 training steps and 1 validation batch
+    if launches != (0, 0, 0, 3):
+        fail(f"stage 2 launched the VI, SVF, reward-head and splat kernels "
+             f"{launches} times, not (0, 0, 0, 3): one splat per forward")
     path = ckpt.latest_checkpoint(ckpt_dir)
     if path is None or os.path.basename(path) != "step_2":
         fail(f"the latest stage-2 checkpoint is {path}")
@@ -1568,8 +1598,9 @@ def ssc_path(torch, dev, card: str, stage1_dir: str) -> str:
           f"for the run keeps its {len(kept)} parameters; "
           f"train_ssc.main(trainer=smoke) at B={B} ran "
           f"{state.step} steps + 1 validation batch in {run_s:.1f} s (data, "
-          f"init, checkpoints included); kernel launches {launches} (none on "
-          "this path); the JAX CLI's keys; losses "
+          f"init, checkpoints included); kernel launches VI / SVF / reward "
+          f"head / splat {launches} (one splat per forward); the JAX CLI's "
+          "keys; losses "
           + ", ".join(f"{r['loss']:.6e}" for r in train_rows)
           + "; grad_norm " + ", ".join(f"{r['grad_norm']:.4e}"
                                        for r in train_rows)
@@ -1889,7 +1920,7 @@ def ssc_path(torch, dev, card: str, stage1_dir: str) -> str:
           + f" ms); peak device memory {peak:.2f} GiB [{card}]", flush=True)
     del model, state, batch
     torch.cuda.empty_cache()
-    return ckpt_dir
+    return ckpt_dir, launches
 
 
 def train_path(torch, dev, card: str, objective_ms: float,
@@ -1918,6 +1949,7 @@ def train_path(torch, dev, card: str, objective_ms: float,
     )
     from creste_public_tpu_torch.models.lfd import MaxEntIRL
     from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops import splat_kernel as sk
     from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
     from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
     from creste_public_tpu_torch.training import checkpoint as ckpt
@@ -1948,11 +1980,12 @@ def train_path(torch, dev, card: str, objective_ms: float,
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     value_iteration_cuda.launches = expected_svf_cuda.launches = 0
-    rk.msfcn_head_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = sk.splat_sums_cuda.launches = 0
     state = train_traversability.main(argv)
     torch.cuda.synchronize()
     loop_launches = (value_iteration_cuda.launches,
-                     expected_svf_cuda.launches, rk.msfcn_head_cuda.launches)
+                     expected_svf_cuda.launches, rk.msfcn_head_cuda.launches,
+                     sk.splat_sums_cuda.launches)
     run_s = time.perf_counter() - t0
     steps = state.step
     rows = [json.loads(line) for line in open(os.path.join(
@@ -1969,12 +2002,14 @@ def train_path(torch, dev, card: str, objective_ms: float,
             fail(f"metrics.jsonl line {r} has non-finite {bad}")
     if not all("grad_norm" in r and "loss" in r for r in train_rows):
         fail("a training line lacks loss or grad_norm")
-    # one VI and one SVF launch per training step and per validation batch
+    # one VI, one SVF and one splat launch per training step and per
+    # validation batch
     n_val = -(-VAL_LENGTH // B)
-    if loop_launches != (steps + n_val, steps + n_val, 0):
-        fail(f"the entry point's run launched VI, SVF and the reward-head "
-             f"kernel {loop_launches} times for {steps} steps and {n_val} "
-             "validation batch(es)")
+    n = steps + n_val
+    if loop_launches != (n, n, 0, n):
+        fail(f"the entry point's run launched VI, SVF, the reward-head and "
+             f"the splat kernel {loop_launches} times for {steps} steps and "
+             f"{n_val} validation batch(es)")
     path = ckpt.latest_checkpoint(ckpt_dir)
     if path is None or os.path.basename(path) != "step_2":
         fail(f"the latest checkpoint is {path}")
@@ -1996,7 +2031,7 @@ def train_path(torch, dev, card: str, objective_ms: float,
     print(f"phase train loop: ok, train_traversability.main(trainer=smoke) "
           f"at B={B} ran {steps} steps + {n_val} validation batch(es) in "
           f"{run_s:.1f} s (data, init, checkpoints included); VI / SVF / "
-          f"reward-head kernel launches {loop_launches}; losses "
+          f"reward-head / splat kernel launches {loop_launches}; losses "
           + ", ".join(f"{r['loss']:.6e}" for r in train_rows)
           + "; grad_norm " + ", ".join(f"{r['grad_norm']:.4e}"
                                        for r in train_rows)
@@ -2026,15 +2061,16 @@ def train_path(torch, dev, card: str, objective_ms: float,
     masks = FedMasks(torch, 64, B)
     torch.cuda.synchronize()
     value_iteration_cuda.launches = expected_svf_cuda.launches = 0
-    rk.msfcn_head_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = sk.splat_sums_cuda.launches = 0
     metrics = step(state, batch, masks)
     torch.cuda.synchronize()
     hook.remove()
     step_launches = (value_iteration_cuda.launches,
-                     expected_svf_cuda.launches, rk.msfcn_head_cuda.launches)
-    if step_launches != (1, 1, 0):
-        fail(f"one training step launched VI, SVF and the reward-head kernel "
-             f"{step_launches} times, not (1, 1, 0)")
+                     expected_svf_cuda.launches, rk.msfcn_head_cuda.launches,
+                     sk.splat_sums_cuda.launches)
+    if step_launches != (1, 1, 0, 1):
+        fail(f"one training step launched VI, SVF, the reward-head and the "
+             f"splat kernel {step_launches} times, not (1, 1, 0, 1)")
     if not all(bool(torch.isfinite(v)) for v in metrics.values()):
         fail(f"non-finite step metrics {metrics}")
     after = model.state_dict()
@@ -2284,15 +2320,17 @@ def train_path(torch, dev, card: str, objective_ms: float,
                 "ckpt_dir": os.path.join(tmp, "loop")}
     torch.cuda.synchronize()
     value_iteration_cuda.launches = expected_svf_cuda.launches = 0
-    rk.msfcn_head_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = sk.splat_sums_cuda.launches = 0
     run_training("traversability", cfg["model"], timed_epoch, None,
                  loop_cfg)
     torch.cuda.synchronize()
     train_launches = (value_iteration_cuda.launches,
-                      expected_svf_cuda.launches, rk.msfcn_head_cuda.launches)
-    if train_launches != (LOOP_STEPS, LOOP_STEPS, 0):
+                      expected_svf_cuda.launches, rk.msfcn_head_cuda.launches,
+                      sk.splat_sums_cuda.launches)
+    if train_launches != (LOOP_STEPS, LOOP_STEPS, 0, LOOP_STEPS):
         fail(f"{LOOP_STEPS} training steps without validation launched VI, "
-             f"SVF and the reward-head kernel {train_launches} times")
+             f"SVF, the reward-head and the splat kernel {train_launches} "
+             "times")
     # the whole window after the two warm-up steps, every gap printed
     gaps = np.diff(fetched)[2:]
     loop_ms = (fetched[-1] - fetched[2]) / (len(fetched) - 3) * 1e3
@@ -2304,11 +2342,12 @@ def train_path(torch, dev, card: str, objective_ms: float,
           f"loop's steady state {loop_ms:.1f} ms per step, loader included "
           f"(the mean over {len(gaps)} steps after warm-up, gaps "
           + ", ".join(f"{g * 1e3:.1f}" for g in gaps)
-          + f" ms; VI / SVF / reward-head kernel launches "
+          + f" ms; VI / SVF / reward-head / splat kernel launches "
           f"{train_launches}); peak device memory {peak:.2f} GiB [{card}]", flush=True)
     shutil.rmtree(tmp, ignore_errors=True)
     return {"train_steps": LOOP_STEPS, "vi": train_launches[0],
-            "svf": train_launches[1]}
+            "svf": train_launches[1], "splat": train_launches[3],
+            "entry_splat": loop_launches[3], "step_splat": step_launches[3]}
 
 
 # TerrainNet's other branches and the last losses: the stage-2 preset with
@@ -2360,7 +2399,7 @@ def trajectory(np_, B: int, T: int, seed: int):
     return out
 
 
-def branches_path(torch, dev, card: str) -> tuple[int, int, int]:
+def branches_path(torch, dev, card: str) -> tuple[int, int, int, int]:
     """Phases 20-22: the movability step at the stage-2 preset (B=8 timed,
     B=1 card vs CPU with the decoder's statistics and a control), two
     temporal chunks of SequenceChunkLoader (timed, card vs CPU, the
@@ -2389,6 +2428,7 @@ def branches_path(torch, dev, card: str) -> tuple[int, int, int]:
     )
     from creste_public_tpu_torch.models.terrainnet import TerrainNet
     from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops import splat_kernel as sk
     from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
     from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
     from creste_public_tpu_torch.training import pipelines
@@ -2429,7 +2469,7 @@ def branches_path(torch, dev, card: str) -> tuple[int, int, int]:
 
     torch.cuda.synchronize()
     value_iteration_cuda.launches = expected_svf_cuda.launches = 0
-    rk.msfcn_head_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = sk.splat_sums_cuda.launches = 0
     root = compose_cli("ssc_sam", [f"model={SSC_MODEL}",
                                    f"dataset={SSC_DATASET}"])
     B = int(root["model"]["batch_size"])
@@ -2458,7 +2498,14 @@ def branches_path(torch, dev, card: str) -> tuple[int, int, int]:
     mv_ms = time_ms(torch, mv_step, iters=1, reps=3, warmup=1)
     mv_peak = torch.cuda.max_memory_allocated() / 2**30
     mv_idle = profiled(mv_step, 2)
+    torch.cuda.synchronize()
+    splat_before = sk.splat_sums_cuda.launches
     m = mv_step()
+    torch.cuda.synchronize()
+    mv_splats = sk.splat_sums_cuda.launches - splat_before
+    if mv_splats != 2:
+        fail(f"the movability step launched the splat kernel {mv_splats} "
+             "times, not 2 (the anchor view's splat and the masked one)")
     names = {k.split("/")[0] for k in m if "/" in k}
     if len(names) != 7 or "VicregLoss/vicreg_loss" not in m or \
             not all(bool(torch.isfinite(v)) for v in m.values()):
@@ -2747,13 +2794,16 @@ def branches_path(torch, dev, card: str) -> tuple[int, int, int]:
     torch.cuda.synchronize()
     launches = (value_iteration_cuda.launches, expected_svf_cuda.launches,
                 rk.msfcn_head_cuda.launches)
+    print(f"  splat kernel launches in phases 20-22: "
+          f"{sk.splat_sums_cuda.launches} (every forward of the timings "
+          f"too); 2 in one movability step (checked) [{card}]", flush=True)
     if launches != (0, 0, 0):
         fail(f"phases 20-22 launched the VI, SVF and reward-head kernels "
              f"{launches} times: their paths have none")
     print("phase merged heads and losses: ok; " + "; ".join(rows)
           + f" (bar {SSC_LOSS_RTOL}); kernel launches in phases 20-22 "
           f"{launches} [{card}]", flush=True)
-    return launches
+    return launches + (mv_splats,)
 
 
 # the runtime (phases 23-28): the serving variants, and their bars card vs
@@ -2848,11 +2898,13 @@ def typical_rel(ref) -> float:
     return float(a.mean()) / max(1.0, float(a.max()))
 
 
-def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
+def runtime_path(torch, dev, card: str, cfg: dict, state: dict,
+                 cpu_reward) -> dict:
     """Phases 23-28: the serving variants timed and held card vs CPU, the
     exported program reloaded, the reference-checkpoint import through
     parity_check, the server's round trip, and the bf16 training steps of
-    stages 3 and 2. Returns the kernels' launches in these phases."""
+    stages 3 and 2, with ``cpu_reward`` the CPU's reward of the fused f32
+    frame (phase 3). Returns the kernels' launches in these phases."""
     import pickle
     import shutil
     import tempfile
@@ -2865,6 +2917,7 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
         build_dataset,
     )
     from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops import splat_kernel as sk
     from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
     from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
     from creste_public_tpu_torch.runtime import benchmark, parity_check, serve
@@ -2888,17 +2941,17 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
     rgbd, p2p = example_inputs(h, w)
     x, p = torch.from_numpy(rgbd).to(dev), torch.from_numpy(p2p).to(dev)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
-    launches: dict = {}
+    launches: dict = {"splat": {}}  # the splat kernel's, per frame
 
     # 23. the serving variants: time, peak, deviation, launches, card vs
     # CPU, against the fused f32 graph's reward
     unfused = build_inference_fn(cfg, state, "cuda", fused_reward=False)
-    ref_out = ref_cpu = None
+    ref_out = None
     rows, failed = [], []
     for name, kw in SERVING_VARIANTS:
         fn = build_inference_fn(cfg, state, "cuda", **kw)
         torch.cuda.synchronize()
-        rk.msfcn_head_cuda.launches = 0
+        rk.msfcn_head_cuda.launches = sk.splat_sums_cuda.launches = 0
         out = fn(x, p)
         torch.cuda.synchronize()
         n = rk.msfcn_head_cuda.launches
@@ -2906,7 +2959,11 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
         if n != want:
             fail(f"the {name} graph launched the reward-head kernel {n} "
                  f"times per frame, not {want}")
+        if sk.splat_sums_cuda.launches != 1:
+            fail(f"the {name} graph launched the splat kernel "
+                 f"{sk.splat_sums_cuda.launches} times per frame, not 1")
         launches[name] = n
+        launches["splat"][name] = sk.splat_sums_cuda.launches
         for k, v in out.items():
             if not bool(torch.isfinite(v.float()).all()):
                 fail(f"the {name} graph's {k} has non-finite values")
@@ -2927,19 +2984,19 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
         if ref_out is None:
             ref_out = {k: v.float().cpu() for k, v in out.items()}
         dev_ref, rel_ref = max_rel(out[REWARD].cpu(), ref_out[REWARD])
-        # card vs CPU: the same variant on the CPU. Not for the unfused
-        # graph: it is the fused f32 one but for its head, which phase 6
-        # holds card vs CPU; its time, launches and distance to fused f32
-        # stand
+        # card vs CPU: the same variant on the CPU. Not for the fused f32
+        # graph, the main path, which phase 3 holds card vs CPU stage by
+        # stage and end to end, nor for the unfused graph: it is the fused
+        # f32 one but for its head, which phase 6 holds card vs CPU; their
+        # times, launches and distances to fused f32 stand
         checks = []  # (what, card vs CPU, bar, how the bar was set)
-        cpu_note = "card vs CPU: phase 6 holds the unfused head"
-        if kw.get("fused_reward") is not False:
+        cpu_note = ("card vs CPU: phase 3 holds this graph" if not kw else
+                    "card vs CPU: phase 6 holds the unfused head")
+        if kw and kw.get("fused_reward") is not False:
             t0 = time.perf_counter()
             fn_cpu = build_inference_fn(cfg, state, "cpu", **kw)
             out_cpu = fn_cpu(rgbd, p2p)
             cpu_s = time.perf_counter() - t0
-            if ref_cpu is None:
-                ref_cpu = out_cpu
             c = {k: v.cpu() for k, v in out.items()}
             bf16 = "compute_dtype" in kw
             for sname, (got_cpu, got_card) in serving_stages(
@@ -2982,7 +3039,8 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
               f"above the resident {resident / 2**30:.3f}); reward max|d| "
               f"from fused f32 {dev_ref:.3e} ({rel_ref:.3e} of max(1, "
               f"max|r| {float(ref_out[REWARD].abs().max()):.3e})); "
-              f"reward-head launches {n}; "
+              f"reward-head launches {n}, splat launches "
+              f"{launches['splat'][name]}; "
               f"{roof['achieved_tflops']:.3f} TFLOP/s of "
               f"{roof['gflop_per_frame']:.2f} GFLOP (unfused count) = "
               f"{roof['share_of_bf16_peak']:.4f} of the bf16, "
@@ -2995,19 +3053,23 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
     if failed:
         fail("serving graphs card vs CPU: " + "; ".join(failed))
     print(f"phase serving graphs: ok, {len(rows)} variants timed, the "
-          f"fused ones held card vs CPU (the unfused head in phase 6; the "
+          f"fused ones held card vs CPU (the fused f32 graph in phase 3, "
+          f"the unfused head in phase 6; the "
           f"depth and reward heads <= {STAGE_RTOL} in every fused "
           f"variant; f32 and fold_bn stages and backbone maps <= "
           f"{STAGE_RTOL}, reward end to end <= {FRAME_RTOL}; bf16 stages "
           f"<= {BF16_STAGE_RTOL}, end to end <= {BF16_NOISE_RATIO} x the "
           f"f32-vs-bf16 control, the backbone maps also <= their typical "
-          f"value), reward-head launches per frame {launches}", flush=True)
+          f"value), reward-head launches per frame "
+          f"{ {k: v for k, v in launches.items() if k != 'splat'} }, splat "
+          f"launches per frame {launches['splat']}", flush=True)
 
     # 24. export: the fused f32 graph through torch.export, reloaded here.
-    # The splat's index_add_ is atomic, so the comparison runs with
-    # deterministic algorithms; a program keeps the cuDNN settings it was
-    # traced under (traced without them, its convolutions ignore them),
-    # so it is exported under them too
+    # The splat is its kernel (creste::splat_sums, the same bits on every
+    # run); the comparison still runs with deterministic algorithms for
+    # cuDNN, and a program keeps the cuDNN settings it was traced under
+    # (traced without them, its convolutions ignore them), so it is
+    # exported under them too
     fn = build_inference_fn(cfg, state, "cuda")
     path = os.path.join(tmp, "graph.pt2")
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -3021,16 +3083,20 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
         with torch.no_grad():
             eager = fn(x, p)
             torch.cuda.synchronize()
-            rk.msfcn_head_cuda.launches = 0
+            rk.msfcn_head_cuda.launches = sk.splat_sums_cuda.launches = 0
             got = module(x, p)
             torch.cuda.synchronize()
             n = rk.msfcn_head_cuda.launches
     finally:
         torch.use_deterministic_algorithms(False)
     launches["export reload"] = n
+    launches["splat"]["export reload"] = sk.splat_sums_cuda.launches
     if n != rk.LAUNCHES_PER_HEAD:
         fail(f"the reloaded program launched the reward-head kernel {n} "
              "times")
+    if sk.splat_sums_cuda.launches != 1:
+        fail(f"the reloaded program launched the splat kernel "
+             f"{sk.splat_sums_cuda.launches} times, not 1")
     if got.keys() != eager.keys() or any(
             not torch.equal(got[k], eager[k]) for k in eager):
         fail("the reloaded program's outputs differ from the eager graph's: "
@@ -3046,8 +3112,8 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
           f"s ({os.path.getsize(path) / 1e6:.1f} MB), reloaded in "
           f"{load_s:.1f} s; the reload's {len(got)} outputs equal the eager "
           f"graph's bit for bit (deterministic algorithms on, at the export "
-          f"and the runs) in {n} "
-          f"reward-head launches; native artifact in {native_s:.1f} s: "
+          f"and the runs) in {n} reward-head launches and "
+          f"{launches['splat']['export reload']} splat launch; native artifact in {native_s:.1f} s: "
           f"{info['program_bytes'] / 1e6:.1f} MB program, "
           f"{info['manifest_lines']} manifest lines: "
           + " | ".join(manifest.strip().splitlines()), flush=True)
@@ -3060,7 +3126,7 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
     torch.save({"state_dict": export_reference_style(state)}, ckpt_path)
     with open(os.path.join(tmp, "sample.pkl"), "wb") as f:
         pickle.dump({"rgbd": rgbd, "p2p": p2p}, f)
-    expected = ref_cpu[REWARD].permute(0, 3, 1, 2).numpy()
+    expected = cpu_reward.permute(0, 3, 1, 2).numpy()
     with open(os.path.join(tmp, "expected.pkl"), "wb") as f:
         pickle.dump({REWARD: expected}, f)
     tol = FRAME_RTOL * max(1.0, float(np.abs(expected).max()))
@@ -3080,7 +3146,7 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
           f"run: worst deviation {res['worst']:.3e} (tol {tol:.3e} = "
           f"{FRAME_RTOL} of max(1, max|ref|), the card-vs-CPU frame bar), "
           "no FAIL", flush=True)
-    del ref_out, ref_cpu
+    del ref_out
 
     # 26. serve --fused in-process: one POST /infer, GET /healthz
     server, engine, stats = serve.build_server(
@@ -3094,7 +3160,7 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
         frame[..., :3] = np.random.default_rng(5).uniform(
             0, 1, frame[..., :3].shape)
         torch.cuda.synchronize()
-        rk.msfcn_head_cuda.launches = 0
+        rk.msfcn_head_cuda.launches = sk.splat_sums_cuda.launches = 0
         t0 = time.perf_counter()
         req = urllib.request.Request(
             f"http://127.0.0.1:{port}/infer", data=frame.tobytes(),
@@ -3104,6 +3170,7 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
             reply = np.frombuffer(r.read(), np.float32).reshape(shape)
         rtt = time.perf_counter() - t0
         n = rk.msfcn_head_cuda.launches
+        launches["splat"]["serve"] = sk.splat_sums_cuda.launches
         want = engine.step(frame, cam)[REWARD].cpu().numpy()
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
                                     timeout=60) as r:
@@ -3116,6 +3183,9 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
     launches["serve"] = n
     if n != rk.LAUNCHES_PER_HEAD:
         fail(f"the server's frame launched the reward-head kernel {n} times")
+    if launches["splat"]["serve"] != 1:
+        fail(f"the server's frame launched the splat kernel "
+             f"{launches['splat']['serve']} times, not 1")
     if reply.shape != want.shape or not np.array_equal(reply, want):
         fail("the server's reply differs from InferenceEngine.step")
     if health.get("status") != "ok":
@@ -3123,7 +3193,8 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
     print(f"phase serve: ok, serve --fused answered POST /infer in "
           f"{rtt * 1e3:.1f} ms round trip ({shape}, equal to "
           f"InferenceEngine.step bit for bit, deterministic algorithms on; "
-          f"{n} reward-head launches); /healthz {health}; warm engine "
+          f"{n} reward-head launches, {launches['splat']['serve']} splat "
+          f"launch); /healthz {health}; warm engine "
           f"p50 {stats['p50_ms']:.3f} ms, p95 {stats['p95_ms']:.3f} ms "
           f"({stats['clock']}) [{card}]", flush=True)
     del server, engine
@@ -3143,11 +3214,11 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
             step = pipelines.make_train_step(stage, model, lm, task)
             torch.cuda.synchronize()
             value_iteration_cuda.launches = expected_svf_cuda.launches = 0
-            rk.msfcn_head_cuda.launches = 0
+            rk.msfcn_head_cuda.launches = sk.splat_sums_cuda.launches = 0
             metrics = step(st, batch, step_generator(SEED, 0))
             torch.cuda.synchronize()
             n = (value_iteration_cuda.launches, expected_svf_cuda.launches,
-                 rk.msfcn_head_cuda.launches)
+                 rk.msfcn_head_cuda.launches, sk.splat_sums_cuda.launches)
             grads = {k: q.grad.float().cpu() for k, q in
                      model.named_parameters() if q.grad is not None}
             bad = [k for k, q in model.state_dict().items()
@@ -3178,9 +3249,10 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
     s3 = steps("traversability", tcfg["model"].to_dict(), tcfg["dataset"],
                ("image", "p2p", "traversability_label", "fov_mask"),
                BF16_B3)
-    if s3["bf16"]["launches"] != (1, 1, 0):
-        fail(f"the bf16 stage-3 step launched VI, SVF and the reward-head "
-             f"kernel {s3['bf16']['launches']} times")
+    if s3["bf16"]["launches"] != (1, 1, 0, 1):
+        fail(f"the bf16 stage-3 step launched VI, SVF, the reward-head and "
+             f"the splat kernel {s3['bf16']['launches']} times, not "
+             "(1, 1, 0, 1)")
     head = [k for k in s3["f32"]["grads"] if k.startswith(
         "traversability_head.")]
     g32 = torch.cat([s3["f32"]["grads"][k].reshape(-1) for k in head])
@@ -3191,8 +3263,8 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
     if any(k.startswith("backbone.") for k in s3["bf16"]["grads"]):
         fail("the bf16 stage-3 step gave the frozen backbone a gradient")
     launches["bf16 stage-3 step"] = s3["bf16"]["launches"]
-    print(f"phase bf16 stage-3 step: ok, B={BF16_B3}: one VI and one SVF "
-          f"launch; {s3['bf16']['ms']:.3f} ms per step, peak "
+    print(f"phase bf16 stage-3 step: ok, B={BF16_B3}: one VI, one SVF and "
+          f"one splat launch; {s3['bf16']['ms']:.3f} ms per step, peak "
           f"{s3['bf16']['peak']:.2f} GiB, against the f32 step's "
           f"{s3['f32']['ms']:.3f} ms, {s3['f32']['peak']:.2f} GiB "
           f"({s3['f32']['ms'] / s3['bf16']['ms']:.3f}x); idle "
@@ -3209,9 +3281,12 @@ def runtime_path(torch, dev, card: str, cfg: dict, state: dict) -> dict:
                ("image", "p2p", "mv_mask", "depth_label", "fimg_label",
                 "fov_mask", "3d_sam_label", "3d_sam_dynamic_label",
                 "elevation_label"), BF16_B2, task="joint")
-    if s2["bf16"]["launches"] != (0, 0, 0):
-        fail(f"the bf16 stage-2 step launched {s2['bf16']['launches']}")
-    print(f"phase bf16 stage-2 step: ok, B={BF16_B2}: "
+    if s2["bf16"]["launches"] != (0, 0, 0, 1):
+        fail(f"the bf16 stage-2 step launched VI, SVF, the reward-head and "
+             f"the splat kernel {s2['bf16']['launches']} times, not "
+             "(0, 0, 0, 1)")
+    launches["splat"]["bf16 stage-2 step"] = s2["bf16"]["launches"][3]
+    print(f"phase bf16 stage-2 step: ok, B={BF16_B2}: one splat launch; "
           f"{s2['bf16']['ms']:.3f} ms per step, peak "
           f"{s2['bf16']['peak']:.2f} GiB, against the f32 step's "
           f"{s2['f32']['ms']:.3f} ms, {s2['f32']['peak']:.2f} GiB "
@@ -3233,12 +3308,15 @@ DP_WORLD = 2
 DP_MASKS = 24  # fed drop-connect masks per rank (9 drawn per forward)
 DP_TIMED_STEPS = 2
 # the two-rank step against its serial emulation: a bar of DP_SPREAD_RATIO
-# times the emulation's own spread on the card (the splat's index_add_ adds
-# with atomics), floored at DP_FLOOR, capped at SSC_GRAD_CAP. The spread is
-# the largest gap between any two of DP_SPREAD_RUNS runs of the emulation:
-# one pair of runs reads anywhere from 2.5e-04 to 1.2e-03 at stage 2 on an
-# H100 80GB HBM3 at 700 W, while the two-rank step reads 5.9e-04 to
-# 9.2e-04 from it, so a bar from one pair can land under a correct step
+# times the emulation's own spread on the card (backward passes that add
+# with atomics; the splat's kernel adds in a fixed order), floored at
+# DP_FLOOR, capped at SSC_GRAD_CAP. The spread is
+# the largest gap between any two of DP_SPREAD_RUNS runs of the emulation.
+# While the splat added with atomics, one pair of runs read anywhere from
+# 2.5e-04 to 1.2e-03 at stage 2 on an H100 80GB HBM3 at 700 W, and the
+# two-rank step 5.9e-04 to 9.2e-04 from it, so a bar from one pair could
+# land under a correct step; with the splat's kernel the pairs read
+# 4.1e-06 to 5.1e-06 at stage 2 and 2.9e-04 to 3.0e-04 at stage 3, not 0
 DP_SPREAD_RATIO = 4.0
 DP_SPREAD_RUNS = 3
 DP_FLOOR = 1e-5
@@ -3288,6 +3366,7 @@ def _dp_rank(rank: int, world: int, init_file: str, case_files: list,
     import torch.distributed as dist
 
     from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops import splat_kernel as sk
     from creste_public_tpu_torch.ops.svf_kernel import expected_svf_cuda
     from creste_public_tpu_torch.ops.vi_kernel import value_iteration_cuda
     from creste_public_tpu_torch.parallel import shard_batch
@@ -3320,13 +3399,14 @@ def _dp_rank(rank: int, world: int, init_file: str, case_files: list,
                 torch.cuda.reset_peak_memory_stats()
             sync()
             value_iteration_cuda.launches = expected_svf_cuda.launches = 0
-            rk.msfcn_head_cuda.launches = 0
+            rk.msfcn_head_cuda.launches = sk.splat_sums_cuda.launches = 0
             metrics = step(state, rows, Feeder(c["masks"][rank]),
                            priorities=pri)
             sync()
             out = dict(launches=(value_iteration_cuda.launches,
                                  expected_svf_cuda.launches,
-                                 rk.msfcn_head_cuda.launches),
+                                 rk.msfcn_head_cuda.launches,
+                                 sk.splat_sums_cuda.launches),
                        grads={k: v.cpu() for k, v in grads_of(model).items()},
                        state={k: v.to("cpu", copy=True) for k, v in
                               model.state_dict().items()},
@@ -3450,13 +3530,15 @@ def dp_step_phase(torch, dev, card: str, phase: int, case: dict,
     B = int(model_cfg["batch_size"])
     b = B // DP_WORLD
 
-    want_launches = (1, 1, 0) if stage == "traversability" else (0, 0, 0)
+    # one splat per rank's forward
+    want_launches = ((1, 1, 0, 1) if stage == "traversability"
+                     else (0, 0, 0, 1))
     for r, res in enumerate(ranks):
         # (a CPU rehearsal launches no kernel: the wrappers' plain path)
         if dev.type == "cuda" and tuple(res["launches"]) != want_launches:
-            fail(f"phase {phase}: rank {r} launched VI, SVF and the "
-                 f"reward-head kernel {res['launches']} times, not "
-                 f"{want_launches}")
+            fail(f"phase {phase}: rank {r} launched VI, SVF, the "
+                 f"reward-head and the splat kernel {res['launches']} "
+                 f"times, not {want_launches}")
     r0, r1 = ranks
     split = [k for k, v in r0["state"].items()
              if not torch.equal(v, r1["state"][k])]
@@ -3507,13 +3589,15 @@ def dp_step_phase(torch, dev, card: str, phase: int, case: dict,
             30: "stage-2 data-parallel step"}[phase]
     print(f"phase {phase} {name}: ok, 2 ranks (gloo over CUDA tensors, "
           f"both on the one card) at global B={B} ({b} per rank), "
-          f"launches per rank VI / SVF / reward head {want_launches}; "
-          f"parameters and running statistics bit-equal across ranks; "
+          f"launches per rank VI / SVF / reward head / splat "
+          f"{want_launches}; parameters and running statistics bit-equal "
+          f"across ranks; "
           f"against the serial emulation: gradient {g_gap:.3e}, running "
           f"statistics {s_gap:.3e}, metrics {m_gap:.3e} <= bar {bar:.3e} "
           f"({DP_SPREAD_RATIO:g} x the emulation's own spread {spread:.3e}, "
           f"the largest of its {len(spreads)} pairs of runs "
-          f"{', '.join(f'{x:.3e}' for x in spreads)}; "
+          f"{', '.join(f'{x:.3e}' for x in spreads)}"
+          f"{': the runs agree to the bit' if spread == 0 else ''}; "
           f"floor {DP_FLOOR:g}, cap {SSC_GRAD_CAP:g}); control (one process, "
           f"B={B}) {c_gap:.3e}; loss {r0['metrics']['loss']:.6e}", flush=True)
     print(f"  timing phase {phase}: {r0['ms']:.1f} / {r1['ms']:.1f} ms per "
@@ -5120,8 +5204,10 @@ SPATIAL_TIMED = ("bf16_fold_bn",)
 # the spatial graph against the one-process graph, as max|d| / max(1,
 # max|ref|). Each stage from the one-process graph's input to it: both on
 # the card in f32 (TF32 off), the layers on strips equal to the frame's to
-# the bit, the splat's halves added with atomics and then all-reduced
-# (up to 8.2e-07 of the grid's scale on an H100 80GB HBM3 at 700 W).
+# the bit, each half of the splat summed by its kernel in a fixed order and
+# then all-reduced: the sum of two halves' sums, not the frame's one sum
+# (up to 8.2e-07 of the grid's scale on an H100 80GB HBM3 at 700 W, read
+# when the halves were added with atomics).
 # End to end, the keys before the splat's features (the backbone's, the
 # splat's coordinates and densities) within the parity bar: of the trunk
 # only its squeeze-excitation means round differently on strips (the sum
@@ -5247,6 +5333,7 @@ def _spatial_variant(torch, job: dict, mesh, dev, timed: bool) -> dict:
     import torch.distributed as dist
 
     from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops import splat_kernel as sk
     from creste_public_tpu_torch.runtime.export import (
         build_spatial_inference_fn,
     )
@@ -5261,10 +5348,11 @@ def _spatial_variant(torch, job: dict, mesh, dev, timed: bool) -> dict:
     p2p = torch.from_numpy(job["p2p"]).to(dev)
     sync()
     dist.barrier()
-    rk.msfcn_head_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = sk.splat_sums_cuda.launches = 0
     out = fn(rgbd, p2p)
     sync()
     res = {"launches": rk.msfcn_head_cuda.launches,
+           "splat_launches": sk.splat_sums_cuda.launches,
            "out": {k: v.detach().cpu() for k, v in out.items()}}
     fed = {k: v.to(dev) for k, v in job["fed"].items()}
     stages = ranks_mod.fed_stages(model, fed, p2p, mesh,
@@ -5473,6 +5561,9 @@ def spatial_check(torch, dev, name: str, job: dict, ref: dict,
             fail(f"phase 41 {name}: rank {r} launched the reward-head kernel "
                  f"{res['launches']} times, not {rk.LAUNCHES_PER_HEAD} "
                  f"(one head on its strip)")
+        if dev.type == "cuda" and res["splat_launches"] != 1:
+            fail(f"phase 41 {name}: rank {r} launched the splat kernel "
+                 f"{res['splat_launches']} times, not 1 (its pixels' sums)")
         if not (res["strip_ok"] and res["own_equal"]):
             fail(f"phase 41 {name}: rank {r}: the kernel on its strip "
                  f"{res['strip_cols']} {res['strip_shape']} is "
@@ -5534,6 +5625,8 @@ def spatial_check(torch, dev, name: str, job: dict, ref: dict,
     print(f"phase 41 spatial inference, {name}"
           f"{' (tiny preset)' if job['tiny'] else ''}: ok, "
           f"{len(ranks)} ranks at RGBD {list(job['rgbd'].shape)}; "
+          f"splat launches per rank "
+          f"{[res['splat_launches'] for res in ranks]}, "
           f"reward-head launches per rank "
           f"{[res['launches'] for res in ranks]} (the kernel once on each "
           f"rank's padded strip "
@@ -5554,6 +5647,7 @@ def spatial_check(torch, dev, name: str, job: dict, ref: dict,
              "bit"),
           flush=True)
     return dict(launches=[res["launches"] for res in ranks],
+                splat_launches=[res["splat_launches"] for res in ranks],
                 strip_err=max(res["strip_err"] for res in ranks), e2e=e2e,
                 max_equal=max_equal)
 
@@ -5635,6 +5729,8 @@ def spatial_path(torch, dev, card: str) -> dict:
                 strip_err=max(c["strip_err"] for c in checked.values()),
                 variant_launches={n: c["launches"]
                                   for n, c in checked.items()},
+                splat_launches={n: c["splat_launches"]
+                                for n, c in checked.items()},
                 times=times, one_ms=one_ms)
 
 
@@ -5788,6 +5884,18 @@ def native_serve_check(torch, dev, card: str, name: str, pending: dict,
     if report["msfcn_head_schema"] != schema:
         fail(f"phase 43 {name}: the host's creste::msfcn_head is "
              f"{report['msfcn_head_schema']!r}, Python's {schema!r}")
+    # the splat: one operator call per frame, on the card its kernel
+    splats = report["splat_sums_launches"]
+    want_splats = frames if dev.type == "cuda" else 0
+    if splats != want_splats or report["splat_sums_calls"] != frames:
+        fail(f"phase 43 {name}: the host called the splat "
+             f"{report['splat_sums_calls']} times and launched its kernel "
+             f"{splats} times over {frames} frames, not {frames} and "
+             f"{want_splats}")
+    splat_schema = str(torch.ops.creste.splat_sums.default._schema)
+    if report["splat_sums_schema"] != splat_schema:
+        fail(f"phase 43 {name}: the host's creste::splat_sums is "
+             f"{report['splat_sums_schema']!r}, Python's {splat_schema!r}")
     for o in report["outputs"]:
         if tuple(o["dims"]) != tuple(got[o["name"]].shape):
             fail(f"phase 43 {name}: the host's {o['name']} is {o['dims']}, "
@@ -5879,7 +5987,9 @@ def native_serve_check(torch, dev, card: str, name: str, pending: dict,
           f"here); the host loaded it in {report['load_s']:.3f} s and "
           f"served {frames} frames with {report['msfcn_head_calls']} calls "
           f"of the C++ {report['msfcn_head_schema']} and {launches} "
-          f"reward-head launches ({launches / frames:.0f} per frame); "
+          f"reward-head launches ({launches / frames:.0f} per frame), "
+          f"{report['splat_sums_calls']} calls of the C++ "
+          f"{report['splat_sums_schema']} and {splats} splat launches; "
           f"{len(held)} outputs within their bars of the eager {name} graph"
           f" end to end (worst {max(held.values(), default=0.0):.3e}) and "
           f"{len(staged)} stage outputs from the host's own inputs; its "
@@ -5888,6 +5998,7 @@ def native_serve_check(torch, dev, card: str, name: str, pending: dict,
           f"{KERNEL_ATOL} + {KERNEL_RTOL}*|ref|), std {spread:.3e}; TF32 "
           f"{'on' if report['tf32'] else 'off'} [{card}]", flush=True)
     return dict(launches=launches, frames=frames, err=err, report=report,
+                splat_launches=splats,
                 package_s=package_s, waited=waited, gaps=gaps, staged=staged,
                 fn=fn, eager=eager)
 
@@ -5991,6 +6102,184 @@ def selected_groups(argv: list[str]) -> set[tuple[int, int]] | None:
     return want
 
 
+SPLAT_GRID = (256, 256)  # the production BEV grid
+SPLAT_P, SPLAT_F = 128 * 153, 96  # the production frame's points, features
+SPLAT_KERNELS = ("vote_keys", "span_sums", "span_scan", "digit_counts",
+                 "digit_scatter", "heavy_voxel_sums", "voxel_sums")
+
+
+def bit_equal(torch, a, b) -> bool:
+    """Equal to the bit (int32 views; a NaN matches any NaN)."""
+    a, b = a.float().contiguous().cpu(), b.float().contiguous().cpu()
+    return a.shape == b.shape and bool(
+        ((a.view(torch.int32) == b.view(torch.int32))
+         | (a.isnan() & b.isnan())).all())
+
+
+def grid_votes(torch, xy, grid):
+    """The flat voxel (over the batch) of every vote that lands on the
+    grid."""
+    H, W = grid
+    x0 = torch.floor(xy.float())
+    b = torch.arange(xy.shape[0], device=xy.device)[:, None] * (H * W)
+    out = []
+    for dx in (0, 1):
+        for dy in (0, 1):
+            x, y = x0[..., 0] + dx, x0[..., 1] + dy
+            on = (x >= 0) & (x < W) & (y >= 0) & (y < H)
+            out.append((b + (y * W + x).nan_to_num(0).long())[on])
+    return torch.cat(out)
+
+
+def splat_cases(torch) -> list:
+    """Phase 2's splat inputs (xy, feats, grid, name), seeded: the
+    production frame's sizes with points over the grid and around it; B=2
+    with P not a multiple of 32 and F=16; F=0; every point on one of three
+    cells; and points off the grid, on integer and at negative coordinates,
+    with inf and NaN features on and off the grid."""
+    rng = np.random.default_rng(SEED)
+    H, W = SPLAT_GRID
+
+    def pts(B, P, F, lo, hi):
+        return (rng.uniform(lo, hi, (B, P, 2)).astype(np.float32),
+                rng.standard_normal((B, P, F)).astype(np.float32))
+
+    cases = [pts(1, SPLAT_P, SPLAT_F, -8.0, 264.0) + (SPLAT_GRID,
+                                                      "production"),
+             pts(2, 1001, 16, -2.0, 66.0) + ((61, 67), "B=2 P=1001 F=16"),
+             pts(1, SPLAT_P, 0, -8.0, 264.0) + (SPLAT_GRID, "F=0")]
+    xy, f = pts(1, SPLAT_P, SPLAT_F, 0.0, 1.0)
+    cells = np.array([[100.25, 120.5], [100.75, 120.5], [3.5, 250.125]],
+                     np.float32)
+    xy[0] = cells[rng.integers(0, 3, SPLAT_P)]
+    cases.append((xy, f, SPLAT_GRID, "three cells"))
+    xy, f = pts(2, 4000, 24, -3.0, 35.0)
+    xy[:, ::3] = np.floor(xy[:, ::3])  # integer coordinates
+    xy[:, 1::7] -= 40.0  # negative, off the grid
+    xy[:, 2::11, 0] = np.inf
+    f[0, 5, 3], f[0, 40, 7], f[1, 2, 0] = np.inf, np.nan, -np.inf
+    cases.append((xy, f, (32, 32), "edges"))
+    return [(torch.from_numpy(a), torch.from_numpy(b), g, n)
+            for a, b, g, n in cases]
+
+
+def splat_kernel_checks(torch, dev) -> None:
+    """Phase 2 (the splat): ``splat_sums_cuda`` on each ``splat_cases``
+    input equal to the bit to the plain version on the CPU from the same
+    inputs, three launches equal to each other, the card's plain version
+    within KERNEL_ATOL/KERNEL_RTOL, and, as the control, two runs of the
+    card's plain version (float atomics) with their distance."""
+    from creste_public_tpu_torch.ops import splat as splat_ops
+    from creste_public_tpu_torch.ops import splat_kernel as sk
+
+    for xy, f, grid, name in splat_cases(torch):
+        xy_d, f_d = xy.to(dev), f.to(dev)
+        sk.splat_sums_cuda.launches = 0
+        runs = [sk.splat_sums_cuda(xy_d, f_d, grid) for _ in range(3)]
+        torch.cuda.synchronize()
+        if sk.splat_sums_cuda.launches != 3:
+            fail(f"splat {name}: {sk.splat_sums_cuda.launches} launches "
+                 "for 3 calls")
+        ref = splat_ops.splat_sums_plain(xy, f, grid)
+        if not bit_equal(torch, runs[0], ref):
+            d = (runs[0].cpu() - ref).abs().nan_to_num(float("inf")).max()
+            fail(f"splat kernel {name} differs from the CPU's plain version "
+                 f"(max|d| {float(d):.3e})")
+        if not all(bit_equal(torch, r, runs[0]) for r in runs[1:]):
+            fail(f"splat kernel {name}: three launches differ")
+        # the card's plain version adds in another order: held to
+        # KERNEL_RTOL of each voxel's sum of |terms| (|ref| where nothing
+        # cancels; a voxel of thousands of signed votes cancels)
+        finite = torch.isfinite(ref)
+        mag = splat_ops.splat_sums_plain(xy, f.abs(), grid)[finite]
+        plain = [splat_ops.splat_sums_plain(xy_d, f_d, grid) for _ in range(2)]
+        err = (runs[0].cpu()[finite] - plain[0].cpu()[finite]).abs()
+        d_card = float(err.max())
+        if not bool((err <= KERNEL_ATOL + KERNEL_RTOL * mag).all()):
+            fail(f"splat kernel {name} vs the card's plain version: max|d| "
+                 f"{d_card:.3e} over {KERNEL_ATOL} + {KERNEL_RTOL} * the "
+                 "sum of |terms|")
+        d_ctl = float((plain[0] - plain[1]).cpu()[finite].abs().max())
+        per_voxel = torch.bincount(grid_votes(torch, xy, grid))
+        print(f"phase kernel check splat {name} {list(xy.shape)} "
+              f"{list(f.shape)} grid {list(grid)}: ok, equal to the CPU's "
+              f"plain version to the bit, 3 launches equal to the bit "
+              f"({int((~finite).sum())} non-finite sums), the card's plain "
+              f"version max|d| {d_card:.3e} (tol {KERNEL_ATOL} + "
+              f"{KERNEL_RTOL} * sum|terms|); control: two runs of the "
+              f"card's plain version max|d| {d_ctl:.3e}; "
+              f"{int(per_voxel.max()) if per_voxel.numel() else 0} votes "
+              "in the fullest voxel", flush=True)
+
+
+def splat_timing(torch, card: str, xy, feats, grid) -> dict:
+    """Phase 4 (the splat): the scatter alone at the main path's own splat
+    inputs: the kernel (CUDA events, and µs per launch of each of its
+    kernels under the profiler), the card's plain version, and
+    ``torch.index_add`` of the precomputed updates as the library's one
+    call, beside the bound."""
+    from creste_public_tpu_torch.ops import splat as splat_ops
+    from creste_public_tpu_torch.ops import splat_kernel as sk
+
+    ref = splat_ops.splat_sums_plain(xy.cpu(), feats.cpu(), grid)
+    got = sk.splat_sums_cuda(xy, feats, grid)
+    if not bit_equal(torch, got, ref):
+        fail("the splat kernel on the main path's inputs differs from the "
+             "CPU's plain version")
+    err = float((got.cpu() - ref).abs().max())
+    flat, upd = splat_ops.votes(xy, feats, grid)
+    upd = upd.reshape(-1, upd.shape[-1])
+    zeros = torch.zeros_like(got).reshape(-1, got.shape[-1])
+    lib_err = float((torch.index_add(zeros, 0, flat, upd).cpu()
+                     - ref.reshape(zeros.shape)).abs().max())
+    k_ms = time_ms(torch, lambda: sk.splat_sums_cuda(xy, feats, grid),
+                   iters=50)
+    p_ms = time_ms(torch, lambda: splat_ops.splat_sums_plain(xy, feats,
+                                                              grid))
+    lib_ms = time_ms(torch, lambda: torch.index_add(zeros, 0, flat, upd),
+                     iters=50)
+    k2_ms = time_ms(torch, lambda: sk.splat_sums_cuda(xy, feats, grid),
+                    iters=50)
+    n = 20
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            sk.splat_sums_cuda(xy, feats, grid)
+        torch.cuda.synchronize()
+    per = {}
+    for e in device_kernels(torch, prof):
+        m = re.search("|".join(SPLAT_KERNELS), e.key)
+        if m:
+            per[m.group(0)] = per.get(m.group(0), 0.0) + (
+                e.self_device_time_total / n)
+    B, P, F = feats.shape
+    nbytes = 4.0 * (xy.numel() + feats.numel() + got.numel())
+    # each vote on the grid: F products and F + 1 sums
+    on_grid = grid_votes(torch, xy, grid)
+    per_voxel = torch.bincount(on_grid)
+    ops = float(on_grid.numel()) * (2 * F + 1)
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    bound_ms = max(t_b, t_o)
+    print(f"  splat kernels under the profiler (per splat): "
+          + "; ".join(f"{k} {v:.1f} us" for k, v in per.items())
+          + f", {sum(per.values()):.1f} us in all [{card}]", flush=True)
+    print(f"phase timing splat: the scatter alone [{B},{P},2] "
+          f"[{B},{P},{F}] on {grid[0]}x{grid[1]}: kernel {k_ms * 1e3:.1f} us "
+          f"(again {k2_ms * 1e3:.1f} us), max|d| from the CPU's plain "
+          f"version {err:.3e}; the card's plain version {p_ms * 1e3:.1f} us; "
+          f"torch.index_add of the precomputed updates {lib_ms * 1e3:.1f} us "
+          f"(max|d| {lib_err:.3e}); bound {bound_ms * 1e3:.2f} us by "
+          f"{bound_by(ops, nbytes)} ({nbytes / 1e6:.3f} MB; {ops / 1e6:.2f} "
+          f"MFLOP); {on_grid.numel()} votes on the grid in "
+          f"{int((per_voxel > 0).sum())} voxels, the fullest "
+          f"{int(per_voxel.max())}, {int((per_voxel > 32).sum())} with more "
+          f"than 32 and {int((per_voxel > 256).sum())} with more than 256 "
+          f"[{card}]", flush=True)
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by(ops, nbytes),
+                profiled_us=per)
+
+
 def head_path(torch, dev, card: str) -> dict:
     """Phases 2-4: the reward-head kernel against its plain version, the
     production deployment graph (main path), card vs CPU, and timing.
@@ -6002,6 +6291,8 @@ def head_path(torch, dev, card: str) -> dict:
     from creste_public_tpu_torch.models.blocks.vin import build_input_view
     from creste_public_tpu_torch.models.lfd import MaxEntIRL
     from creste_public_tpu_torch.ops import reward_kernel as rk
+    from creste_public_tpu_torch.ops import splat as splat_ops
+    from creste_public_tpu_torch.ops import splat_kernel as sk
     from creste_public_tpu_torch.runtime.export import build_inference_fn
 
     # 2. kernel check: the whole head, kernel vs plain
@@ -6030,6 +6321,7 @@ def head_path(torch, dev, card: str) -> dict:
               f"{KERNEL_ATOL} + {KERNEL_RTOL}*|ref|), {alive:.3f} of the "
               f"outputs non-zero, max|ref| {float(ref.abs().max()):.3e}",
               flush=True)
+    splat_kernel_checks(torch, dev)
 
     # 3. main path at the production configuration
     h, w = cfg["vision_backbone"]["vision_backbone"]["effnet_cfgs"][
@@ -6042,13 +6334,17 @@ def head_path(torch, dev, card: str) -> dict:
     rgbd_d = torch.from_numpy(rgbd).to(dev)
     p2p_d = torch.from_numpy(p2p).to(dev)
     torch.cuda.synchronize()
-    rk.msfcn_head_cuda.launches = 0
+    rk.msfcn_head_cuda.launches = sk.splat_sums_cuda.launches = 0
     out = fn(rgbd_d, p2p_d)
     torch.cuda.synchronize()
     launches = rk.msfcn_head_cuda.launches
+    splat_launches = sk.splat_sums_cuda.launches
     if launches != rk.LAUNCHES_PER_HEAD:
         fail(f"the main path launched the reward-head kernel {launches} "
              f"times, not {rk.LAUNCHES_PER_HEAD} (one head)")
+    if splat_launches != 1:
+        fail(f"the main path launched the splat kernel {splat_launches} "
+             "times, not 1 (one splat)")
     expected = {
         "traversability_preds": (1, 64, 128, 1),
         "traversability_preds_full": (1, 256, 256, 1),
@@ -6068,7 +6364,8 @@ def head_path(torch, dev, card: str) -> dict:
         if not bool(torch.isfinite(out[k].float()).all()):
             fail(f"{k} has non-finite values")
     n_in_range = int((out["bev_densities"] > 0).sum())
-    print(f"phase main path: ok, kernel launches {launches}, "
+    print(f"phase main path: ok, kernel launches {launches} (reward head)"
+          f" and {splat_launches} (splat), "
           f"{len(expected)} outputs finite with the reference shapes, "
           f"{n_in_range} BEV cells hit, reward max|r| "
           f"{float(out['traversability_preds'].abs().max()):.4e}",
@@ -6234,9 +6531,26 @@ def head_path(torch, dev, card: str) -> dict:
                 lambda: rk.msfcn_fused_apply(folded_main, build_input_view(
                     out, rcfg["input_keys"], int(rcfg["ds"]))),
         }
+        stage_ms = {}
         for name, f in stages.items():
-            print(f"  stage time {name}: {time_ms(torch, f, 10, 3):.3f} ms "
+            stage_ms[name] = time_ms(torch, f, 10, 3)
+            print(f"  stage time {name}: {stage_ms[name]:.3f} ms "
                   f"[{card}]", flush=True)
+        # the splat's own inputs on this frame
+        seen = []
+        plain_sums = splat_ops.splat_sums
+        splat_ops.splat_sums = lambda *a: seen.append(a) or plain_sums(*a)
+        try:
+            cm.backbone.cam2map(depth4, feats5, p2p_d)
+        finally:
+            splat_ops.splat_sums = plain_sums
+    splat = splat_timing(torch, card, seen[0][0].float().contiguous(),
+                         seen[0][1].float().contiguous(), seen[0][2])
+    splat_stage = stage_ms["splat (backproject, z-MLP, fusion, mean scatter)"]
+    print(f"  the scatter's share of the splat stage: {splat['ms']:.4f} of "
+          f"{splat_stage:.3f} ms, {splat['ms'] / splat_stage:.3f} [{card}]",
+          flush=True)
+    with torch.no_grad():
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -6263,7 +6577,9 @@ def head_path(torch, dev, card: str) -> dict:
           f" GiB [{card}]", flush=True)
     return dict(cfg=cfg, state=state, launches=launches, err=err, ms=k_ms,
                 plain_ms=p_ms, bound_ms=bound_ms, bound_by=head_bound_by,
-                library_ms=lib_ms, conv_ms=conv_ms, once_ms=once_ms)
+                library_ms=lib_ms, conv_ms=conv_ms, once_ms=once_ms,
+                splat=dict(splat, launches=splat_launches),
+                cpu_reward=out_cpu["traversability_preds"])
 
 
 def main() -> None:
@@ -6334,7 +6650,7 @@ def main() -> None:
         stage1_dir, stage01 = stage01_path(torch, dev, card)
         done((16, 19))
     if run((13, 15)):
-        ssc_dir = ssc_path(torch, dev, card, stage1_dir)
+        ssc_dir, ssc_launches = ssc_path(torch, dev, card, stage1_dir)
         done((13, 15))
     if run((9, 12)):
         train = train_path(torch, dev, card, objective_ms, ssc_dir)
@@ -6348,7 +6664,7 @@ def main() -> None:
     # import, the server, the bf16 training steps
     if run((23, 28)):
         runtime_launches = runtime_path(torch, dev, card, head["cfg"],
-                                        head["state"])
+                                        head["state"], head["cpu_reward"])
         done((23, 28))
     # 29-31. data parallelism (two ranks on the one card), multi-task
     # augmented training under torchrun
@@ -6435,6 +6751,35 @@ def main() -> None:
         k["e2e_stage3_steps"] = e2e["trained"]["steps3"]
         k["e2e_val_batches"] = e2e["trained"]["n_val"]
 
+    # the splat kernel's launches on every path that splats (each checked
+    # in its phase)
+    splat_launches = {
+        "pefree_step_launches": stage01["pefree step"][3],
+        "stage01_loop_launches": [stage01[f"{n} loop"][3]
+                                  for n in ("depth", "distillation")],
+        "ssc_loop_launches": ssc_launches[3],
+        "train_loop_launches": train["entry_splat"],
+        "train_step_launches": train["step_splat"],
+        "train_timed_launches": train["splat"],
+        "movability_step_launches": branch_launches[3],
+        "serving_launches": {k: v for k, v in
+                             runtime_launches["splat"].items()
+                             if k in dict(SERVING_VARIANTS)},
+        "export_reload_launches":
+            runtime_launches["splat"]["export reload"],
+        "serve_launches": runtime_launches["splat"]["serve"],
+        "bf16_train_launches": runtime_launches["bf16 stage-3 step"][3],
+        "bf16_ssc_launches": runtime_launches["splat"]["bf16 stage-2 step"],
+        "dp_stage3_launches_per_rank": [r[3] for r in
+                                        dp["stage-3 dp"]["launches"]],
+        "dp_stage2_launches_per_rank": [r[3] for r in
+                                        dp["stage-2 dp"]["launches"]],
+        "spatial_variant_launches_per_rank": spatial["splat_launches"],
+        "native_host_launches": native["served"]["f32"]["splat_launches"],
+        "native_host_bf16_launches":
+            native["served"]["bf16"]["splat_launches"],
+        "native_host_frames": native["frames"],
+    }
     print(json.dumps({"kernels": [{
         "name": "msfcn_head",
         "route": "cuda",
@@ -6477,7 +6822,20 @@ def main() -> None:
         "native_host_bf16_max_abs_err": native["served"]["bf16"]["err"],
     }] + mdp_kernels + [dict(
         coda["kernel"],
-        chain_reader_launches=pre["reader"]["frame_launches"])]}))
+        chain_reader_launches=pre["reader"]["frame_launches"]), {
+        "name": "splat_sums",
+        "route": "cuda",
+        "source": "creste_public_tpu_torch/csrc/splat.cu",
+        "replaces": "creste_public_tpu/ops/splat.py:107",
+        "launches": head["splat"]["launches"],
+        "max_abs_err": head["splat"]["err"],
+        "ms": head["splat"]["ms"],
+        "plain_ms": head["splat"]["plain_ms"],
+        "bound_ms": head["splat"]["bound_ms"],
+        "bound_by": head["splat"]["bound_by"],
+        "library_ms": head["splat"]["library_ms"],
+        "profiled_us_per_kernel": head["splat"]["profiled_us"],
+        **splat_launches}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,10 @@
 //   package <file> <cuda|cpu>
 // This host loads the package (torch::inductor::AOTIModelPackageLoader) and
 // serves it. The package calls the reward head as the operator
-// creste::msfcn_head, which the linked library of csrc/msfcn_head_op.cpp
-// registers: on the card the four launches of csrc/msfcn_chain.cu per frame.
+// creste::msfcn_head and the splat's scatter as creste::splat_sums, which
+// the linked library of csrc/msfcn_head_op.cpp and csrc/splat_op.cpp
+// registers: on the card the four launches of csrc/msfcn_chain.cu and one
+// call of csrc/splat.cu per frame.
 //
 // Usage:
 //   creste_serve_host --artifact DIR [--device cuda|cpu] [--iters 30]
@@ -51,8 +53,9 @@
 //
 // Prints one JSON line: per_frame_ms, hz, load_s, iters, distinct, the
 // seq_* and pipeline_* fields when streaming, outputs (name, dims,
-// checksum), msfcn_head_launches and msfcn_head_calls with frames_run, and
-// the registered operator's schema.
+// checksum), msfcn_head_launches and msfcn_head_calls, splat_sums_launches
+// and splat_sums_calls with frames_run, and the registered operators'
+// schemas.
 #include <ATen/ATen.h>
 #include <ATen/CPUGeneratorImpl.h>
 #include <ATen/core/dispatch/Dispatcher.h>
@@ -78,6 +81,8 @@
 
 extern "C" int64_t creste_msfcn_head_launches();
 extern "C" int64_t creste_msfcn_head_calls();
+extern "C" int64_t creste_splat_sums_launches();
+extern "C" int64_t creste_splat_sums_calls();
 
 namespace {
 
@@ -233,10 +238,13 @@ int main(int argc, char** argv) {
     at::globalContext().setAllowTF32CuBLAS(false);
     at::globalContext().setFloat32MatmulPrecision("highest");
   }
-  const auto schema_op =
-      c10::Dispatcher::singleton().findSchema({"creste::msfcn_head", ""});
-  if (!schema_op) usage_error("creste::msfcn_head is not registered");
-  const std::string schema = toString(schema_op->schema());
+  const auto schema_of = [](const char* name) {
+    const auto op = c10::Dispatcher::singleton().findSchema({name, ""});
+    if (!op) usage_error(std::string(name) + " is not registered");
+    return toString(op->schema());
+  };
+  const std::string schema = schema_of("creste::msfcn_head");
+  const std::string splat_schema = schema_of("creste::splat_sums");
 
   try {
     const at::Device device = cuda ? at::Device(at::kCUDA, 0)
@@ -538,13 +546,17 @@ int main(int argc, char** argv) {
            "\"distinct\": %d, %s\"device\": \"%s\", \"clock\": \"%s\", "
            "\"tf32\": %s, \"frames_run\": %lld, "
            "\"msfcn_head_launches\": %lld, \"msfcn_head_calls\": %lld, "
-           "\"msfcn_head_schema\": \"%s\", \"outputs\": %s}\n",
+           "\"msfcn_head_schema\": \"%s\", \"splat_sums_launches\": %lld, "
+           "\"splat_sums_calls\": %lld, \"splat_sums_schema\": \"%s\", "
+           "\"outputs\": %s}\n",
            per_frame_ms, p50_ms, 1e3 / per_frame_ms, load_s, iters, distinct,
            stream_json.c_str(), device_name.c_str(),
            cuda ? "cuda_events" : "host", cuda && tf32 ? "true" : "false",
            (long long)frames_run, (long long)creste_msfcn_head_launches(),
            (long long)creste_msfcn_head_calls(), json_escape(schema).c_str(),
-           outs_json.c_str());
+           (long long)creste_splat_sums_launches(),
+           (long long)creste_splat_sums_calls(),
+           json_escape(splat_schema).c_str(), outs_json.c_str());
     fflush(stdout);
   } catch (const std::exception& e) {
     fprintf(stderr, "creste_serve_host: %s\n", e.what());

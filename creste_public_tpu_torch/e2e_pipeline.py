@@ -349,8 +349,9 @@ def head_launches() -> int:
 
 @contextlib.contextmanager
 def deterministic():
-    """Deterministic algorithms for the block (the splat's ``index_add_``
-    is atomic on the card), restored after it."""
+    """Deterministic algorithms for the block (cuDNN's choices; the splat
+    is its kernel, the same bits on every run), restored after it. An
+    exported program keeps the cuDNN settings it was traced under."""
     was = torch.are_deterministic_algorithms_enabled()
     warn = torch.is_deterministic_algorithms_warn_only_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)

@@ -10,12 +10,13 @@ package's ``csrc/`` directory. A source that calls a CUDA toolkit library
 links it (``LINK_LIBS``: ``frame_io.cu`` links nvJPEG, with the toolkit's
 library directory as its run path); the others link nothing more.
 
-``build_host`` compiles the C++ registration of ``creste::msfcn_head``
-(``csrc/msfcn_head_op.cpp``, with ``csrc/msfcn_chain.cu`` compiled in for
-the card) into a library and the host (``csrc/serve_host.cpp``) linked to
-it, against the installed torch's headers and libraries, under
-``build/host/``; never load that library into a Python process (it
-registers the operator that ``ops/reward_kernel.py`` registers).
+``build_host`` compiles the C++ registrations of ``creste::msfcn_head``
+and ``creste::splat_sums`` (``OP_SOURCES``, with ``KERNEL_SOURCES``
+compiled in for the card) into one library and the host
+(``csrc/serve_host.cpp``) linked to it, against the installed torch's
+headers and libraries, under ``build/host/``; never load that library into
+a Python process (it registers the operators that ``ops/reward_kernel.py``
+and ``ops/splat_kernel.py`` register).
 """
 from __future__ import annotations
 
@@ -34,8 +35,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 HOST_DIR = BUILD_DIR.parent / "host"
-OP_SOURCE, HOST_SOURCE, KERNEL_SOURCE = (
-    "msfcn_head_op.cpp", "serve_host.cpp", "msfcn_chain.cu")
+HOST_SOURCE = "serve_host.cpp"
+OP_SOURCES = ("msfcn_head_op.cpp", "splat_op.cpp")
+KERNEL_SOURCES = ("msfcn_chain.cu", "splat.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LINK_LIBS = {"frame_io": ["-lnvjpeg"]}
@@ -135,23 +137,24 @@ def host_commands(cuda: bool, work: Path, op_name: str, host_name: str
              f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}"]
     libs = [f"-L{libdir}", f"-Wl,-rpath,{libdir}", "-Wl,--no-as-needed",
             "-ltorch", "-ltorch_cpu", "-lc10"]
-    objs = [str(work / "op.o")]
+    objs = [str(work / f"{Path(src).stem}.o") for src in OP_SOURCES]
     if cuda:
         home = cuda_home()
         flags += ["-DCRESTE_WITH_CUDA", f"-I{home / 'include'}"]
         libs += ["-ltorch_cuda", "-lc10_cuda", f"-L{home / 'lib64'}",
                  "-lcudart_static", "-ldl", "-lrt", "-lpthread"]
-        objs.append(str(work / "chain.o"))
+        objs += [str(work / f"{Path(src).stem}.o") for src in KERNEL_SOURCES]
     compile_ = [[cxx, *flags, *incs, "-c", str(CSRC / src), "-o",
-                 str(work / obj)]
-                for src, obj in ((OP_SOURCE, "op.o"), (HOST_SOURCE, "host.o"))]
-    if cuda:  # the kernel as an object: NVCC_FLAGS' arch, standard, -O3
-        compile_.append([nvcc(), *NVCC_FLAGS[:4], "-c", "-Xcompiler",
-                         "-fPIC", "-o", str(work / "chain.o"),
-                         str(CSRC / KERNEL_SOURCE)])
+                 str(work / f"{Path(src).stem}.o")]
+                for src in (*OP_SOURCES, HOST_SOURCE)]
+    if cuda:  # the kernels as objects: NVCC_FLAGS' arch, standard, -O3
+        compile_ += [[nvcc(), *NVCC_FLAGS[:4], "-c", "-Xcompiler", "-fPIC",
+                      "-o", str(work / f"{Path(src).stem}.o"),
+                      str(CSRC / src)] for src in KERNEL_SOURCES]
     link = [[cxx, "-shared", "-o", str(work / op_name), *objs,
              f"-Wl,-soname,{op_name}", *libs],
-            [cxx, "-o", str(work / host_name), str(work / "host.o"),
+            [cxx, "-o", str(work / host_name),
+             str(work / f"{Path(HOST_SOURCE).stem}.o"),
              f"-L{work}", "-Wl,--no-as-needed", f"-l:{op_name}",
              "-Wl,-rpath,$ORIGIN", *libs]]
     return compile_, link
@@ -166,7 +169,7 @@ def host_paths(cuda: bool) -> tuple[Path, Path]:
     variant = "cuda" if cuda else "cpu"
     h = hashlib.sha256(f"{torch.__version__} {variant} {sys.version}"
                        .encode())
-    for src in (OP_SOURCE, HOST_SOURCE) + ((KERNEL_SOURCE,) if cuda else ()):
+    for src in (*OP_SOURCES, HOST_SOURCE, *(KERNEL_SOURCES if cuda else ())):
         h.update((CSRC / src).read_bytes())
     h.update(repr(host_commands(cuda, Path("W"), "op", "host")).encode())
     tag = f"{variant}-{h.hexdigest()[:16]}"

@@ -8,13 +8,17 @@ splat_projection.py:262-354). Semantics:
   * modes 'sum', 'mean' (sum / clamp(density, min_weight)) and 'max' (max
     of the weighted features against a zero grid, so floored at 0).
 
-Plain PyTorch scatter (``index_add_`` / ``scatter_reduce_``), with the
-density folded in as channel F+1 so that mean and sum take one scatter
-(``splat_sums``; ``finish_splat`` divides, so that sums made apart, on
-the ranks of a width-sharded frame, can be added first; ``splat_max``'s
-grids combine by their maximum). On
-CUDA ``index_add_`` of floats is atomic: the order of the additions, and
-so the last bits of a voxel's sum, vary from run to run.
+The density is folded in as channel F+1, so that mean and sum take one
+scatter (``splat_sums``; ``finish_splat`` divides, so that sums made
+apart, on the ranks of a width-sharded frame, can be added first;
+``splat_max``'s grids combine by their maximum). The sums are the operator
+``creste::splat_sums`` (``ops/splat_kernel.py``): on the card the
+hand-written kernel of ``csrc/splat.cu``, which adds each voxel's votes in
+their order, equal to the bit to ``splat_sums_plain`` (``index_add_``) run
+on the CPU and the same on every run; on the CPU ``splat_sums_plain``
+itself. A 'max' splat's features stay on ``scatter_reduce_(amax)``, whose
+result does not depend on order; its densities are the operator's with no
+feature channel.
 """
 from __future__ import annotations
 
@@ -53,19 +57,39 @@ def _corners(xy: torch.Tensor, grid_hw: tuple[int, int]
     return flat, w4
 
 
+def votes(xy: torch.Tensor, feats: torch.Tensor, grid_hw: tuple[int, int]
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each point's four votes: the flat voxel index [B * 4P] and the
+    update [B, 4P, F+1] f32 (the weighted features, then the weight),
+    corner by corner."""
+    flat, w4 = _corners(xy, grid_hw)
+    upd = w4[..., None] * feats.float().repeat(1, 4, 1)  # [B, 4P, F]
+    return flat, torch.cat([upd, w4[..., None]], dim=-1)
+
+
+def splat_sums_plain(xy: torch.Tensor, feats: torch.Tensor,
+                     grid_hw: tuple[int, int]) -> torch.Tensor:
+    """``splat_sums`` in plain PyTorch (``index_add_`` of ``votes``): the
+    operator's CPU implementation and the kernel's yardstick. On the CPU
+    ``index_add_`` adds a voxel's votes in index order; on the card it
+    adds with float atomics, in an order that varies from run to run."""
+    H, W = grid_hw
+    B, P, F = feats.shape
+    flat, upd = votes(xy, feats, grid_hw)
+    return torch.zeros(B * H * W, F + 1, device=upd.device).index_add_(
+        0, flat, upd.reshape(-1, F + 1)).reshape(B, H * W, F + 1)
+
+
 def splat_sums(xy: torch.Tensor, feats: torch.Tensor,
                grid_hw: tuple[int, int]) -> torch.Tensor:
     """The sums a 'sum' or 'mean' splat divides: [B, H*W, F+1] f32, each
     voxel's bilinearly weighted feature sums, then its density (the sum of
-    the weights). Sums of disjoint point sets add (a frame split across
-    ranks); ``finish_splat`` makes the grids."""
+    the weights), by the operator ``creste::splat_sums`` (xy and feats read
+    in f32). Sums of disjoint point sets add (a frame split across ranks);
+    ``finish_splat`` makes the grids."""
     H, W = grid_hw
-    B, P, F = feats.shape
-    flat, w4 = _corners(xy, grid_hw)
-    upd = w4[..., None] * feats.float().repeat(1, 4, 1)  # [B, 4P, F]
-    upd = torch.cat([upd, w4[..., None]], dim=-1)  # [B, 4P, F+1]
-    return torch.zeros(B * H * W, F + 1, device=w4.device).index_add_(
-        0, flat, upd.reshape(-1, F + 1)).reshape(B, H * W, F + 1)
+    return torch.ops.creste.splat_sums(xy.float().contiguous(),
+                                       feats.float().contiguous(), H, W)
 
 
 def finish_splat(acc: torch.Tensor, mode: str, min_weight: float,
@@ -117,16 +141,16 @@ def splat_max(xy: torch.Tensor, feats: torch.Tensor,
     """A 'max' splat before its cast: [B, H*W, F] f32, each voxel's
     largest bilinearly weighted feature over a zero grid
     (``scatter_reduce_(amax, include_self=True)``), and its density
-    [B, H*W]. The maxima of disjoint point sets combine by their maximum
-    (every grid starts at the same zeros), their densities by their
-    sum."""
+    [B, H*W] (``splat_sums`` with no feature channel). The maxima of
+    disjoint point sets combine by their maximum (every grid starts at the
+    same zeros), their densities by their sum."""
     H, W = grid_hw
     B, P, F = feats.shape
     n_vox = H * W
     flat, w4 = _corners(xy, grid_hw)
     upd = w4[..., None] * feats.float().repeat(1, 4, 1)  # [B, 4P, F]
-    densities = torch.zeros(B * n_vox, device=w4.device).index_add_(
-        0, flat, w4.reshape(-1)).reshape(B, n_vox)
+    xy32 = xy.float()
+    densities = splat_sums(xy32, xy32.new_empty((B, P, 0)), grid_hw)[..., 0]
     features = torch.zeros(B * n_vox, F, device=w4.device).scatter_reduce_(
         0, flat[:, None].expand(-1, F), upd.reshape(-1, F), reduce="amax",
         include_self=True).reshape(B, n_vox, F)
@@ -146,3 +170,7 @@ def splat_to_bev(
     f, d = splat_bilinear(xy, feats, grid_hw, mode, min_weight)
     B, _, F = f.shape
     return f.reshape(B, H, W, F), d.reshape(B, H, W, 1)
+
+
+# registers creste::splat_sums (it imports this module's plain version)
+from creste_public_tpu_torch.ops import splat_kernel  # noqa: E402,F401

@@ -85,9 +85,9 @@ def test_reward_op_launches_the_kernel(cuda, tmp_path):
     fn = build_inference_fn(cfg, model.state_dict(), "cuda")
     path = str(tmp_path / "g.pt2")
     xs = (torch.from_numpy(rgbd).to(cuda), torch.from_numpy(p2p).to(cuda))
-    # the splat's index_add_ is atomic: compare with deterministic
-    # algorithms, and export under them (a program keeps the cuDNN
-    # settings it was traced under)
+    # compare with deterministic algorithms for cuDNN, and export under
+    # them (a program keeps the cuDNN settings it was traced under); the
+    # splat is its kernel, the same bits on every run
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         export_inference_graph(fn.graph, rgbd, p2p, path)
@@ -408,3 +408,48 @@ def test_device_decoder_threads(cuda, tmp_path):
     assert fk.assemble_rgbd_cuda.launches == before + 4 * n
     for i, g in enumerate(got):
         assert np.array_equal(g, want[i % 4]), i
+
+
+def _splat_points(seed, B, P, F, H, W):
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand(B, P, 2, generator=g) * torch.tensor([W + 4.0, H + 4.0])
+    return xy - 2.0, torch.randn(B, P, F, generator=g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,P,F,H,W", [(1, 19584, 96, 256, 256),
+                                       (2, 1001, 16, 61, 67),
+                                       (1, 4000, 0, 32, 32)])
+def test_splat_kernel_equals_cpu_plain_to_the_bit(cuda, B, P, F, H, W):
+    """``splat_sums_cuda`` equals the plain version run on the CPU from the
+    same inputs to the bit, three launches equal each other, and
+    ``creste::splat_sums`` on CUDA tensors is the kernel (one launch)."""
+    from creste_public_tpu_torch.ops import splat as ts
+    from creste_public_tpu_torch.ops import splat_kernel as sk
+
+    xy, f = _splat_points(B + P, B, P, F, H, W)
+    want = ts.splat_sums_plain(xy, f, (H, W))
+    xy_d, f_d = xy.to(cuda), f.to(cuda)
+    runs = [sk.splat_sums_cuda(xy_d, f_d, (H, W)).cpu() for _ in range(3)]
+    for got in runs:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    sk.splat_sums_cuda.launches = 0
+    got = torch.ops.creste.splat_sums(xy_d, f_d, H, W)
+    torch.cuda.synchronize()
+    assert sk.splat_sums_cuda.launches == 1
+    assert torch.equal(got.cpu(), runs[0])
+
+
+@pytest.mark.gpu
+def test_splat_kernel_rejects_bad_input(cuda):
+    from creste_public_tpu_torch.ops import splat_kernel as sk
+
+    xy, f = torch.zeros(1, 8, 2, device=cuda), torch.zeros(1, 8, 3,
+                                                          device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        sk.splat_sums_cuda(xy.double(), f, (4, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.splat_sums_cuda(xy, torch.zeros(1, 8, 6, device=cuda)[..., :3],
+                           (4, 4))
+    with pytest.raises(ValueError, match="does not match"):
+        sk.splat_sums_cuda(xy, f[:, :4], (4, 4))

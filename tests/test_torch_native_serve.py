@@ -1,6 +1,6 @@
 """The libtorch serving host (``csrc/serve_host.cpp``) and the C++
-registration of ``creste::msfcn_head`` (``csrc/msfcn_head_op.cpp``) on the
-CPU, mirroring ``tests/test_native_serve.py`` (the JAX package's PJRT
+registrations of ``creste::msfcn_head`` (``csrc/msfcn_head_op.cpp``) and
+``creste::splat_sums`` (``csrc/splat_op.cpp``) on the CPU, mirroring ``tests/test_native_serve.py`` (the JAX package's PJRT
 host).
 
 One module fixture builds the host with g++ against the installed torch
@@ -10,8 +10,8 @@ head's last relu is alive) moved by ``weights.from_jax_variables``,
 AOT-compiles it into the artifact's package (``compile --native-dir D
 --native-package``) and runs the host once over it with ``--in`` (the
 frame), ``--dump`` and ``--pipeline 2``. The host's process has no Python
-in it; this process never loads the C++ operator's library (both register
-``creste::msfcn_head``).
+in it; this process never loads the C++ operators' library (both register
+``creste::msfcn_head`` and ``creste::splat_sums``).
 
 Tolerances, max|d| / max(1, max|ref|) per output against the port's eager
 graph on the same frame: ``PRE_SPLAT_RTOL`` = 1e-4 for the backbone's
@@ -226,3 +226,16 @@ def test_registered_schema_equals_python_op(served):
     for character."""
     assert served["report"]["msfcn_head_schema"] == str(
         torch.ops.creste.msfcn_head.default._schema)
+
+
+def test_registered_splat_schema_equals_python_op(served):
+    """The C++ library registers ``creste::splat_sums`` with the Python
+    operator's schema, character for character, and the package calls it
+    once per frame the host served; on the CPU it is the plain version and
+    launches no kernel (one launch per frame on the card: chip_smoke phase
+    43)."""
+    report = served["report"]
+    assert report["splat_sums_schema"] == str(
+        torch.ops.creste.splat_sums.default._schema)
+    assert report["splat_sums_calls"] == report["frames_run"]
+    assert report["splat_sums_launches"] == 0

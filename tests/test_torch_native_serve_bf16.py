@@ -213,14 +213,17 @@ def test_reward_matches_plain_head_on_its_input_view(served):
 
 
 def test_head_runs_once_per_frame(served):
-    """The package calls ``creste::msfcn_head`` once per frame the host
-    served (warm-up, timed, sequential and pipelined streaming, the dumped
-    frame); on the CPU it is the plain version and launches no kernel
-    (the four launches per frame on the card: chip_smoke phase 43)."""
+    """The package calls ``creste::msfcn_head`` and ``creste::splat_sums``
+    once per frame the host served (warm-up, timed, sequential and
+    pipelined streaming, the dumped frame); on the CPU they are the plain
+    versions and launch no kernel (the four head launches and one splat
+    launch per frame on the card: chip_smoke phase 43)."""
     report = served["report"]
     assert report["frames_run"] == WARMUP + 3 * ITERS + 1
     assert report["msfcn_head_calls"] == report["frames_run"]
     assert report["msfcn_head_launches"] == 0
+    assert report["splat_sums_calls"] == report["frames_run"]
+    assert report["splat_sums_launches"] == 0
 
 
 def test_host_refuses_an_output_the_manifest_misnames(served, tmp_path):

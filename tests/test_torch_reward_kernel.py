@@ -337,5 +337,5 @@ def test_kernel_build_needs_nvcc(monkeypatch):
         pytest.skip("a built kernel library is present")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build()
-    assert _build.sources() == ["frame_io", "msfcn_chain", "svf",
+    assert _build.sources() == ["frame_io", "msfcn_chain", "splat", "svf",
                                 "value_iteration"]
