@@ -18,10 +18,14 @@ Phases, each printing one line before the final one:
    F=16, F=0, every point on one of three cells, points off the grid, on
    integer and at negative coordinates with inf and NaN features) equal
    to the bit to its plain version run on the CPU from the same inputs,
-   three launches equal to the bit, the card's plain version (float
-   atomics) within KERNEL_ATOL + KERNEL_RTOL of each voxel's sum of
-   |terms|, and two runs of the card's plain version against each other
-   printed as the control.
+   with the path its feature rows took (16-byte or 4-byte cp.async, or
+   none at F=0), three launches equal to the bit, the card's plain
+   version (float atomics) within KERNEL_ATOL + KERNEL_RTOL of each
+   voxel's sum of |terms|, and two runs of the card's plain version
+   against each other printed as the control; the production set with
+   its rows one float off 16 bytes (the 4-byte path) equal to the bit;
+   and one production call captured in a CUDA graph after an eager call,
+   its replay equal to the eager call to the bit.
 3. main path: the production deployment graph
    (presets.traversability_model_config, RGBD [1,1,512,612,4]) through
    runtime.export.build_inference_fn, with seeded random weights; checks
@@ -33,9 +37,12 @@ Phases, each printing one line before the final one:
    yardsticks (cuDNN's seven convolutions alone, and the whole head with
    each layer on cuDNN) and the whole frame, beside the card's name and
    power limit; the splat's scatter alone on the main path's own splat
-   inputs (the kernel, each of its kernels under the profiler, the card's
-   plain version, torch.index_add of the precomputed updates, the bound,
-   the votes per voxel) and its share of the splat stage.
+   inputs (the kernel over eager calls and over replays of a CUDA graph
+   of one call, each of its kernels under the profiler, the card's plain
+   version, torch.index_add of the precomputed updates, the bound, the
+   votes per voxel) and its share of the splat stage; the same at phase
+   2's "three cells" set and at B=8 with the production P, F and grid
+   (points uniform over the grid, and the main path's inputs 8 times).
 5. MDP kernel check: the value-iteration kernel against its plain version
    to the bit, with the same sweep count, at [10,64,128,1] (non-negative
    reward), [3,16,32,1] (signed, with a goal bump), [20,37,53,1], with
@@ -6104,8 +6111,7 @@ def selected_groups(argv: list[str]) -> set[tuple[int, int]] | None:
 
 SPLAT_GRID = (256, 256)  # the production BEV grid
 SPLAT_P, SPLAT_F = 128 * 153, 96  # the production frame's points, features
-SPLAT_KERNELS = ("vote_keys", "span_sums", "span_scan", "digit_counts",
-                 "digit_scatter", "heavy_voxel_sums", "voxel_sums")
+SPLAT_KERNELS = ("vote_keys", "sort_pass", "voxel_sums")
 
 
 def bit_equal(torch, a, b) -> bool:
@@ -6202,7 +6208,8 @@ def splat_kernel_checks(torch, dev) -> None:
         d_ctl = float((plain[0] - plain[1]).cpu()[finite].abs().max())
         per_voxel = torch.bincount(grid_votes(torch, xy, grid))
         print(f"phase kernel check splat {name} {list(xy.shape)} "
-              f"{list(f.shape)} grid {list(grid)}: ok, equal to the CPU's "
+              f"{list(f.shape)} grid {list(grid)}: ok, rows by "
+              f"{sk.row_path(f_d)}, equal to the CPU's "
               f"plain version to the bit, 3 launches equal to the bit "
               f"({int((~finite).sum())} non-finite sums), the card's plain "
               f"version max|d| {d_card:.3e} (tol {KERNEL_ATOL} + "
@@ -6210,12 +6217,46 @@ def splat_kernel_checks(torch, dev) -> None:
               f"card's plain version max|d| {d_ctl:.3e}; "
               f"{int(per_voxel.max()) if per_voxel.numel() else 0} votes "
               "in the fullest voxel", flush=True)
+    xy, f, grid, _ = splat_cases(torch)[0]
+    ref = splat_ops.splat_sums_plain(xy, f, grid)
+    xy_d = xy.to(dev)
+    # the production rows one float off 16 bytes: the 4-byte copy path
+    f_u = torch.empty(f.numel() + 1, device=dev)[1:].view(f.shape)
+    f_u.copy_(f.to(dev))
+    got_u = sk.splat_sums_cuda(xy_d, f_u, grid)
+    if not bit_equal(torch, got_u, ref):
+        fail("splat kernel on unaligned production rows differs from the "
+             "CPU's plain version")
+    # one production call captured in a CUDA graph after an eager call
+    f_d = f.to(dev)
+    eager = sk.splat_sums_cuda(xy_d, f_d, grid)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sk.splat_sums_cuda(xy_d, f_d, grid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = sk.splat_sums_cuda(xy_d, f_d, grid)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not bit_equal(torch, captured, eager):
+        fail("splat kernel: the CUDA-graph replay differs from the eager "
+             "call")
+    print(f"phase kernel check splat production rows one float off 16 "
+          f"bytes: ok, rows by {sk.row_path(f_u)}, equal to the CPU's plain "
+          f"version to the bit; one production call captured in a CUDA "
+          f"graph after an eager call (rows by {sk.row_path(f_d)}): the "
+          f"replay equal to the eager call to the bit", flush=True)
 
 
-def splat_timing(torch, card: str, xy, feats, grid) -> dict:
-    """Phase 4 (the splat): the scatter alone at the main path's own splat
-    inputs: the kernel (CUDA events, and µs per launch of each of its
-    kernels under the profiler), the card's plain version, and
+def splat_timing(torch, card: str, xy, feats, grid,
+                 label: str = "the main path's inputs") -> dict:
+    """Phase 4 (the splat): the scatter alone at ``label``'s inputs (the
+    main path's own splat inputs by default): the kernel (CUDA events over
+    eager calls, which include the wrapper's host time, and over replays of
+    one call captured in a CUDA graph, which do not; and µs per launch of
+    each of its kernels under the profiler), the card's plain version, and
     ``torch.index_add`` of the precomputed updates as the library's one
     call, beside the bound."""
     from creste_public_tpu_torch.ops import splat as splat_ops
@@ -6224,8 +6265,8 @@ def splat_timing(torch, card: str, xy, feats, grid) -> dict:
     ref = splat_ops.splat_sums_plain(xy.cpu(), feats.cpu(), grid)
     got = sk.splat_sums_cuda(xy, feats, grid)
     if not bit_equal(torch, got, ref):
-        fail("the splat kernel on the main path's inputs differs from the "
-             "CPU's plain version")
+        fail(f"the splat kernel on {label} differs from the CPU's plain "
+             "version")
     err = float((got.cpu() - ref).abs().max())
     flat, upd = splat_ops.votes(xy, feats, grid)
     upd = upd.reshape(-1, upd.shape[-1])
@@ -6240,6 +6281,13 @@ def splat_timing(torch, card: str, xy, feats, grid) -> dict:
                      iters=50)
     k2_ms = time_ms(torch, lambda: sk.splat_sums_cuda(xy, feats, grid),
                     iters=50)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = sk.splat_sums_cuda(xy, feats, grid)
+    g_ms = time_ms(torch, graph.replay, iters=50)
+    if not bit_equal(torch, captured, ref):
+        fail(f"the splat kernel's CUDA-graph replay on {label} differs from "
+             "the CPU's plain version")
     n = 20
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -6260,12 +6308,14 @@ def splat_timing(torch, card: str, xy, feats, grid) -> dict:
     ops = float(on_grid.numel()) * (2 * F + 1)
     t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
     bound_ms = max(t_b, t_o)
-    print(f"  splat kernels under the profiler (per splat): "
+    print(f"  splat kernels under the profiler (per splat, {label}): "
           + "; ".join(f"{k} {v:.1f} us" for k, v in per.items())
           + f", {sum(per.values()):.1f} us in all [{card}]", flush=True)
-    print(f"phase timing splat: the scatter alone [{B},{P},2] "
+    print(f"phase timing splat ({label}, rows by {sk.row_path(feats)}): the "
+          f"scatter alone [{B},{P},2] "
           f"[{B},{P},{F}] on {grid[0]}x{grid[1]}: kernel {k_ms * 1e3:.1f} us "
-          f"(again {k2_ms * 1e3:.1f} us), max|d| from the CPU's plain "
+          f"(again {k2_ms * 1e3:.1f} us; a CUDA graph of one call replayed "
+          f"{g_ms * 1e3:.1f} us), max|d| from the CPU's plain "
           f"version {err:.3e}; the card's plain version {p_ms * 1e3:.1f} us; "
           f"torch.index_add of the precomputed updates {lib_ms * 1e3:.1f} us "
           f"(max|d| {lib_err:.3e}); bound {bound_ms * 1e3:.2f} us by "
@@ -6275,9 +6325,9 @@ def splat_timing(torch, card: str, xy, feats, grid) -> dict:
           f"{int(per_voxel.max())}, {int((per_voxel > 32).sum())} with more "
           f"than 32 and {int((per_voxel > 256).sum())} with more than 256 "
           f"[{card}]", flush=True)
-    return dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by(ops, nbytes),
-                profiled_us=per)
+    return dict(err=err, ms=k_ms, graph_ms=g_ms, plain_ms=p_ms,
+                library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by(ops, nbytes), profiled_us=per)
 
 
 def head_path(torch, dev, card: str) -> dict:
@@ -6546,6 +6596,19 @@ def head_path(torch, dev, card: str) -> dict:
             splat_ops.splat_sums = plain_sums
     splat = splat_timing(torch, card, seen[0][0].float().contiguous(),
                          seen[0][1].float().contiguous(), seen[0][2])
+    # the crowded set of phase 2 (13,018 votes in one voxel) and stage 2's
+    # batch (B = 8 at the production P, F and grid)
+    xy3, f3, g3, _ = splat_cases(torch)[3]
+    splat_timing(torch, card, xy3.to(dev), f3.to(dev), g3, "three cells")
+    rng = np.random.default_rng(SEED + 8)
+    xy8 = rng.uniform(-8.0, 264.0, (8, SPLAT_P, 2)).astype(np.float32)
+    f8 = rng.standard_normal((8, SPLAT_P, SPLAT_F)).astype(np.float32)
+    splat_timing(torch, card, torch.from_numpy(xy8).to(dev),
+                 torch.from_numpy(f8).to(dev), SPLAT_GRID,
+                 "B=8, points uniform over the grid")
+    splat_timing(torch, card, seen[0][0].float().repeat(8, 1, 1).contiguous(),
+                 seen[0][1].float().repeat(8, 1, 1).contiguous(), seen[0][2],
+                 "B=8, the main path's inputs 8 times")
     splat_stage = stage_ms["splat (backproject, z-MLP, fusion, mean scatter)"]
     print(f"  the scatter's share of the splat stage: {splat['ms']:.4f} of "
           f"{splat_stage:.3f} ms, {splat['ms'] / splat_stage:.3f} [{card}]",

@@ -18,6 +18,7 @@ serving host.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -40,7 +41,30 @@ def _lib() -> ctypes.CDLL:
     lib.splat_sums_workspace.restype = ctypes.c_longlong
     lib.splat_error_string.argtypes = [ctypes.c_int]
     lib.splat_error_string.restype = ctypes.c_char_p
+    lib.splat_row_path.argtypes = [p, i]
+    lib.splat_row_path.restype = ctypes.c_int
     return lib
+
+
+ROW_PATHS = ("no feature rows", "4-byte cp.async", "16-byte cp.async")
+
+
+def row_path(feats: torch.Tensor) -> str:
+    """How ``csrc/splat.cu`` feeds the feature rows of ``feats`` [B, P, F]
+    to its crowded voxels' adds (``splat_row_path``): 16-byte ``cp.async``
+    of each row's 32-channel slice where F % 4 == 0 and the data is 16-byte
+    aligned (the production F = 96), 4-byte ``cp.async`` a channel
+    otherwise, no rows at F = 0. Both copy paths fill the same ring and
+    give the same bits."""
+    return ROW_PATHS[_lib().splat_row_path(feats.data_ptr(),
+                                           int(feats.shape[-1]))]
+
+
+@functools.lru_cache(maxsize=64)
+def _workspace(B: int, P: int, H: int, W: int, F: int) -> int:
+    """The int32 elements of ``csrc/splat.cu``'s workspace for these sizes
+    (a function of the sizes alone)."""
+    return _lib().splat_sums_workspace(B, P, H, W, F)
 
 
 def check_sizes(B: int, P: int, F: int, H: int, W: int) -> None:
@@ -80,14 +104,17 @@ def splat_sums_cuda(xy: torch.Tensor, feats: torch.Tensor,
     B, P, F = feats.shape
     check_sizes(B, P, F, H, W)
     lib = _lib()
-    work = torch.empty(lib.splat_sums_workspace(B, P, H, W, F),
-                       dtype=torch.int32, device=xy.device)
+    work = torch.empty(_workspace(B, P, H, W, F), dtype=torch.int32,
+                       device=xy.device)
     out = torch.empty((B, H * W, F + 1), dtype=torch.float32,
                       device=xy.device)
-    with torch.cuda.device(xy.device):
-        err = lib.splat_sums(xy.data_ptr(), feats.data_ptr(),
-                             out.data_ptr(), work.data_ptr(), B, P, F, H, W,
-                             torch.cuda.current_stream(xy.device).cuda_stream)
+    stream = torch.cuda.current_stream(xy.device).cuda_stream
+    # switching the current device costs host time on every call
+    with (contextlib.nullcontext()
+          if xy.device.index == torch.cuda.current_device()
+          else torch.cuda.device(xy.device)):
+        err = lib.splat_sums(xy.data_ptr(), feats.data_ptr(), out.data_ptr(),
+                             work.data_ptr(), B, P, F, H, W, stream)
     if err:
         raise RuntimeError(f"splat_sums launch failed: "
                            f"{lib.splat_error_string(err).decode()}")

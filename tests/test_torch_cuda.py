@@ -440,6 +440,59 @@ def test_splat_kernel_equals_cpu_plain_to_the_bit(cuda, B, P, F, H, W):
     assert torch.equal(got.cpu(), runs[0])
 
 
+def _splat_crowded_sets():
+    """(name, xy, feats, grid): phase 2's "three cells" set (every point
+    of a production frame on one of three cells: 13,018 votes in one voxel)
+    and stage 2's batch (B = 8 at the production P, F and grid, points over
+    the grid and around it), seeded."""
+    g = torch.Generator().manual_seed(19)
+    P, F = 128 * 153, 96
+    cells = torch.tensor([[100.25, 120.5], [100.75, 120.5], [3.5, 250.125]])
+    xy3 = cells[torch.randint(0, 3, (1, P), generator=g)]
+    xy8 = torch.rand(8, P, 2, generator=g) * 272.0 - 8.0
+    return [("three cells", xy3, torch.randn(1, P, F, generator=g)),
+            ("B=8", xy8, torch.randn(8, P, F, generator=g))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", [0, 1])
+def test_splat_kernel_crowded_and_batched_equal_cpu(cuda, which):
+    """At the "three cells" set (the crowded warp's chain of 13,018 votes)
+    and at B = 8 (stage 2's batch) the kernel equals the plain version run
+    on the CPU to the bit."""
+    from creste_public_tpu_torch.ops import splat as ts
+    from creste_public_tpu_torch.ops import splat_kernel as sk
+
+    name, xy, f = _splat_crowded_sets()[which]
+    want = ts.splat_sums_plain(xy, f, (256, 256))
+    got = sk.splat_sums_cuda(xy.to(cuda), f.to(cuda), (256, 256)).cpu()
+    if name == "three cells":
+        assert int(want[..., -1].gt(0).sum()) == 8
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F,offset,path", [(96, 0, "16-byte cp.async"),
+                                           (96, 1, "4-byte cp.async"),
+                                           (7, 0, "4-byte cp.async"),
+                                           (0, 0, "no feature rows")])
+def test_splat_kernel_row_paths_equal_cpu(cuda, F, offset, path):
+    """Each way of feeding the feature rows (``row_path``: 16-byte copies
+    of aligned rows, 4-byte copies of rows one float off 16 bytes or of
+    F % 4 != 0, none at F = 0) gives the CPU's bits, crowded voxels
+    included."""
+    from creste_public_tpu_torch.ops import splat as ts
+    from creste_public_tpu_torch.ops import splat_kernel as sk
+
+    xy, f = _splat_points(F + offset, 2, 3000, F, 9, 7)
+    want = ts.splat_sums_plain(xy, f, (9, 7))
+    f_d = torch.empty(f.numel() + offset, device=cuda)[offset:].view(f.shape)
+    f_d.copy_(f.to(cuda))
+    assert sk.row_path(f_d) == path
+    got = sk.splat_sums_cuda(xy.to(cuda), f_d, (9, 7)).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.gpu
 def test_splat_kernel_rejects_bad_input(cuda):
     from creste_public_tpu_torch.ops import splat_kernel as sk

@@ -13,6 +13,10 @@ held to 1e-5 of max(1, max|ref|) (f32 sums in another order). The kernel
 itself runs on the card only (``tests/test_torch_cuda.py``, marked
 ``gpu``); here its wrapper must refuse CPU tensors.
 """
+import ast
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -95,20 +99,26 @@ def test_operator_keeps_non_finite_features():
     assert bool(same.all())
 
 
-@pytest.mark.parametrize("F", [0, 7])
+@pytest.mark.parametrize("F", [0, 7, 96])
 def test_plain_sums_follow_the_ordinal_order(F):
     """The premise of the kernel: the CPU's ``index_add_`` adds each
     voxel's votes in their ordinal order (corner-major, ``votes``' flat
     index), so an explicit f32 loop in that order, from +0, gives the plain
-    version's bits, at hundreds of votes per voxel."""
-    xy, feats, grid = _points(3, B=2, P=2000, F=F, H=4, W=5)
+    version's bits, at hundreds of votes per voxel; at the production width
+    (F = 96) with more than 2,000 votes in one voxel, the long chains of
+    the kernel's crowded-voxel path."""
+    if F == 96:  # a 2 x 2 grid: ~2,500 of the 2 x 4 x 1500 votes a voxel
+        xy, feats, grid = _points(3, B=2, P=1500, F=F, H=2, W=2, lo=-0.5,
+                                  pad=-0.5)
+    else:
+        xy, feats, grid = _points(3, B=2, P=2000, F=F, H=4, W=5)
     xy_t, f_t = torch.from_numpy(xy), torch.from_numpy(feats)
     flat, upd = ts.votes(xy_t, f_t, grid)
     flat, upd = flat.numpy(), upd.reshape(flat.shape[0], F + 1).numpy()
     acc = np.zeros((2 * grid[0] * grid[1], F + 1), np.float32)
     for i in range(flat.shape[0]):
         acc[flat[i]] = acc[flat[i]] + upd[i]
-    assert np.bincount(flat).max() > 300
+    assert np.bincount(flat).max() > (2000 if F == 96 else 300)
     want = ts.splat_sums_plain(xy_t, f_t, grid).reshape(acc.shape).numpy()
     np.testing.assert_array_equal(acc.view(np.int32), want.view(np.int32))
 
@@ -220,6 +230,44 @@ def test_kernel_source_is_built_and_linked_into_the_host():
     assert [Path(s).name for s in srcs] == [
         "msfcn_head_op.cpp", "splat_op.cpp", "serve_host.cpp"]
     assert "W/splat_op.o" in link[0]
+
+
+def _source_kernels() -> list[str]:
+    """The names of the ``__global__`` functions of ``csrc/splat.cu``."""
+    src = (_build.CSRC / "splat.cu").read_text()
+    return re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+        src)
+
+
+def test_every_kernel_is_profiled_by_chip_smoke():
+    """``chip_smoke.py``'s ``SPLAT_KERNELS``, which its phase 4 matches
+    against the profiler's kernel names to give the scatter's breakdown,
+    names every ``__global__`` of ``csrc/splat.cu`` (both read as text), so
+    that a renamed or added kernel cannot drop out of the breakdown."""
+    kernels = _source_kernels()
+    assert len(kernels) >= 3 and len(set(kernels)) == len(kernels)
+    smoke = (Path(__file__).resolve().parents[1] / "chip_smoke.py"
+             ).read_text()
+    m = re.search(r"^SPLAT_KERNELS = (\([^)]*\))", smoke, re.M)
+    assert m, "chip_smoke.py defines no SPLAT_KERNELS"
+    listed = ast.literal_eval(m.group(1))
+    assert sorted(listed) == sorted(kernels), (listed, kernels)
+
+
+def test_kernel_source_stays_capture_safe():
+    """The call can be captured in a CUDA graph: ``csrc/splat.cu`` calls
+    no host synchronisation, no allocation and no device attribute setter
+    (its workspace comes from the caller, sized from shapes alone), and
+    adds no float with an atomic (each voxel is summed in one order)."""
+    src = (_build.CSRC / "splat.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    for call in ("cudaMalloc", "cudaFree", "cudaDeviceSynchronize",
+                 "cudaStreamSynchronize", "cudaMemcpy(", "cudaMemcpyAsync",
+                 "cudaFuncSetAttribute", "cudaEventSynchronize"):
+        assert call not in code, call
+    assert not re.search(r"atomicAdd\(\s*&?\s*(a\.)?(out|wts|ring|acc)", code)
+    assert "cudaMemsetAsync" in code and "cudaGetLastError" in code
 
 
 def test_exported_graph_holds_one_splat_op(tmp_path):
