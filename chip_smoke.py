@@ -210,9 +210,10 @@ Phases, each printing one line before the final one:
 30. stage-2 data-parallel step: the same at global B=8 with the six
     losses and fed SupCon priorities, SupCon's anchors on each rank
     contrasted with the features gathered from both; no kernel launch.
-31. multi-task augmented training: python -m torch.distributed.run
-    --standalone --nproc_per_node=1 -m creste_public_tpu_torch.train_ssc
-    trainer=smoke (NCCL at world size 1) with two tasks, joint and depth,
+31. multi-task augmented training: torchrun --standalone
+    --nproc_per_node=1 -m creste_public_tpu_torch.train_ssc trainer=smoke
+    (NCCL at world size 1; the launcher in chip_smoke's process, the
+    worker in its own) with two tasks, joint and depth,
     at the synthetic_ssc widths and do_augmentation: each task's step
     lines carry the JAX CLI's keys, finite losses, the checkpoint
     restores; the augmented loader's batches bit-equal in thread and
@@ -233,7 +234,9 @@ Phases, each printing one line before the final one:
     equal to the bit to its plain version on nvJPEG's pixels, nvJPEG's
     pixels against PIL's within the bars (and a smooth image's within
     FRAME_SMOOTH_MAX), the plain version on PIL's pixels equal to the
-    card's PIL resize on one frame per sequence and the smooth image; both
+    card's PIL resize on one frame per sequence and the smooth image; the
+    kernel equal to the bit to its plain version at a 4:2:2 frame to
+    512x612 and at the last frame to 64x80 (a smaller tile); both
     readers' samples/s in thread mode with 4 workers, the PIL path's
     decode, PNG and resize ms per sample against the card path's, the
     kernel's µs per launch (CUDA events and profiled) against its bound,
@@ -3616,9 +3619,35 @@ def dp_step_phase(torch, dev, card: str, phase: int, case: dict,
                 ms=[r0["ms"], r1["ms"]])
 
 
+def torchrun(argv: list, log_dir: str) -> None:
+    """``torchrun *argv`` with its launcher in this process (torch is
+    imported already: no second interpreter to start), the worker in a
+    process of its own, its output in files under ``log_dir``; fails with
+    the worker's stderr if it exits with another code than 0. The signal
+    handlers the launcher installs are put back after."""
+    import glob
+    import signal
+
+    from torch.distributed import run
+
+    sigs = (signal.SIGTERM, signal.SIGINT, signal.SIGHUP, signal.SIGQUIT)
+    saved = {sig: signal.getsignal(sig) for sig in sigs}
+    try:
+        run.main(["--log-dir", log_dir, "--redirects", "3", *argv])
+    except Exception as e:  # the launcher's ChildFailedError
+        err = "".join(open(f).read() for f in sorted(glob.glob(
+            os.path.join(log_dir, "**", "stderr.log"), recursive=True)))
+        fail(f"phase 31: the torchrun command failed ({type(e).__name__}): "
+             f"{err[-3000:]}")
+    finally:
+        for sig, handler in saved.items():
+            signal.signal(sig, handler)
+
+
 def multitask_phase(torch, dev, card: str) -> dict:
-    """Phase 31: the stage-2 command under torchrun at world size 1 (NCCL),
-    two tasks, augmentation; the loader's modes."""
+    """Phase 31: the stage-2 command under torchrun at world size 1 (NCCL;
+    the launcher in this process, ``torchrun``), two tasks, augmentation;
+    the loader's modes."""
     import shutil
     import tempfile
 
@@ -3648,15 +3677,11 @@ def multitask_phase(torch, dev, card: str) -> dict:
                 v = "[" + ", ".join(map(str, v)) + "]" if isinstance(
                     v, list) else v
                 args.append(f"dataset.tasks.{task}.{split}.{k}={v}")
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node=1", "-m", "creste_public_tpu_torch.train_ssc",
-           *args]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    torchrun(["--standalone", "--nproc_per_node=1", "-m",
+              "creste_public_tpu_torch.train_ssc", *args],
+             os.path.join(tmp, "logs"))
     run_s = time.perf_counter() - t0
-    if r.returncode != 0:
-        fail(f"phase 31: the torchrun command exited {r.returncode}: "
-             f"{r.stderr[-3000:]}")
     rows = [json.loads(line) for line in open(os.path.join(
         ckpt_dir, "metrics.jsonl"))]
     train_rows = [row for row in rows if "split" not in row]
@@ -3778,6 +3803,11 @@ SECONDARY_RTOL = 1e-4
 FRAME_DECODE_MAX, FRAME_DECODE_MEAN, FRAME_DECODE_SHARE = 8, 0.3, 0.02
 FRAME_SMOOTH_MAX = 4
 FRAME_KERNEL_ITERS = 200
+# phase 32's two more production shapes: a 4:2:2 frame (JPEG subsampling
+# 1) to the reader's size, and the reader's frame to a 16x downscale,
+# which takes a smaller tile (frame_kernel.tile_plan)
+FRAME_422_SUBSAMPLING = 1
+FRAME_SMALL_SIZE = (64, 80)
 READER_EPOCHS = 5  # timed epochs per reader, after one warm-up epoch each
 
 
@@ -3853,8 +3883,9 @@ def frame_checks(torch, dev, root: str, ds, cpu_ds, frames) -> dict:
     the control, its chroma planes one row off, which every limit must
     catch. On the first frame of each sequence and the smooth image: the
     plain version on PIL's pixels against the reader's PIL path (the
-    card's Pillow), to the bit. Returns the readings and the last frame's
-    kernel inputs."""
+    card's Pillow), to the bit. Then the kernel once each at the two other
+    production shapes (``frame_shapes``). Returns the readings and the
+    last frame's kernel inputs."""
     from PIL import Image
 
     from creste_public_tpu_torch.data import coda_constants as cc
@@ -3934,9 +3965,11 @@ def frame_checks(torch, dev, root: str, ds, cpu_ds, frames) -> dict:
                          f"{control[1]:.4f}, share > 1 level "
                          f"{control[2]:.4f}: not over every limit")
             if png is not None:
-                last = (planes, d, nv)
+                last, last_pil = (planes, d, nv), pil
+        shapes = frame_shapes(torch, jpeg, last, last_pil)
     finally:
         jpeg.close()
+    kernel_err = max([kernel_err] + [e for _, e in shapes])
     if failed:
         fail("phase 32: nvJPEG against PIL over the limits: "
              + "; ".join(failed))
@@ -3944,7 +3977,50 @@ def frame_checks(torch, dev, root: str, ds, cpu_ds, frames) -> dict:
                 kernel_err=kernel_err, control=control,
                 decode_ms=statistics.median(decode_s) * 1e3,
                 pil_decode_ms=statistics.median(pil_s) * 1e3,
-                pil_checked=pil_checked, frames=len(cases) - 1, last=last)
+                pil_checked=pil_checked, frames=len(cases) - 1, last=last,
+                shapes=[name for name, _ in shapes])
+
+
+def frame_shapes(torch, jpeg, last, pil) -> list:
+    """``assemble_rgbd`` against its plain version, to the bit and in one
+    launch each, at a 4:2:2 frame (``pil``, the last frame's pixels,
+    encoded at 4:2:2 and decoded by nvJPEG) to the reader's size and at the
+    last frame's planes (4:2:0) to ``FRAME_SMALL_SIZE``. Returns (what, its
+    max |d|) per shape."""
+    import io
+
+    from PIL import Image
+
+    from creste_public_tpu_torch.ops import frame_kernel as fk
+
+    planes, d, _ = last
+    H, W = planes[0].shape
+    buf = io.BytesIO()
+    Image.fromarray(pil).save(buf, "JPEG", quality=90,
+                              subsampling=FRAME_422_SUBSAMPLING)
+    p422 = jpeg.decode(np.frombuffer(buf.getvalue(), np.uint8).copy())
+    if fk.subsampling(H, W, *p422[1].shape) != (2, 1):
+        fail(f"phase 32: the re-encoded frame decoded to chroma planes "
+             f"{tuple(p422[1].shape)}, not 4:2:2")
+    names = {(1, 1): "4:4:4", (2, 1): "4:2:2", (2, 2): "4:2:0"}
+    out = []
+    for ps, size in ((p422, CODA_IMAGE_SIZE), (planes, FRAME_SMALL_SIZE)):
+        sub = fk.subsampling(H, W, *ps[1].shape)
+        what = names[sub]
+        before = fk.assemble_rgbd_cuda.launches
+        got = fk.assemble_rgbd_cuda(ps, d, size).cpu()
+        if fk.assemble_rgbd_cuda.launches != before + 1:
+            fail(f"phase 32: assemble_rgbd at {what} to {size} counted "
+                 f"{fk.assemble_rgbd_cuda.launches - before} launches")
+        want = fk.assemble_rgbd_plain(fk.ycc_to_rgb_plain(*ps), d.cpu(), size)
+        err = float((got - want).abs().max())
+        if err != 0.0:
+            fail(f"phase 32: assemble_rgbd at {what} to {size} differs from "
+                 f"its plain version by {err:.3e}, not 0")
+        tile = fk.tile_plan(H, W, *size, *sub)["layout"][:2]
+        out.append((f"{what} {H}x{W} -> {size[0]}x{size[1]} (tile "
+                    f"{tile[0]}x{tile[1]})", err))
+    return out
 
 
 def frame_kernel_timing(torch, planes, depth, rgb) -> dict:
@@ -4187,7 +4263,8 @@ def coda_reader_phase(torch, dev, card: str, root: str) -> dict:
           f"by nvJPEG ({backend}) and assemble_rgbd, {reader_launches} "
           f"launches for {len(samples)} samples of one view", flush=True)
     print(f"  phase 32 decode: assemble_rgbd equal to its plain version to "
-          f"the bit on the {frames['frames']} frames and the smooth image; "
+          f"the bit on the {frames['frames']} frames and the smooth image, "
+          f"and at {' and '.join(frames['shapes'])}, one launch each; "
           f"the plain version on PIL's pixels equal to the card's PIL resize "
           f"to the bit on {frames['pil_checked']} images; nvJPEG vs PIL "
           f"(uint8 levels) per frame: max|d| "

@@ -20,6 +20,11 @@ vertical one; NEAREST takes the rows and columns Pillow's scaling loop
 accumulates (``nearest_index``). ``assemble_rgbd_plain`` is the resize in
 torch integer ops on the CPU: the tests hold it and ``ycc_to_rgb_plain``
 against PIL, and the card's kernel is held against the two.
+
+The kernel is tiled: ``tile_plan`` cuts the output into tiles, computes
+each tile row's and column's input extent (Pillow's windows are
+monotone) and the shared-memory layout, once per resize, and refuses a
+resize whose single output's window does not fit a block.
 """
 from __future__ import annotations
 
@@ -88,12 +93,119 @@ def frame_tables(H: int, W: int, h: int, w: int) -> dict[str, np.ndarray]:
             "rows": nearest_index(H, h), "cols": nearest_index(W, w)}
 
 
+# The tiled kernel (csrc/frame_io.cu): a block of TILE_THREADS threads
+# owns a tile of th x tw outputs, with every input its windows read staged
+# in shared memory. TILE_SHAPES are tried in order, the first whose
+# largest tile fits SMEM_BUDGET (the H100's opt-in shared memory per
+# block, 227 KB) taken: a strong downscale widens the windows and takes a
+# smaller tile, down to one output. tw is a power of two that divides
+# TILE_THREADS, and th * tw <= TILE_THREADS * OUT_PER_THREAD (the outputs,
+# and their depth values prefetched into registers, per thread).
+TILE_THREADS = 512
+OUT_PER_THREAD = 4
+SMEM_BUDGET = 232448
+TILE_SHAPES = ((20, 64), (16, 64), (16, 32), (8, 32), (8, 16), (4, 16),
+               (4, 8), (2, 8), (2, 4), (1, 4), (1, 2), (1, 1))
+# the int32 layout handed to frame_assemble_rgbd, in this order: the tile
+# (th, tw), the staged rows' pitches (luma and chroma bytes, RGB words),
+# the byte offsets in shared memory of each part (the luma rows at 0), and
+# the bytes in all
+PLAN_FIELDS = ("th", "tw", "luma_pitch", "chroma_pitch", "rgb_pitch", "cb",
+               "cr", "rgb", "hbuf", "hk", "hb", "vk", "vb", "nearest", "lut",
+               "bytes")
+
+
+def axis_extents(bounds: np.ndarray, t: int, n_in: int, s: int
+                 ) -> np.ndarray:
+    """int32 [tiles, 4] for one axis cut into tiles of ``t`` outputs: each
+    tile's luma extent [lo, hi), from its first output's window start to
+    its last one's end, and the chroma extent [clo, chi) that libjpeg's
+    fancy upsampling reads for those luma samples (subsampling ``s``: the
+    one-sample halo each side, clamped at the plane's edges as it clamps).
+    Raises unless the windows are monotone, on which the extents rest."""
+    start = bounds[:, 0].astype(np.int64)
+    end = start + bounds[:, 1]
+    if (np.diff(start) < 0).any() or (np.diff(end) < 0).any():
+        raise ValueError("the resize's windows are not monotone: no tile "
+                         "extent covers them")
+    first = np.arange(0, len(bounds), t)
+    last = np.minimum(first + t, len(bounds)) - 1
+    lo, hi = start[first], end[last]
+    if s == 1:
+        clo, chi = lo, hi
+    else:
+        n_c = -(-n_in // s)
+        clo = np.maximum(lo // s - 1, 0)
+        chi = np.minimum((hi - 1) // s + 2, n_c)
+    return np.stack([lo, hi, clo, chi], axis=1).astype(np.int32)
+
+
+def _staged_pitch(n: int) -> int:
+    """Bytes of a staged plane row of ``n`` bytes: 16-byte chunks from the
+    aligned address at or below its first byte (up to 15 bytes ahead)."""
+    return 16 * (-(-(n + 15) // 16))
+
+
+def _layout(th: int, tw: int, rows: np.ndarray, cols: np.ndarray, kh: int,
+            kv: int) -> dict[str, int]:
+    R = int((rows[:, 1] - rows[:, 0]).max())
+    Rc = int((rows[:, 3] - rows[:, 2]).max())
+    C = int((cols[:, 1] - cols[:, 0]).max())
+    Cc = int((cols[:, 3] - cols[:, 2]).max())
+    out = {"th": th, "tw": tw, "luma_pitch": _staged_pitch(C),
+           "chroma_pitch": _staged_pitch(Cc), "rgb_pitch": C}
+    parts = (("luma", R * out["luma_pitch"]),  # the staged planes
+             ("cb", Rc * out["chroma_pitch"]),
+             ("cr", Rc * out["chroma_pitch"]),
+             ("rgb", 4 * R * C),  # packed RGB per input pixel
+             ("hbuf", 4 * R * tw),  # the horizontal pass per input row
+             ("hk", 4 * kh * tw),  # column weights [kh, tw]
+             ("hb", 8 * tw),  # column (start, count)
+             ("vk", 4 * kv * th),  # row weights [kv, th]
+             ("vb", 8 * th),  # row (start, count)
+             ("nearest", 4 * (th + tw)),  # NEAREST's rows, then columns
+             ("lut", 4 * 256))  # v / 255 for v in 0..255
+    at = 0
+    for name, size in parts:  # each part 16-byte aligned, in this order
+        out[name] = at
+        at += -(-size // 16) * 16
+    out["bytes"] = at
+    return out
+
+
 @functools.lru_cache(maxsize=16)
-def device_tables(H: int, W: int, h: int, w: int,
+def tile_plan(H: int, W: int, h: int, w: int, sh: int, sv: int) -> dict:
+    """The launch plan of one resize [H, W] -> [h, w] at chroma subsampling
+    (sh, sv): the tile, each tile row's and column's extents
+    (``axis_extents``: "rows" [ceil(h / th), 4], "cols" [ceil(w / tw),
+    4]) and the shared-memory layout ("layout", int32 in ``PLAN_FIELDS``
+    order; "bytes"). Raises ValueError, naming the sizes and the limit,
+    when even one output's window does not fit ``SMEM_BUDGET``."""
+    t = frame_tables(H, W, h, w)
+    kh, kv = t["hweights"].shape[1], t["vweights"].shape[1]
+    for th, tw in TILE_SHAPES:
+        rows = axis_extents(t["vbounds"], th, H, sv)
+        cols = axis_extents(t["hbounds"], tw, W, sh)
+        lay = _layout(th, tw, rows, cols, kh, kv)
+        if lay["bytes"] <= SMEM_BUDGET:
+            return {"rows": rows, "cols": cols, "bytes": lay["bytes"],
+                    "layout": np.array([lay[k] for k in PLAN_FIELDS],
+                                       np.int32)}
+    raise ValueError(
+        f"assemble_rgbd cannot resize [{H},{W}] to [{h},{w}]: one output's "
+        f"window takes {lay['bytes']} bytes of shared memory, over the "
+        f"{SMEM_BUDGET} bytes a block may use")
+
+
+@functools.lru_cache(maxsize=16)
+def device_tables(H: int, W: int, h: int, w: int, sh: int, sv: int,
                   device: torch.device) -> dict[str, torch.Tensor]:
-    """``frame_tables`` on ``device``, made once per (sizes, device)."""
-    return {k: torch.from_numpy(v).to(device)
-            for k, v in frame_tables(H, W, h, w).items()}
+    """``frame_tables`` and ``tile_plan``'s extents ("tile_rows",
+    "tile_cols") on ``device``, made once per (sizes, device)."""
+    plan = tile_plan(H, W, h, w, sh, sv)
+    tables = dict(frame_tables(H, W, h, w), tile_rows=plan["rows"],
+                  tile_cols=plan["cols"])
+    return {k: torch.from_numpy(v).to(device) for k, v in tables.items()}
 
 
 def out_size(H: int, W: int, size) -> tuple[int, int]:
@@ -206,7 +318,7 @@ def _lib() -> ctypes.CDLL:
             ("frame_jpeg_info", [i, p, n, ctypes.POINTER(i)]),
             ("frame_jpeg_decode", [p, p, n, p, p, p, i, i, p]),
             ("frame_assemble_rgbd", [p, p, p, i, i, i, i, i, i, p, p, p, i,
-                                     p, p, i, p, p, p, i, i, p])):
+                                     p, p, i, p, p, p, p, p, p, i, i, p])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i
     lib.frame_backend_name.argtypes = []
@@ -307,7 +419,9 @@ def assemble_rgbd_cuda(planes, depth: torch.Tensor | None,
     [H, W], chroma at 4:4:4, 4:2:2 or 4:2:0) and depth uint16 [H, W] (or
     None), all contiguous on one CUDA device, in one launch on the current
     stream: ``assemble_rgbd_plain(ycc_to_rgb_plain(*planes), depth,
-    size)`` to the bit. Raises on anything else and on a launch error.
+    size)`` to the bit, tiled as ``tile_plan`` plans it. Raises on
+    anything else, on a resize whose single output's window does not fit
+    a block's shared memory (before any launch), and on a launch error.
     Adds one to ``assemble_rgbd_cuda.launches`` per launch (loader threads
     call it concurrently)."""
     y, cb, cr = planes
@@ -322,6 +436,8 @@ def assemble_rgbd_cuda(planes, depth: torch.Tensor | None,
                               or tuple(depth.shape) != (H, W)):
         raise ValueError(f"depth must be uint16 [{H},{W}], got "
                          f"{depth.dtype} {tuple(depth.shape)}")
+    h, w = out_size(H, W, size)
+    plan = tile_plan(H, W, h, w, sh, sv)
     if y.device.type != "cuda":
         raise ValueError(f"the planes must be CUDA tensors, got {y.device}")
     inputs = list(planes) + ([] if depth is None else [depth])
@@ -330,8 +446,7 @@ def assemble_rgbd_cuda(planes, depth: torch.Tensor | None,
                          f"{[str(t.device) for t in inputs]}")
     if not all(t.is_contiguous() for t in inputs):
         raise ValueError("planes and depth must be contiguous")
-    h, w = out_size(H, W, size)
-    t = device_tables(H, W, h, w, y.device)
+    t = device_tables(H, W, h, w, sh, sv, y.device)
     out = torch.empty((h, w, 4), dtype=torch.float32, device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
     _check(_lib().frame_assemble_rgbd(
@@ -340,8 +455,10 @@ def assemble_rgbd_cuda(planes, depth: torch.Tensor | None,
         t["hbounds"].data_ptr(), t["hweights"].data_ptr(),
         t["hweights"].shape[1], t["vbounds"].data_ptr(),
         t["vweights"].data_ptr(), t["vweights"].shape[1],
-        t["rows"].data_ptr(), t["cols"].data_ptr(), out.data_ptr(), h, w,
-        stream), "assemble_rgbd launch")
+        t["rows"].data_ptr(), t["cols"].data_ptr(),
+        t["tile_rows"].data_ptr(), t["tile_cols"].data_ptr(),
+        plan["layout"].ctypes.data, out.data_ptr(), h, w, stream),
+        "assemble_rgbd launch")
     with _LAUNCH_LOCK:
         assemble_rgbd_cuda.launches += 1
     return out

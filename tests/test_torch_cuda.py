@@ -277,33 +277,65 @@ def test_train_step_on_card_matches_cpu(cuda):
                                        atol=1e-6)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("H,W,size,sub", [
-    (1024, 1224, (512, 612), (2, 2)), (64, 80, (37, 53), (2, 2)),
-    (32, 40, (64, 80), (2, 1)), (63, 81, (64, 40), (2, 2)),
-    (64, 80, None, (1, 1))])
-@pytest.mark.parametrize("with_depth", [True, False])
-def test_frame_kernel_matches_plain_on_card(cuda, H, W, size, sub,
-                                            with_depth):
-    """``assemble_rgbd`` on the card equals its plain version
-    (``ycc_to_rgb_plain`` then ``assemble_rgbd_plain``) to the bit, in one
-    launch, from random planes at 4:2:0, 4:2:2 and 4:4:4 (odd sizes
-    included)."""
-    from creste_public_tpu_torch.ops import frame_kernel as fk
-
-    g = torch.Generator().manual_seed(H + W)
+def _frame_planes(H, W, sub, with_depth, seed):
+    g = torch.Generator().manual_seed(seed)
     ch, cw = -(-H // sub[1]), -(-W // sub[0])
     planes = [torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
               for shape in ((H, W), (ch, cw), (ch, cw))]
     depth = (torch.randint(0, 65536, (H, W), generator=g,
                            dtype=torch.int32).to(torch.uint16)
              if with_depth else None)
+    return planes, depth
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W,size,sub", [
+    (1024, 1224, (512, 612), (2, 2)), (64, 80, (37, 53), (2, 2)),
+    (32, 40, (64, 80), (2, 1)), (63, 81, (64, 40), (2, 2)),
+    (64, 80, None, (1, 1)), (1024, 1224, (64, 80), (2, 2)),
+    (1024, 1224, (512, 612), (2, 1)), (1024, 1224, (512, 612), (1, 1)),
+    (96, 300, (48, 150), (2, 2)), (64, 80, (1, 40), (2, 2)),
+    (1, 81, (1, 53), (2, 2)), (1, 1, (7, 9), (2, 2))])
+@pytest.mark.parametrize("with_depth", [True, False])
+def test_frame_kernel_matches_plain_on_card(cuda, H, W, size, sub,
+                                            with_depth):
+    """``assemble_rgbd`` on the card equals its plain version
+    (``ycc_to_rgb_plain`` then ``assemble_rgbd_plain``) to the bit, in one
+    launch, from random planes at 4:2:0, 4:2:2 and 4:4:4: the reader's
+    frame at each subsampling and to a 16x downscale (a smaller tile),
+    odd sizes, widths that are no multiple of the tile's, one output row,
+    one input row and a one-pixel upscale."""
+    from creste_public_tpu_torch.ops import frame_kernel as fk
+
+    planes, depth = _frame_planes(H, W, sub, with_depth, H + W)
     before = fk.assemble_rgbd_cuda.launches
     got = fk.assemble_rgbd_cuda([p.to(cuda) for p in planes],
                                 None if depth is None else depth.to(cuda),
                                 size)
     torch.cuda.synchronize()
     assert fk.assemble_rgbd_cuda.launches == before + 1
+    want = fk.assemble_rgbd_plain(fk.ycc_to_rgb_plain(*planes), depth, size)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 8, 13])
+def test_frame_kernel_unaligned_planes(cuda, offset):
+    """Planes that start off a 16-byte boundary (views into a larger
+    buffer, each at ``offset`` bytes): the staged rows' first and last
+    chunks cross the planes' ends and are copied byte by byte; the result
+    is still the plain version's to the bit."""
+    from creste_public_tpu_torch.ops import frame_kernel as fk
+
+    H, W, size = 67, 83, (40, 50)
+    planes, depth = _frame_planes(H, W, (2, 2), True, offset)
+    views = []
+    for p in planes:
+        buf = torch.zeros(p.numel() + 32, dtype=torch.uint8, device=cuda)
+        v = buf[offset:offset + p.numel()].view(p.shape)
+        v.copy_(p)
+        views.append(v)
+    got = fk.assemble_rgbd_cuda(views, depth.to(cuda), size)
     want = fk.assemble_rgbd_plain(fk.ycc_to_rgb_plain(*planes), depth, size)
     assert torch.equal(got.cpu(), want)
 
